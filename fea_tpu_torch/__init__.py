@@ -1,0 +1,47 @@
+"""fea_tpu_torch: the fea-tpu solver in PyTorch, with CUDA kernels for an
+NVIDIA Hopper card (sm_90a).
+
+A port of the JAX package ``fea_tpu`` that takes the same scene in and
+gives the same solution out. It imports torch and NumPy, never JAX. This
+version serves the voxel-box hex8 route; see ROADMAP.md for the rest.
+
+Quick start::
+
+    import fea_tpu_torch as ftt
+
+    nodes, elements = ftt.mesh.box_hex_mesh(32, 32, 320, 0.1, 0.1, 1.0)
+    fixed = ftt.fix_where(nodes, lambda p: p[:, 2] == 0.0, dofs_per_node=3)
+    loads = ...                                   # (N, 3) nodal forces
+    scene = ftt.make_scene(nodes, elements, fixed, loads,
+                           ftt.Material(E=10e6 * ftt.units.psi, nu=0.3),
+                           dtype=torch.float64, device="cuda")
+    sol = ftt.solve(scene, tol=1e-8)
+    sol.displacements, sol.reactions, sol.stats
+"""
+from __future__ import annotations
+
+from . import mesh
+from .config import DEFAULT_CONFIG, SolverConfig
+from .materials import Material, units
+from .scene import FAMILIES, ElementFamily, Scene, fix_where, make_scene, scene_from_numpy
+from .solve import Solution, solve
+from .solvers.cg import SolveStats
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "DEFAULT_CONFIG",
+    "ElementFamily",
+    "FAMILIES",
+    "Material",
+    "Scene",
+    "Solution",
+    "SolveStats",
+    "SolverConfig",
+    "fix_where",
+    "make_scene",
+    "mesh",
+    "scene_from_numpy",
+    "solve",
+    "units",
+]

@@ -1,0 +1,40 @@
+"""K1 and K2 on the card against their plain version (f64) on the card.
+
+Needs a CUDA card and nvcc; skips without a card. This file imports
+neither JAX nor fea_tpu, so it runs where only the port is installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from fea_tpu_torch.elements.hex8 import stiffness_matrix_np
+from fea_tpu_torch.materials import Material
+from fea_tpu_torch.ops import cuda_stencil
+from fea_tpu_torch.ops.cuda_stencil import stencil_apply, stencil_weights
+from fea_tpu_torch.ops.structured import stencil_apply_grid
+
+# K1: f32 rounding of inputs, weights and sums (tests/test_pallas.py's
+# bound); K2: f64, another summation order than the plain version
+BOUNDS = {torch.float32: ("f32", 2e-5), torch.float64: ("f64", 1e-12)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(1, 1, 1), (3, 2, 5), (4, 4, 8), (16, 16, 160)])
+def test_kernels_match_plain_version_on_card(dims):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K1 and K2 have no CPU mode")
+    nx, ny, nz = dims
+    corners = np.array([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0],
+                        [0, 0, 1], [1, 0, 1], [1, 1, 1], [0, 1, 1]], np.float64) * 0.01
+    ke = stiffness_matrix_np(corners, Material(E=1e7, nu=0.3))
+    g64 = torch.as_tensor(np.random.default_rng(6).normal(size=(nz + 1, ny + 1, nx + 1, 3)), device="cuda")
+    want = stencil_apply_grid(torch.as_tensor(ke, device="cuda"), g64, dims)
+    for dt, (key, bound) in BOUNDS.items():
+        n0 = cuda_stencil.LAUNCHES[key]
+        got = stencil_apply(stencil_weights(ke, dt, "cuda"), g64.to(dt).contiguous())
+        torch.cuda.synchronize()
+        assert cuda_stencil.LAUNCHES[key] == n0 + 1
+        rel = float((got.double() - want).abs().max() / want.abs().max())
+        assert rel < bound, (dims, key, rel)
