@@ -6,49 +6,86 @@
 Phases, in order:
   1. device: the card's name and power limit (nvidia-smi), torch, CUDA
      and nvcc versions; raises without a card;
-  2. build: compiles K1/K2 (fea_tpu_torch/csrc/stencil.cu, sm_90a);
-  3. kernels vs plain version on the card, at small shapes and at every
-     grid the flagship solve gives them, with random inputs from a NumPy
-     seed: K1 within 2e-5 and K2 within 1e-12 (max error relative to
-     max|K u|) of the plain version run in f64; CUDA-event times of each
-     kernel and of its plain version at the flagship grid;
-  4. slice: the flagship cantilever (32x32x320 voxels, 1,048,707 DOF, the
-     yardstick of bench.py) through ``fea_tpu_torch.solve`` on the card,
+  2. build: compiles K1/K2 (fea_tpu_torch/csrc/stencil.cu) and K4/K5
+     (fea_tpu_torch/csrc/varstencil.cu) for sm_90a, one nvcc each, in
+     parallel;
+  3. K1/K2 against their plain version on the card, at small shapes and at
+     every grid the flagship solve gives them, with random inputs from a
+     NumPy seed: K1 within 2e-5 and K2 within 1e-12 (max error relative to
+     max|K u|) of the plain version run in f64; at the flagship grid, the
+     CUDA-event times of each kernel, of its plain version and of one
+     cuSPARSE CSR SpMV of the same operator, beside the kernel's bound;
+  4. voxel slice: the flagship cantilever (32x32x320 voxels, 1,048,707
+     DOF, the yardstick of bench.py) through ``fea_tpu_torch.solve``,
      checked by a true residual recomputed on the host in NumPy f64
      (independent of the kernels), the tip deflection against beam
      theory, and the launch counters of K1 and K2 over that one solve;
-  5. one JSON line of the kernels, then the last line
+  5. K4/K5 against their plain version on the card, as in phase 3, with
+     random weights and input at small shapes and at every level grid of
+     the 811,923-DOF curvilinear hierarchy: K4 within 2e-5, K5 within
+     1e-12; times, library call and bound at the fine grid;
+  6. curvilinear slice: the distorted 40x40x160 cantilever of
+     tools/curv_bench.py (811,923 DOF) through ``fea_tpu_torch.solve``,
+     checked on the host by an element-by-element K u in NumPy f64 that
+     shares no code with the package, the tip deflection, and the launch
+     counters (K4/K5 launched, K1/K2 not); before it, the routing
+     detectors and the first torch.linalg call timed apart; after it, the
+     stage times, the level grids, the peak memory, and a torch.profiler
+     trace of the FCG stage (device busy share and launches per
+     iteration);
+  7. canonicalized slice: the 24x24x96 distorted scene of
+     tools/canon_bench.py (181,875 DOF) with its nodes renumbered by a
+     seeded permutation, through ``fea_tpu_torch.solve``; its solution,
+     permuted back, is checked against the host f64 true residual of the
+     original system;
+  8. one JSON line of the kernels, the card's line, then the last line
      ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the last line.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
-import os
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
 
-ROOT = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, ROOT)
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
 
-K1_TOL = 2e-5  # tests/test_pallas.py's bound for the f32 stencil
-K2_TOL = 1e-12
+DEV = "cuda"
 FLAGSHIP = (32, 32, 320)
 SHAPES = [(1, 1, 1), (3, 2, 5), (4, 4, 8), (4, 4, 40), (8, 8, 80), (16, 16, 160), FLAGSHIP]
+CURV = (40, 40, 160)  # bench.py's curvilinear_812k
+CANON = (24, 24, 96)  # bench.py's canonicalized
+VAR_SMALL = [(1, 1, 1), (3, 4, 6)]
 TIP_BAND = (0.70, 1.30)  # bench.py's band for the FEM / beam-theory tip ratio
 MAX_ITERS = 16
+CURV_MAX_ITERS = 80
+CANON_TOL = 2e-8
+# NVIDIA H100 SXM data sheet: 3.35 TB/s of HBM3; 67 TFLOP/s f32 and
+# 34 TFLOP/s f64 outside the tensor cores, at the full 700 W
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 KERNELS = {
-    "f32": dict(name="K1 stencil_apply_f32", replaces="fea_tpu/ops/pallas_stencil.py:540",
-                dtype=torch.float32, tol=K1_TOL),
-    "f64": dict(name="K2 stencil_apply_f64", replaces="fea_tpu/ops/pallas_stencil.py:756",
-                dtype=torch.float64, tol=K2_TOL),
+    "f32": dict(name="K1 stencil_apply_f32", source="fea_tpu_torch/csrc/stencil.cu",
+                replaces="fea_tpu/ops/pallas_stencil.py:540", dtype=torch.float32, tol=2e-5),
+    "f64": dict(name="K2 stencil_apply_f64", source="fea_tpu_torch/csrc/stencil.cu",
+                replaces="fea_tpu/ops/pallas_stencil.py:756", dtype=torch.float64, tol=1e-12),
+    "var_f32": dict(name="K4 var_apply_f32", source="fea_tpu_torch/csrc/varstencil.cu",
+                    replaces="fea_tpu/ops/pallas_varstencil.py:183", dtype=torch.float32, tol=2e-5),
+    "var_f64": dict(name="K5 var_apply_f64", source="fea_tpu_torch/csrc/varstencil.cu",
+                    replaces="fea_tpu/ops/pallas_varstencil.py:277", dtype=torch.float64, tol=1e-12),
 }
+STENCIL_KEYS = ("f32", "f64")
+VAR_KEYS = ("var_f32", "var_f64")
 
 
 def say(msg: str) -> None:
@@ -73,6 +110,65 @@ def event_ms(fn, runs: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def neighbour_terms(Z: int, Y: int, X: int) -> int:
+    """(node, offset) pairs with the neighbour inside the grid: each axis
+    of n points has 3n - 2 of them."""
+    return (3 * Z - 2) * (3 * Y - 2) * (3 * X - 2)
+
+
+def bound(dtype: torch.dtype, nbytes: int, flops: int) -> tuple[float, str]:
+    """Least time on the card: the larger of the bytes over the memory
+    rate and the operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def stencil_csr(w: torch.Tensor) -> torch.Tensor:
+    """The (3N, 3N) CSR matrix of a (27, 3, 3, Z, Y, X) block stencil
+    (neighbours outside the grid dropped), built on w's device with int32
+    indices, rows in order so that no sort is needed."""
+    from fea_tpu_torch.ops.curvilinear import _OFFSETS
+
+    Z, Y, X = w.shape[3:]
+    N = Z * Y * X
+    dev = w.device
+    z, y, x = torch.meshgrid(*(torch.arange(n, device=dev) for n in (Z, Y, X)), indexing="ij")
+    valid = torch.stack([
+        (z + dz >= 0) & (z + dz < Z) & (y + dy >= 0) & (y + dy < Y) & (x + dx >= 0) & (x + dx < X)
+        for dz, dy, dx in _OFFSETS
+    ], dim=-1).reshape(N, 27)
+    off = torch.tensor([(dz * Y + dy) * X + dx for dz, dy, dx in _OFFSETS], device=dev)
+    n = torch.arange(N, device=dev)
+    # entry (row 3n + r, column 3(n + off_d) + c), ordered (n, r, d, c)
+    col = 3 * (n[:, None, None, None] + off[None, None, :, None]) + torch.arange(3, device=dev)
+    col = col.expand(N, 3, 27, 3)
+    val = w.reshape(27, 3, 3, N).permute(3, 1, 0, 2)
+    keep = valid[:, None, :, None].expand(N, 3, 27, 3)
+    per_row = (3 * valid.sum(dim=1)).repeat_interleave(3)
+    crow = torch.zeros(3 * N + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(per_row, 0)
+    return torch.sparse_csr_tensor(
+        crow.to(torch.int32), col[keep].to(torch.int32), val[keep], size=(3 * N, 3 * N)
+    )
+
+
+def library_ms(w: torch.Tensor, g: torch.Tensor, want: torch.Tensor) -> float:
+    """CUDA-event time of one cuSPARSE SpMV (torch.mv of a CSR matrix) of
+    the operator of the field ``w`` on ``g``, the matrix built once
+    outside the timed region; the product is first held against
+    ``want`` (the plain version in f64)."""
+    A = stencil_csr(w)
+    x = g.reshape(-1)
+    y = torch.mv(A, x).reshape(g.shape)
+    rel = float((y.double() - want).abs().max() / want.abs().max())
+    if not rel <= 1e-5:
+        raise AssertionError(f"CSR SpMV disagrees with the plain version: rel err {rel:.3e}")
+    ms = event_ms(lambda: torch.mv(A, x))
+    del A
+    return ms
+
+
 def flagship_ke(ftt):
     from fea_tpu_torch.elements.hex8 import stiffness_matrix_np
 
@@ -83,21 +179,32 @@ def flagship_ke(ftt):
     return stiffness_matrix_np(corners, ftt.Material(E=10_000_000 * ftt.units.psi, nu=0.3))
 
 
+def region_field(table: torch.Tensor, Z: int, Y: int, X: int) -> torch.Tensor:
+    """The (27, 3, 3, Z, Y, X) weight field of a voxel region table
+    (27 regions, 27 offsets, 3, 3): K1/K2's operator in K4/K5's form."""
+    def cls(n):
+        i = torch.arange(n, device=table.device)
+        return torch.where(i == 0, 0, torch.where(i == n - 1, 2, 1))
+
+    region = (cls(Z)[:, None, None] * 3 + cls(Y)[None, :, None]) * 3 + cls(X)[None, None, :]
+    return table[region].permute(3, 4, 5, 0, 1, 2).contiguous()
+
+
 def check_kernels(ftt, cuda_stencil) -> dict:
     from fea_tpu_torch.ops.structured import stencil_apply_grid
 
-    dev = torch.device("cuda")
     ke = flagship_ke(ftt)
-    ke64 = torch.as_tensor(ke, device=dev)
-    weights = {k: cuda_stencil.stencil_weights(ke, v["dtype"], dev) for k, v in KERNELS.items()}
+    ke64 = torch.as_tensor(ke, device=DEV)
+    weights = {k: cuda_stencil.stencil_weights(ke, KERNELS[k]["dtype"], DEV) for k in STENCIL_KEYS}
     rng = np.random.default_rng(20261016)
-    report = {k: dict(max_abs_err=0.0, max_rel_err=0.0) for k in KERNELS}
+    report = {k: dict(max_abs_err=0.0, max_rel_err=0.0) for k in STENCIL_KEYS}
     for dims in SHAPES:
         nx, ny, nz = dims
-        g64 = torch.as_tensor(rng.normal(size=(nz + 1, ny + 1, nx + 1, 3)), device=dev)
+        g64 = torch.as_tensor(rng.normal(size=(nz + 1, ny + 1, nx + 1, 3)), device=DEV)
         want = stencil_apply_grid(ke64, g64, dims)
         scale = float(want.abs().max())
-        for key, spec in KERNELS.items():
+        for key in STENCIL_KEYS:
+            spec = KERNELS[key]
             got = cuda_stencil.stencil_apply(weights[key], g64.to(spec["dtype"]).contiguous())
             torch.cuda.synchronize()
             err = float((got.double() - want).abs().max())
@@ -108,17 +215,76 @@ def check_kernels(ftt, cuda_stencil) -> dict:
             report[key]["max_abs_err"] = max(report[key]["max_abs_err"], err)
             report[key]["max_rel_err"] = max(report[key]["max_rel_err"], rel)
         if dims == FLAGSHIP:
-            nodes = g64.shape[0] * g64.shape[1] * g64.shape[2]
-            for key, spec in KERNELS.items():
+            Z, Y, X = nz + 1, ny + 1, nx + 1
+            for key in STENCIL_KEYS:
+                spec = KERNELS[key]
                 g = g64.to(spec["dtype"]).contiguous()
                 w = weights[key]
                 ms = event_ms(lambda: cuda_stencil.stencil_apply(w, g))
                 plain_ms = event_ms(lambda: stencil_apply_grid(w.ke, g, dims))
-                # ideal-reuse traffic: 3 values in and 3 out per node
-                gbs = nodes * 6 * g.element_size() / (ms * 1e-3) / 1e9
-                say(f"  {spec['name']} {dims} ({3 * nodes} DOF): kernel {ms:.4f} ms "
-                    f"({gbs:.1f} GB/s at ideal reuse), plain version {plain_ms:.4f} ms")
-                report[key].update(ms=ms, plain_ms=plain_ms, gb_per_s=gbs)
+                lib_ms = library_ms(region_field(w.table, Z, Y, X), g, want)
+                # each input read once, the output written once
+                nbytes = 2 * g.numel() * g.element_size() + w.table.numel() * w.table.element_size()
+                bound_ms, bound_by = bound(spec["dtype"], nbytes, 2 * 9 * neighbour_terms(Z, Y, X))
+                gbs = nbytes / (ms * 1e-3) / 1e9
+                say(f"  {spec['name']} {dims} ({3 * Z * Y * X} DOF): kernel {ms:.4f} ms "
+                    f"({gbs:.1f} GB/s), plain version {plain_ms:.4f} ms, CSR SpMV {lib_ms:.4f} ms, "
+                    f"bound {bound_ms:.4f} ms ({bound_by})")
+                report[key].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                                   bound_by=bound_by, gb_per_s=gbs)
+    return report
+
+
+def curv_level_grids() -> list[tuple[int, int, int]]:
+    """The level grids of the curvilinear hierarchy over CURV."""
+    from fea_tpu_torch.ops.curvilinear import _MAX_COARSE_DOF, coarsen_dims_partial
+
+    grids = [CURV]
+    while 3 * int(np.prod([s + 1 for s in grids[-1]])) > _MAX_COARSE_DOF:
+        grids.append(coarsen_dims_partial(grids[-1])[0])
+    return grids
+
+
+def check_var_kernels(cuda_varstencil) -> dict:
+    from fea_tpu_torch.ops.curvilinear import curv_apply_grid
+
+    rng = np.random.default_rng(20261017)
+    report = {k: dict(max_abs_err=0.0, max_rel_err=0.0) for k in VAR_KEYS}
+    for dims in VAR_SMALL + curv_level_grids():
+        nx, ny, nz = dims
+        Z, Y, X = nz + 1, ny + 1, nx + 1
+        w64 = torch.as_tensor(rng.standard_normal((27, 3, 3, Z, Y, X)), device=DEV)
+        g64 = torch.as_tensor(rng.standard_normal((Z, Y, X, 3)), device=DEV)
+        want = curv_apply_grid(w64, g64)
+        scale = float(want.abs().max())
+        for key in VAR_KEYS:
+            spec = KERNELS[key]
+            w = w64.to(spec["dtype"]).contiguous()
+            g = g64.to(spec["dtype"]).contiguous()
+            got = cuda_varstencil.var_apply(w, g)
+            torch.cuda.synchronize()
+            err = float((got.double() - want).abs().max())
+            rel = err / scale
+            say(f"  {spec['name']} {dims}: max abs err {err:.3e}, rel {rel:.3e} (tol {spec['tol']:g})")
+            if not rel <= spec["tol"]:
+                raise AssertionError(f"{spec['name']} at {dims}: rel err {rel:.3e} > {spec['tol']:g}")
+            report[key]["max_abs_err"] = max(report[key]["max_abs_err"], err)
+            report[key]["max_rel_err"] = max(report[key]["max_rel_err"], rel)
+            if dims == CURV:
+                ms = event_ms(lambda: cuda_varstencil.var_apply(w, g))
+                plain_ms = event_ms(lambda: curv_apply_grid(w, g))
+                lib_ms = library_ms(w, g, want)
+                # the kernel loads no weight toward a neighbour outside the
+                # grid: 9 values for each (node, offset) pair inside it
+                nbytes = (9 * neighbour_terms(Z, Y, X) + 2 * g.numel()) * g.element_size()
+                bound_ms, bound_by = bound(spec["dtype"], nbytes, 2 * 9 * neighbour_terms(Z, Y, X))
+                gbs = nbytes / (ms * 1e-3) / 1e9
+                say(f"  {spec['name']} {dims} ({3 * Z * Y * X} DOF): kernel {ms:.4f} ms "
+                    f"({gbs:.1f} GB/s), plain version {plain_ms:.4f} ms, CSR SpMV {lib_ms:.4f} ms, "
+                    f"bound {bound_ms:.4f} ms ({bound_by})")
+                report[key].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                                   bound_by=bound_by, gb_per_s=gbs)
+        del w64, g64, want, w, g, got
     return report
 
 
@@ -133,13 +299,19 @@ def flagship_scene(ftt):
     total_load = 100.0 * ftt.units.lbf / ftt.units.ft * lz
     loads[tip, 1] = total_load / tip.sum()
     mat = ftt.Material(E=10_000_000 * ftt.units.psi, nu=0.3)
-    scene = ftt.make_scene(nodes, elements, fixed, loads, mat, dtype=torch.float64, device="cuda")
+    scene = ftt.make_scene(nodes, elements, fixed, loads, mat, dtype=torch.float64)
     I = lx * ly**3 / 12.0
     tip_exact = total_load * lz**3 / (3 * mat.E * I)
     return scene, (nodes, elements, fixed, loads, tip, tip_exact)
 
 
-def run_slice(ftt, cuda_stencil) -> dict:
+def zero_counts(*counters) -> None:
+    for c in counters:
+        for key in c:
+            c[key] = 0
+
+
+def run_slice(ftt, cuda_stencil, cuda_varstencil) -> dict:
     from fea_tpu_torch.ops.multigrid import build_multigrid
     from fea_tpu_torch.ops.structured import build_structured_operator, stencil_apply_np
     from fea_tpu_torch.solve import solve_operator_fpcg
@@ -147,19 +319,19 @@ def run_slice(ftt, cuda_stencil) -> dict:
     scene, (nodes, elements, fixed, loads, tip, tip_exact) = flagship_scene(ftt)
     say(f"  scene: {FLAGSHIP} voxels, {scene.n_dof} DOF on {scene.device}")
 
-    for key in cuda_stencil.LAUNCHES:
-        cuda_stencil.LAUNCHES[key] = 0
+    zero_counts(cuda_stencil.LAUNCHES, cuda_varstencil.LAUNCHES)
     t0 = time.perf_counter()
     sol = ftt.solve(scene, tol=1e-8)
     torch.cuda.synchronize()
     whole_s = time.perf_counter() - t0
-    launches = dict(cuda_stencil.LAUNCHES)
+    launches = {**cuda_stencil.LAUNCHES, **cuda_varstencil.LAUNCHES}
 
     st = sol.stats
     say(f"  whole solve (fea_tpu_torch.solve): {whole_s:.3f} s")
     say(f"  iterations {st.iterations}, reported true relative residual "
         f"{st.relative_residual:.3e}, converged {st.converged}")
-    say(f"  launches in that solve: K1 {launches['f32']}, K2 {launches['f64']}")
+    say(f"  launches in that solve: K1 {launches['f32']}, K2 {launches['f64']}, "
+        f"K4 {launches['var_f32']}, K5 {launches['var_f64']}")
 
     # stage breakdown: a second solve, stage by stage (bench.py's stages)
     stage = {}
@@ -212,11 +384,281 @@ def run_slice(ftt, cuda_stencil) -> dict:
     return launches
 
 
+def distorted_scene_arrays(ftt, dims):
+    """tools/curv_bench.py's scene: a 0.1 x 0.1 x 1.0 box, interior nodes
+    moved by 0.25 h U(-1, 1) (seed 7), z = 0 fixed, a total +y load of 1.0
+    on the tip face. Returns the arrays and the generator, which
+    tools/canon_bench.py goes on drawing from."""
+    nx, ny, nz = dims
+    nodes, elements = ftt.mesh.box_hex_mesh(nx, ny, nz, 0.1, 0.1, 1.0)
+    rng = np.random.default_rng(7)
+    h = 0.1 / nx
+    interior = (nodes[:, 2] > 0) & (nodes[:, 2] < 1.0)
+    nodes = nodes + 0.25 * h * rng.uniform(-1, 1, nodes.shape) * interior[:, None]
+    return nodes, elements, rng
+
+
+def cantilever_bcs(ftt, nodes):
+    fixed = ftt.fix_where(nodes, lambda q: np.isclose(q[:, 2], 0.0), 3)
+    loads = np.zeros_like(nodes)
+    tip = np.isclose(nodes[:, 2], 1.0)
+    loads[tip, 1] = 1.0 / tip.sum()
+    return fixed, loads, tip
+
+
+# Natural coordinates of the hex8 corners (bottom face counter-clockwise,
+# then the top face), written out here rather than taken from the package
+_HEX_SIGNS = np.array([[-1, -1, -1], [1, -1, -1], [1, 1, -1], [-1, 1, -1],
+                       [-1, -1, 1], [1, -1, 1], [1, 1, 1], [-1, 1, 1]], np.float64)
+
+
+def host_ku(nodes, elements, E, nu, u, chunk=32_768):
+    """K u in NumPy f64, element by element through the connectivity.
+
+    At each 2x2x2 Gauss point of each element the displacement gradient
+    gives the stress sigma = lam tr(eps) I + 2 mu eps, which goes back to
+    corner a as detJ sigma grad N_a; the corner forces are summed into
+    their nodes. No weight field, stencil, B matrix or Voigt order: this
+    shares no code with the package's assembly or its kernels.
+    """
+    lam = E * nu / ((1.0 + nu) * (1.0 - 2.0 * nu))
+    mu = E / (2.0 * (1.0 + nu))
+    Ku = np.zeros_like(u)
+    for e0 in range(0, elements.shape[0], chunk):
+        el = elements[e0 : e0 + chunk]
+        X, U = nodes[el], u[el]  # (E, 8, 3)
+        f = np.zeros_like(U)
+        for q in _HEX_SIGNS / np.sqrt(3.0):
+            t = 1.0 + q * _HEX_SIGNS  # (8, 3)
+            dN = _HEX_SIGNS / 8.0 * np.stack([t[:, 1] * t[:, 2], t[:, 0] * t[:, 2], t[:, 0] * t[:, 1]], 1)
+            J = np.einsum("ai,eaj->eij", dN, X)  # dx_j / dxi_i
+            G = np.einsum("eji,ai->eaj", np.linalg.inv(J), dN)  # dN_a / dx_j
+            H = np.einsum("eai,eaj->eij", U, G)  # du_i / dx_j
+            eps = 0.5 * (H + H.transpose(0, 2, 1))
+            sig = 2.0 * mu * eps
+            sig[:, [0, 1, 2], [0, 1, 2]] += lam * np.trace(eps, axis1=1, axis2=2)[:, None]
+            f += np.einsum("e,eij,eaj->eai", np.linalg.det(J), sig, G)
+        for c in range(3):
+            Ku[:, c] += np.bincount(el.ravel(), weights=f[..., c].ravel(), minlength=u.shape[0])
+    return Ku
+
+
+def host_check(nodes, elements, mat, fixed, loads, u):
+    """(Ku, true relative residual) of the masked system in NumPy f64,
+    from :func:`host_ku`: independent of the device assembly and of the
+    kernels."""
+    Ku = host_ku(nodes, elements, float(mat.E), float(mat.nu), u)
+    F = 1.0 - fixed.astype(np.float64)
+    return Ku, float(np.linalg.norm(F * (loads - Ku)) / np.linalg.norm(F * loads))
+
+
+def profile_fcg(solve_fn) -> dict:
+    """torch.profiler over one call of ``solve_fn``: device time and the
+    number of device activities (kernels and copies)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sol = solve_fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name: dict[str, float] = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return dict(sol=sol, wall_s=wall, device_ms=sum(by_name.values()), n_device=len(dev),
+                top=sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
+
+
+def time_detectors(scene, renumbered: bool = False) -> list[str]:
+    """Host times of the detectors that solve() runs before the route of
+    ``scene`` (and, for a renumbered scene, the canonicalization), on a
+    copy of the scene whose host mesh is not yet pulled."""
+    from fea_tpu_torch.ops.canonical import canonicalize_scene, infer_renumbered_grid
+    from fea_tpu_torch.ops.curvilinear import infer_topo_dims
+    from fea_tpu_torch.ops.extruded import infer_extruded
+    from fea_tpu_torch.ops.structured import infer_box_dims
+
+    fresh = dataclasses.replace(scene)
+    steps = [(fn.__name__, fn) for fn in (infer_box_dims, infer_extruded, infer_topo_dims)]
+    if renumbered:
+        steps += [
+            ("infer_renumbered_grid", infer_renumbered_grid),
+            ("canonicalize_scene", lambda s: canonicalize_scene(s, *found)),
+        ]
+    parts = []
+    for name, fn in steps:
+        t0 = time.perf_counter()
+        found = fn(fresh)
+        parts.append(f"{name} {time.perf_counter() - t0:.4f} s")
+    return parts
+
+
+def run_curvilinear(ftt, cuda_stencil, cuda_varstencil) -> dict:
+    from fea_tpu_torch.ops.curvilinear import infer_topo_dims
+
+    nodes, elements, _ = distorted_scene_arrays(ftt, CURV)
+    fixed, loads, tip = cantilever_bcs(ftt, nodes)
+    mat = ftt.Material(E=10_000_000 * ftt.units.psi, nu=0.3)
+    scene = ftt.make_scene(nodes, elements, fixed, loads, mat, dtype=torch.float64)
+    if scene.device.type != DEV or infer_topo_dims(scene) != CURV:
+        raise AssertionError(f"scene on {scene.device}, topology {infer_topo_dims(scene)}")
+    say(f"  scene: {CURV} distorted grid, {scene.n_dof} DOF on {scene.device}")
+
+    # the first solve's set-up, in parts: the detectors, and the first
+    # batched torch.linalg call on the card
+    parts = time_detectors(scene)
+    t0 = time.perf_counter()
+    J = torch.eye(3, dtype=torch.float64, device=DEV).repeat(8, 1, 1)
+    torch.linalg.det(J)
+    torch.linalg.solve(J, J)
+    torch.cuda.synchronize()
+    parts.append(f"first torch.linalg det + solve {time.perf_counter() - t0:.4f} s")
+    say("  set-up before the first solve: " + ", ".join(parts))
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(cuda_stencil.LAUNCHES, cuda_varstencil.LAUNCHES)
+    t0 = time.perf_counter()
+    sol = ftt.solve(scene, tol=1e-8)
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    launches = {**cuda_stencil.LAUNCHES, **cuda_varstencil.LAUNCHES}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    st = sol.stats
+    say(f"  whole solve (fea_tpu_torch.solve): {whole_s:.3f} s, peak device memory {peak_gb:.3f} GB")
+    say(f"  iterations {st.iterations}, reported true relative residual "
+        f"{st.relative_residual:.3e}, converged {st.converged}")
+    say(f"  launches in that solve: K1 {launches['f32']}, K2 {launches['f64']}, "
+        f"K4 {launches['var_f32']}, K5 {launches['var_f64']}")
+
+    # stage breakdown: a second solve, stage by stage
+    t0 = time.perf_counter()
+    op, mg = ftt.build_curvilinear(scene)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sol2 = ftt.solve_curvilinear(scene, CURV, tol=1e-8, prebuilt=(op, mg))
+    torch.cuda.synchronize()
+    t_fcg = time.perf_counter() - t0
+    say(f"  stages (second solve): operator + multigrid build {t_build:.3f} s, FCG with "
+        f"certification {t_fcg:.3f} s; {sol2.stats.iterations} iterations, levels "
+        + ", ".join(f"{lv.dims}:{str(lv.dtype).replace('torch.', '')}" for lv in mg.levels))
+    t0 = time.perf_counter()
+    from fea_tpu_torch.ops.curvilinear import build_curv_operator
+
+    build_curv_operator(scene, CURV)
+    torch.cuda.synchronize()
+    say(f"  of which operator build {time.perf_counter() - t0:.3f} s")
+
+    prof = profile_fcg(lambda: ftt.solve_curvilinear(scene, CURV, tol=1e-8, prebuilt=(op, mg)))
+    it = prof["sol"].stats.iterations
+    say(f"  profiled FCG stage: wall {prof['wall_s']:.3f} s under the profiler, device time "
+        f"{prof['device_ms']:.1f} ms in {prof['n_device']} device activities "
+        f"({prof['n_device'] / max(it, 1):.0f} an iteration over {it} iterations); "
+        f"busy share {prof['device_ms'] / 1e3 / t_fcg:.3f} of the unprofiled FCG stage")
+    for name, ms in prof["top"]:
+        say(f"    {ms:9.2f} ms  {name[:90]}")
+    del op, mg
+
+    u = sol.displacements.cpu().numpy()
+    if u.shape != nodes.shape or not np.all(np.isfinite(u)):
+        raise AssertionError(f"displacements: shape {u.shape}, finite {np.all(np.isfinite(u))}")
+    t0 = time.perf_counter()
+    Ku, rel_host = host_check(nodes, elements, mat, fixed, loads, u)
+    reac_err = float(np.abs(sol.reactions.cpu().numpy() - Ku).max() / np.abs(Ku).max())
+    I = 0.1 * 0.1**3 / 12.0
+    tip_ratio = float(u[tip, 1].mean()) / (1.0 * 1.0**3 / (3 * mat.E * I))
+    say(f"  host f64 true relative residual {rel_host:.3e} (host element-by-element K u "
+        f"{time.perf_counter() - t0:.1f} s); reactions vs host K u {reac_err:.3e}")
+    say(f"  tip ratio u_tip,y / (P L^3 / 3 E I) = {tip_ratio:.5f}")
+    checks = {
+        "converged": st.converged,
+        f"iterations <= {CURV_MAX_ITERS}": st.iterations <= CURV_MAX_ITERS,
+        "host true residual <= 1e-8": rel_host <= 1e-8,
+        "reactions = K u (1e-10)": reac_err <= 1e-10,
+        f"tip ratio in {TIP_BAND}": TIP_BAND[0] < tip_ratio < TIP_BAND[1],
+        "K4 launched": launches["var_f32"] > 0,
+        "K5 launched": launches["var_f64"] > 0,
+        "K1/K2 not launched": launches["f32"] == 0 and launches["f64"] == 0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"curvilinear checks failed: {failed}")
+    return launches
+
+
+def run_canonical(ftt, cuda_stencil, cuda_varstencil) -> None:
+    nodes, elements, rng = distorted_scene_arrays(ftt, CANON)
+    N = nodes.shape[0]
+    pi = rng.permutation(N)  # original node k is node pi[k] of the renumbered scene
+    inv = np.empty_like(pi)
+    inv[pi] = np.arange(N)
+    nodes_r = nodes[inv]
+    el_r = pi[elements]
+    el_r = el_r[rng.permutation(el_r.shape[0])]
+    fixed_r, loads_r, _ = cantilever_bcs(ftt, nodes_r)
+    mat = ftt.Material(E=10_000_000 * ftt.units.psi, nu=0.3)
+    scene = ftt.make_scene(nodes_r, el_r, fixed_r, loads_r, mat, dtype=torch.float64)
+    say(f"  scene: {CANON} distorted grid renumbered, {scene.n_dof} DOF on {scene.device}")
+    say("  set-up before the solve: " + ", ".join(time_detectors(scene, renumbered=True)))
+    zero_counts(cuda_stencil.LAUNCHES, cuda_varstencil.LAUNCHES)
+    t0 = time.perf_counter()
+    sol = ftt.solve(scene, tol=1e-8)
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    launches = {**cuda_stencil.LAUNCHES, **cuda_varstencil.LAUNCHES}
+    st = sol.stats
+    say(f"  whole solve (fea_tpu_torch.solve, canonicalization included): {whole_s:.3f} s; "
+        f"{st.iterations} iterations, reported {st.relative_residual:.3e}, converged {st.converged}")
+    say(f"  launches: K1 {launches['f32']}, K2 {launches['f64']}, "
+        f"K4 {launches['var_f32']}, K5 {launches['var_f64']}")
+
+    # stage breakdown: a second solve of the canonical scene, stage by stage
+    from fea_tpu_torch.ops.canonical import canonicalize_scene, infer_renumbered_grid
+    from fea_tpu_torch.ops.curvilinear import build_curv_multigrid, build_curv_operator
+
+    canon = canonicalize_scene(scene, *infer_renumbered_grid(scene))
+    stage = {}
+    t0 = time.perf_counter()
+    op = build_curv_operator(canon, CANON)
+    torch.cuda.synchronize()
+    stage["operator build"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mg = build_curv_multigrid(op.w, CANON, 1.0 - canon.fixed.cpu().numpy().astype(np.float64))
+    torch.cuda.synchronize()
+    stage["multigrid build"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ftt.solve_curvilinear(canon, CANON, tol=1e-8, prebuilt=(op, mg))
+    torch.cuda.synchronize()
+    stage["FCG with certification"] = time.perf_counter() - t0
+    n = mg.coarse_inv.shape[0]
+    t0 = time.perf_counter()
+    np.linalg.inv(np.random.default_rng(0).standard_normal((n, n)) + n * np.eye(n))
+    # what the multigrid build's dense coarsest inverse costs on the host
+    stage[f"np.linalg.inv of a random {n}x{n} matrix"] = time.perf_counter() - t0
+    say("  stages (second solve): " + ", ".join(f"{k} {v:.3f} s" for k, v in stage.items()))
+    del op, mg, canon
+
+    u = sol.displacements.cpu().numpy()[pi]  # back to the original numbering
+    _, rel_host = host_check(nodes, elements, mat, fixed_r[pi], loads_r[pi], u)
+    say(f"  host f64 true relative residual of the original system {rel_host:.3e}")
+    checks = {
+        "converged": st.converged,
+        f"host true residual <= {CANON_TOL:g}": rel_host <= CANON_TOL,
+        "K4 launched": launches["var_f32"] > 0,
+        "K5 launched": launches["var_f64"] > 0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"canonicalized checks failed: {failed}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
     import fea_tpu_torch as ftt
-    from fea_tpu_torch.ops import cuda_stencil
+    from fea_tpu_torch.ops import cuda_stencil, cuda_varstencil, nvcc
 
     say("[1] device")
     smi = subprocess.run(
@@ -224,25 +666,37 @@ def main() -> None:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     say(smi)
-    nvcc = subprocess.run([cuda_stencil.find_nvcc(), "--version"], capture_output=True, text=True,
-                          check=True, timeout=60).stdout.strip().splitlines()[-1]
-    say(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, nvcc: {nvcc}")
+    version = subprocess.run([nvcc.find_nvcc(), "--version"], capture_output=True, text=True,
+                             check=True, timeout=60).stdout.strip().splitlines()[-1]
+    say(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, nvcc: {version}")
     say(f"  device 0: {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
 
     say("[2] build")
     t0 = time.perf_counter()
-    cuda_stencil.build()
-    say(f"  K1/K2 built in {time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        for fut in [pool.submit(cuda_stencil.build), pool.submit(cuda_varstencil.build)]:
+            fut.result()
+    say(f"  K1/K2 and K4/K5 built in {time.perf_counter() - t0:.2f} s")
 
-    say("[3] kernels vs plain version (f64) on the card")
+    say("[3] K1/K2 vs plain version (f64) on the card")
     report = check_kernels(ftt, cuda_stencil)
 
-    say("[4] slice: flagship cantilever through fea_tpu_torch.solve")
-    launches = run_slice(ftt, cuda_stencil)
+    say("[4] voxel slice: flagship cantilever through fea_tpu_torch.solve")
+    launches = run_slice(ftt, cuda_stencil, cuda_varstencil)
+
+    say("[5] K4/K5 vs plain version (f64) on the card")
+    report.update(check_var_kernels(cuda_varstencil))
+
+    say("[6] curvilinear slice: the 811,923-DOF distorted cantilever through fea_tpu_torch.solve")
+    launches_curv = run_curvilinear(ftt, cuda_stencil, cuda_varstencil)
+    launches.update({k: launches_curv[k] for k in VAR_KEYS})
+
+    say("[7] canonicalized slice: the renumbered 181,875-DOF scene through fea_tpu_torch.solve")
+    run_canonical(ftt, cuda_stencil, cuda_varstencil)
 
     say(json.dumps({"kernels": [
-        dict(name=spec["name"], route="cuda", source="fea_tpu_torch/csrc/stencil.cu",
-             replaces=spec["replaces"], launches=launches[key], **report[key])
+        dict(name=spec["name"], route="cuda", source=spec["source"], replaces=spec["replaces"],
+             launches=launches[key], **report[key])
         for key, spec in KERNELS.items()
     ]}))
     say(smi)

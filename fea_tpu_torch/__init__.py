@@ -3,7 +3,9 @@ NVIDIA Hopper card (sm_90a).
 
 A port of the JAX package ``fea_tpu`` that takes the same scene in and
 gives the same solution out. It imports torch and NumPy, never JAX. This
-version serves the voxel-box hex8 route; see ROADMAP.md for the rest.
+version serves the voxel-box, curvilinear and canonicalized hex8 routes;
+see ROADMAP.md for the rest. Entry points run on the CUDA card unless the
+caller passes ``device="cpu"``.
 
 Quick start::
 
@@ -14,7 +16,7 @@ Quick start::
     loads = ...                                   # (N, 3) nodal forces
     scene = ftt.make_scene(nodes, elements, fixed, loads,
                            ftt.Material(E=10e6 * ftt.units.psi, nu=0.3),
-                           dtype=torch.float64, device="cuda")
+                           dtype=torch.float64)          # on the card
     sol = ftt.solve(scene, tol=1e-8)
     sol.displacements, sol.reactions, sol.stats
 """
@@ -24,7 +26,7 @@ from . import mesh
 from .config import DEFAULT_CONFIG, SolverConfig
 from .materials import Material, units
 from .scene import FAMILIES, ElementFamily, Scene, fix_where, make_scene, scene_from_numpy
-from .solve import Solution, solve
+from .solve import Solution, build_curvilinear, solve, solve_curvilinear
 from .solvers.cg import SolveStats
 
 __version__ = "0.1.0"
@@ -38,10 +40,12 @@ __all__ = [
     "Solution",
     "SolveStats",
     "SolverConfig",
+    "build_curvilinear",
     "fix_where",
     "make_scene",
     "mesh",
     "scene_from_numpy",
     "solve",
+    "solve_curvilinear",
     "units",
 ]

@@ -1,18 +1,20 @@
-"""8-node trilinear hexahedral solid element: the one-element stiffness.
+"""8-node trilinear hexahedral solid element stiffness.
 
-The voxel route needs exactly one reference Ke, integrated on the host in
-NumPy f64: 2x2x2 Gauss quadrature, isotropic 3D elasticity, engineering
-shear strain in Voigt order (xx, yy, zz, xy, yz, zx), node order bottom
-face CCW then top face CCW. Counterpart of the NumPy part of
+2x2x2 Gauss quadrature, isotropic 3D elasticity, engineering shear strain
+in Voigt order (xx, yy, zz, xy, yz, zx), node order bottom face CCW then
+top face CCW. The voxel route needs exactly one reference Ke
+(:func:`stiffness_matrix_np`); the curvilinear route integrates every
+element, in chunks on the device (:func:`batched_ke`). Counterpart of
 ``fea_tpu/elements/hex8.py``.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from ..materials import Material
+from ..materials import Material, lame_parameters
 
-__all__ = ["CORNER_SIGNS", "natural_gradients", "stiffness_matrix_np"]
+__all__ = ["CORNER_SIGNS", "batched_ke", "natural_gradients", "stiffness_matrix_np"]
 
 # Natural coordinates (xi, eta, zeta) of the 8 corners; row a is node a.
 CORNER_SIGNS = np.array(
@@ -86,3 +88,50 @@ def stiffness_matrix_np(corners: np.ndarray, material: Material) -> np.ndarray:
         Bq = B.reshape(6, 24)
         ke += detj * (Bq.T @ C @ Bq)
     return ke
+
+
+def _b_matrices(G: torch.Tensor) -> torch.Tensor:
+    """(..., 6, 24) strain-displacement matrices from global gradients
+    G (..., 3, 8), in the column order 3 * node + component."""
+    B = G.new_zeros(G.shape[:-2] + (6, 8, 3))
+    gx, gy, gz = G[..., 0, :], G[..., 1, :], G[..., 2, :]
+    B[..., 0, :, 0] = gx
+    B[..., 1, :, 1] = gy
+    B[..., 2, :, 2] = gz
+    B[..., 3, :, 0] = gy
+    B[..., 3, :, 1] = gx
+    B[..., 4, :, 1] = gz
+    B[..., 4, :, 2] = gy
+    B[..., 5, :, 0] = gz
+    B[..., 5, :, 2] = gx
+    return B.reshape(G.shape[:-2] + (6, 24))
+
+
+def _c_matrix_np(material: Material) -> np.ndarray:
+    lam, mu = lame_parameters(material)
+    C = np.zeros((6, 6))
+    C[:3, :3] = lam
+    C[np.arange(3), np.arange(3)] += 2.0 * mu
+    C[np.arange(3, 6), np.arange(3, 6)] = mu
+    return C
+
+
+def batched_ke(xe: torch.Tensor, material: Material) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stiffness of a chunk of elements on xe's device, in xe's dtype.
+
+    ``xe`` (E, 8, 3) corner coordinates in the element's node order.
+    Returns the (E, 24, 24) Ke batch, sum_q detJ B^T C B, and the minimum
+    detJ over the chunk's quadrature points as a 0-d tensor (the caller
+    checks it once per assembly). Counterpart of
+    ``fea_tpu/elements/hex8.py::precompute_geometry`` followed by
+    ``stiffness_from_geometry``.
+    """
+    D = torch.as_tensor(_D_QP, dtype=xe.dtype, device=xe.device)  # (Q, 3, 8)
+    J = torch.einsum("qda,ean->eqdn", D, xe)  # (E, Q, 3, 3)
+    detj = torch.linalg.det(J)
+    G = torch.linalg.solve(J, D.expand(J.shape[:2] + D.shape[1:]))  # (E, Q, 3, 8)
+    B = _b_matrices(G)
+    C = torch.as_tensor(_c_matrix_np(material), dtype=xe.dtype, device=xe.device)
+    CB = torch.matmul(C, B) * detj[..., None, None]  # (E, Q, 6, 24)
+    ke = torch.einsum("eqia,eqib->eab", B, CB)
+    return ke, detj.min()

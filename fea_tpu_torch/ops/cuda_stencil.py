@@ -7,30 +7,23 @@ tensor it launches the hand-written kernel of ``csrc/stencil.cu`` (K1 for
 f32, K2 for f64) or raises: nothing falls back to the plain version on
 the card.
 
-The kernels are built at first use with ``nvcc`` for ``sm_90a`` into
-``fea_tpu_torch/_build/``, keyed by the source's content, and loaded with
-:mod:`ctypes`. A failed build raises with the compiler's output.
+The kernels are built at first use by :mod:`fea_tpu_torch.ops.nvcc`.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .nvcc import CSRC, load_library
+
 __all__ = [
     "LAUNCHES",
     "StencilWeights",
     "build",
-    "find_nvcc",
     "region_weight_table",
     "stencil_apply",
     "stencil_weights",
@@ -46,14 +39,6 @@ _CORNERS = (
     (1, 1, 1),
     (1, 1, 0),
 )  # == ops.structured._CORNERS (element corner order, (cz, cy, cx))
-
-_PKG = Path(__file__).resolve().parents[1]
-_SOURCE = _PKG / "csrc" / "stencil.cu"
-_BUILD_DIR = _PKG / "_build"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
 
 # Launches of each kernel, counted where the wrapper launches it and
 # nowhere else: a run shows through these that it went through K1 / K2.
@@ -114,49 +99,12 @@ def stencil_weights(ke: np.ndarray, dtype: torch.dtype, device) -> StencilWeight
     )
 
 
-def find_nvcc() -> str:
-    """Path of nvcc: on PATH, else in $CUDA_HOME/bin (default /usr/local/cuda)."""
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError(
-        "nvcc not found on PATH or in $CUDA_HOME/bin: cannot build the "
-        f"CUDA stencil kernels from {_SOURCE}"
-    )
-
-
 def build() -> ctypes.CDLL:
-    """Compile ``csrc/stencil.cu`` (once per source version) and load it.
-
-    Concurrent builders are safe: each compiles to a temporary name and
-    renames it into place. Any failure raises.
-    """
+    """Compile ``csrc/stencil.cu`` (once per source version) and load it."""
     global _LIB
     if _LIB is not None:
         return _LIB
-    code = _SOURCE.read_bytes()
-    tag = hashlib.sha256(code + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = _BUILD_DIR / f"libfeastencil_cuda_{tag}.so"
-    if not so.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(dir=_BUILD_DIR, suffix=".so")
-        os.close(fd)
-        try:
-            cmd = [find_nvcc(), *_NVCC_FLAGS, str(_SOURCE), "-o", tmp]
-            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                    f"{proc.stdout}\n{proc.stderr}"
-                )
-            os.replace(tmp, so)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    lib = ctypes.CDLL(str(so))
+    lib = load_library(CSRC / "stencil.cu", "feastencil_cuda")
     for _, fn in _ENTRY.values():
         f = getattr(lib, fn)
         f.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [ctypes.c_void_p]

@@ -86,11 +86,12 @@ def _sl(ndim: int, axis: int, s: slice) -> tuple:
     return tuple(s if d == axis else slice(None) for d in range(ndim))
 
 
-def _prolong(c: torch.Tensor) -> torch.Tensor:
+def _prolong(c: torch.Tensor, axes: tuple[int, ...] = (0, 1, 2)) -> torch.Tensor:
     """Trilinear interpolation: coarse grid (Zc,Yc,Xc,3) -> fine grid
-    (2Zc-1, 2Yc-1, 2Xc-1, 3); axis-wise [1/2, 1, 1/2]."""
+    (2Zc-1, 2Yc-1, 2Xc-1, 3); axis-wise [1/2, 1, 1/2]. Only the grid
+    ``axes`` are refined (semi-coarsening leaves the others as they are)."""
     out = c
-    for axis in range(3):
+    for axis in axes:
         n = out.shape[axis]
         shape = list(out.shape)
         shape[axis] = 2 * n - 1
@@ -103,10 +104,11 @@ def _prolong(c: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _restrict(f: torch.Tensor) -> torch.Tensor:
-    """Exact adjoint of _prolong: c[i] = f[2i] + (f[2i-1] + f[2i+1]) / 2."""
+def _restrict(f: torch.Tensor, axes: tuple[int, ...] = (0, 1, 2)) -> torch.Tensor:
+    """Exact adjoint of _prolong: c[i] = f[2i] + (f[2i-1] + f[2i+1]) / 2
+    along each of the grid ``axes``."""
     out = f
-    for axis in reversed(range(3)):
+    for axis in reversed(axes):
         even = out[_sl(4, axis, slice(0, None, 2))]
         odd = out[_sl(4, axis, slice(1, None, 2))]
         # odd fine points contribute half to both coarse neighbours

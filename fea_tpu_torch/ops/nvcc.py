@@ -1,0 +1,67 @@
+"""Build a CUDA source of the package with nvcc at first use, and load it.
+
+Each source under ``fea_tpu_torch/csrc/`` is compiled on its own for
+``sm_90a`` into a shared library with a plain C interface, in
+``fea_tpu_torch/_build/`` and keyed by the source's content and flags, and
+loaded with :mod:`ctypes`. Sources build independently, so callers that
+need several may build them in parallel threads. A failed build raises
+with the compiler's output.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+__all__ = ["CSRC", "NVCC_FLAGS", "find_nvcc", "load_library"]
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+_BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def find_nvcc() -> str:
+    """Path of nvcc: on PATH, else in $CUDA_HOME/bin (default /usr/local/cuda)."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found on PATH or in $CUDA_HOME/bin: cannot build the CUDA kernels")
+
+
+def load_library(source: Path, stem: str) -> ctypes.CDLL:
+    """Compile ``source`` (once per content and flags) and load it.
+
+    Concurrent builds are safe: each compiles to a temporary name and
+    renames it into place. Any failure raises.
+    """
+    code = source.read_bytes()
+    tag = hashlib.sha256(code + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    so = _BUILD_DIR / f"lib{stem}_{tag}.so"
+    if not so.exists():
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=_BUILD_DIR, suffix=".so")
+        os.close(fd)
+        try:
+            cmd = [find_nvcc(), *NVCC_FLAGS, str(source), "-o", tmp]
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                    f"{proc.stdout}\n{proc.stderr}"
+                )
+            os.replace(tmp, so)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return ctypes.CDLL(str(so))

@@ -205,13 +205,13 @@ def _validate_box_scene(scene: Scene, dims: tuple[int, int, int]) -> None:
     X, Yn, Zn = nx + 1, ny + 1, nz + 1
     if scene.n_nodes != X * Yn * Zn:
         raise ValueError(f"scene has {scene.n_nodes} nodes, dims imply {X * Yn * Zn}")
-    if not np.array_equal(scene.elements.cpu().numpy(), _expected_box_elements(nx, ny, nz)):
+    if not np.array_equal(scene.host_elements, _expected_box_elements(nx, ny, nz)):
         raise ValueError(
             "scene connectivity does not match the structured voxel grid "
             f"implied by dims={dims}; the stencil operator requires the "
             "box_hex_mesh node/element ordering"
         )
-    nodes = scene.nodes.cpu().numpy()
+    nodes = scene.host_nodes
     # eps * max|coordinate| rounding (f32-built meshes) is noise, not geometry
     tol = 64.0 * float(np.finfo(nodes.dtype).eps) * max(float(np.max(np.abs(nodes))), 1e-30)
     xs = nodes[:X, 0]
@@ -247,7 +247,7 @@ def infer_box_dims(scene: Scene) -> Optional[tuple[int, int, int]]:
     """
     if scene.family != "hex8":
         return None
-    nodes = scene.nodes.cpu().numpy()
+    nodes = scene.host_nodes
     x = nodes[:, 0]
     dec = np.nonzero(x[1:] < x[:-1])[0]
     X = int(dec[0]) + 1 if dec.size else nodes.shape[0]
@@ -280,7 +280,7 @@ def build_structured_operator(
     the single shared Ke in host NumPy f64 and rounds it to ``dtype``.
     """
     _validate_box_scene(scene, dims)
-    X0 = scene.nodes[scene.elements[0]].cpu().numpy()  # (8, 3)
+    X0 = scene.host_nodes[scene.host_elements[0]]  # (8, 3)
     ke = hex8_el.stiffness_matrix_np(X0, scene.material)
     return StructuredOperator(
         weights=stencil_weights(ke, dtype, scene.device),

@@ -9,6 +9,7 @@ layouts are the JAX package's.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -24,6 +25,7 @@ __all__ = [
     "make_scene",
     "scene_from_numpy",
     "fix_where",
+    "resolve_device",
 ]
 
 
@@ -88,6 +90,19 @@ class Scene:
     def n_dof(self) -> int:
         return self.n_nodes * self.element_family.dofs_per_node
 
+    # The routing detectors read the mesh on the host; each host copy is
+    # taken once per scene, not once per detector. The package never
+    # writes a scene's tensors in place.
+    @functools.cached_property
+    def host_nodes(self) -> np.ndarray:
+        """``nodes`` as a NumPy array."""
+        return self.nodes.cpu().numpy()
+
+    @functools.cached_property
+    def host_elements(self) -> np.ndarray:
+        """``elements`` as a NumPy array."""
+        return self.elements.cpu().numpy()
+
     def free_mask(self, dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """1.0 on free DOFs, 0.0 on fixed."""
         return 1.0 - self.fixed.to(dtype)
@@ -111,6 +126,20 @@ class Scene:
         )
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, else the
+    CUDA card. Without a card and without an explicit device this
+    raises; nothing moves to the CPU unless the caller asks for it."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "fea_tpu_torch runs on a CUDA card by default and none is "
+            "available; pass device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda")
+
+
 def _tensor(a, dtype, device) -> torch.Tensor:
     """A copy of ``a`` (array-like or tensor) as ``dtype`` on ``device``."""
     if isinstance(a, torch.Tensor):
@@ -131,13 +160,13 @@ def make_scene(
     device=None,
 ) -> Scene:
     """Build a Scene from host arrays or tensors, normalizing dtypes and
-    shapes, with every tensor on ``device`` (torch's default device when
-    None).
+    shapes, with every tensor on ``device``: the CUDA card when None
+    (see :func:`resolve_device`), the CPU only when asked for.
 
     Accepts 0/1 int constraint masks as well as booleans.
     """
     fam = FAMILIES[family]
-    nodes = _tensor(nodes, dtype, device)
+    nodes = _tensor(nodes, dtype, resolve_device(device))
     device = nodes.device
     elements = _tensor(elements, torch.int64, device)
     fixed = _tensor(fixed, torch.float64, device) != 0
@@ -168,11 +197,12 @@ def make_scene(
     )
 
 
-def scene_from_numpy(nodes, elements, fixed, loads, E, nu, prescribed=None, *, device) -> Scene:
+def scene_from_numpy(nodes, elements, fixed, loads, E, nu, prescribed=None, *, device=None) -> Scene:
     """A hex8 scene from the NumPy arrays of another scene (for example a
     ``fea_tpu`` scene pulled to the host), in the floating dtype of
-    ``nodes``. A scene and its material are this system's only
-    parameters, so this carries one across whole."""
+    ``nodes``, on ``device`` as :func:`make_scene` places it. A scene and
+    its material are this system's only parameters, so this carries one
+    across whole."""
     nodes = np.asarray(nodes)
     return make_scene(
         nodes, elements, fixed, loads, Material(E=float(E), nu=float(nu)),

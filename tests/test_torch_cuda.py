@@ -1,4 +1,4 @@
-"""K1 and K2 on the card against their plain version (f64) on the card.
+"""K1, K2, K4 and K5 on the card against their plain version (f64) on the card.
 
 Needs a CUDA card and nvcc; skips without a card. This file imports
 neither JAX nor fea_tpu, so it runs where only the port is installed:
@@ -36,5 +36,30 @@ def test_kernels_match_plain_version_on_card(dims):
         got = stencil_apply(stencil_weights(ke, dt, "cuda"), g64.to(dt).contiguous())
         torch.cuda.synchronize()
         assert cuda_stencil.LAUNCHES[key] == n0 + 1
+        rel = float((got.double() - want).abs().max() / want.abs().max())
+        assert rel < bound, (dims, key, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(1, 1, 1), (3, 4, 6), (8, 8, 32), (20, 20, 80)])
+def test_var_kernels_match_plain_version_on_card(dims):
+    """K4 (f32) and K5 (f64) against the plain version in f64, on random
+    weights and input."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K4 and K5 have no CPU mode")
+    from fea_tpu_torch.ops import cuda_varstencil
+    from fea_tpu_torch.ops.curvilinear import curv_apply_grid
+
+    nx, ny, nz = dims
+    rng = np.random.default_rng(8)
+    w64 = torch.as_tensor(rng.normal(size=(27, 3, 3, nz + 1, ny + 1, nx + 1)), device="cuda")
+    g64 = torch.as_tensor(rng.normal(size=(nz + 1, ny + 1, nx + 1, 3)), device="cuda")
+    want = curv_apply_grid(w64, g64)
+    for dt, bound in ((torch.float32, 2e-5), (torch.float64, 1e-12)):
+        key = "var_f32" if dt == torch.float32 else "var_f64"
+        n0 = cuda_varstencil.LAUNCHES[key]
+        got = cuda_varstencil.var_apply(w64.to(dt).contiguous(), g64.to(dt).contiguous())
+        torch.cuda.synchronize()
+        assert cuda_varstencil.LAUNCHES[key] == n0 + 1
         rel = float((got.double() - want).abs().max() / want.abs().max())
         assert rel < bound, (dims, key, rel)

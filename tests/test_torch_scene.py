@@ -22,7 +22,7 @@ REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 
 def _both_scenes(nodes, elements, fixed, loads, E=1e7, nu=0.3):
     jsc = ft.make_scene(nodes, elements, fixed, loads, ft.Material(E=E, nu=nu), dtype=jnp.float64)
-    tsc = ftt.make_scene(nodes, elements, fixed, loads, ftt.Material(E=E, nu=nu), dtype=torch.float64)
+    tsc = ftt.make_scene(nodes, elements, fixed, loads, ftt.Material(E=E, nu=nu), dtype=torch.float64, device="cpu")
     return jsc, tsc
 
 
@@ -55,6 +55,9 @@ def test_make_scene_and_fix_where_match_jax():
     assert np.array_equal(tsc.free_mask(torch.float64).numpy(), np.asarray(jsc.free_mask(jnp.float64)))
     assert np.array_equal(tsc.prescribed_or_zero(torch.float64).numpy(), np.zeros(nodes.shape))
     assert tsc.device == torch.device("cpu")
+    # the detectors' host copies: taken once, equal to the tensors
+    assert tsc.host_nodes is tsc.host_nodes and tsc.host_elements is tsc.host_elements
+    assert np.array_equal(tsc.host_nodes, nodes) and np.array_equal(tsc.host_elements, elements)
 
 
 def test_make_scene_validation_errors_match_jax():
@@ -70,7 +73,7 @@ def test_make_scene_validation_errors_match_jax():
         with pytest.raises(ValueError) as ej:
             ft.make_scene(*args, ft.Material(1.0, 0.3))
         with pytest.raises(ValueError) as et:
-            ftt.make_scene(*args, ftt.Material(1.0, 0.3))
+            ftt.make_scene(*args, ftt.Material(1.0, 0.3), device="cpu")
         assert str(et.value) == str(ej.value)
 
 

@@ -64,7 +64,8 @@ def test_voxel_solve_matches_jax(prescribed, voxel_route_for_small_scenes):
     nodes, elements, fixed, loads, presc = _cantilever(prescribed)
     mat = dict(E=10_000_000 * ft.units.psi, nu=0.3)
     jsc = ft.make_scene(nodes, elements, fixed, loads, ft.Material(**mat), prescribed=presc, dtype=jnp.float64)
-    tsc = ftt.make_scene(nodes, elements, fixed, loads, ftt.Material(**mat), prescribed=presc, dtype=torch.float64)
+    tsc = ftt.make_scene(nodes, elements, fixed, loads, ftt.Material(**mat), prescribed=presc, dtype=torch.float64,
+                         device="cpu")
     ref = ft.solve(jsc, tol=TOL)
     sol = ftt.solve(tsc, tol=TOL)
 
@@ -95,12 +96,12 @@ def test_routes_not_ported_raise_with_their_name():
     n2, q = ftt.mesh.annulus_section(26, 0.099, 0.1016)
     nodes, elements = ftt.mesh.extrude_quads(n2, q, np.linspace(0.0, 1.0, 50))
     fixed = ftt.fix_where(nodes, lambda p: p[:, 2] == 0.0, 3)
-    tube = ftt.make_scene(nodes, elements, fixed, np.ones_like(nodes), mat, dtype=torch.float64)
+    tube = ftt.make_scene(nodes, elements, fixed, np.ones_like(nodes), mat, dtype=torch.float64, device="cpu")
     with pytest.raises(NotImplementedError, match="'cg'"):
         ftt.solve(tube)
     nodes, elements = ftt.mesh.box_hex_mesh(4, 4, 8, 0.1, 0.1, 0.5)
     fixed = ftt.fix_where(nodes, lambda p: p[:, 2] == 0.0, 3)
-    box = ftt.make_scene(nodes, elements, fixed, np.ones_like(nodes), mat, dtype=torch.float64)
+    box = ftt.make_scene(nodes, elements, fixed, np.ones_like(nodes), mat, dtype=torch.float64, device="cpu")
     assert box.n_dof < 2000
     with pytest.raises(NotImplementedError, match="'dense'"):
         ftt.solve(box)
@@ -117,7 +118,7 @@ def test_large_non_voxel_scene_raises(voxel_route_for_small_scenes):
     n2, q = ftt.mesh.annulus_section(26, 0.099, 0.1016)
     nodes, elements = ftt.mesh.extrude_quads(n2, q, np.linspace(0.0, 1.0, 50))
     fixed = ftt.fix_where(nodes, lambda p: p[:, 2] == 0.0, 3)
-    tube = ftt.make_scene(nodes, elements, fixed, np.ones_like(nodes), mat, dtype=torch.float64)
+    tube = ftt.make_scene(nodes, elements, fixed, np.ones_like(nodes), mat, dtype=torch.float64, device="cpu")
     with pytest.raises(NotImplementedError, match="extruded"):
         ftt.solve(tube)
 
@@ -126,7 +127,7 @@ def test_nonconverged_solve_is_never_silent(voxel_route_for_small_scenes):
     nodes, elements = ftt.mesh.box_hex_mesh(4, 4, 8, 0.1, 0.1, 0.5)
     fixed = ftt.fix_where(nodes, lambda p: p[:, 2] == 0.0, 3)
     box = ftt.make_scene(nodes, elements, fixed, np.ones_like(nodes), ftt.Material(E=1e7, nu=0.3),
-                         dtype=torch.float64)
+                         dtype=torch.float64, device="cpu")
     with pytest.raises(RuntimeError, match="did not converge"):
         ftt.solve(box, max_iters=0, on_nonconverged="raise")
     with pytest.warns(RuntimeWarning, match="did not converge"):
@@ -139,6 +140,6 @@ def test_cuda_device_without_card_raises():
         pytest.skip("a card is present")
     nodes, elements = ftt.mesh.box_hex_mesh(1, 1, 1, 1.0, 1.0, 1.0)
     box = ftt.make_scene(nodes, elements, np.zeros_like(nodes), np.zeros_like(nodes),
-                         ftt.Material(E=1e7, nu=0.3), dtype=torch.float64)
+                         ftt.Material(E=1e7, nu=0.3), dtype=torch.float64, device="cpu")
     with pytest.raises((AssertionError, RuntimeError)):
         ftt.solve(box, device="cuda")
