@@ -6,8 +6,9 @@
 Phases, in order:
   1. device: the card's name and power limit (nvidia-smi), torch, CUDA
      and nvcc versions; raises without a card;
-  2. build: compiles K1/K2 (fea_tpu_torch/csrc/stencil.cu) and K4/K5
-     (fea_tpu_torch/csrc/varstencil.cu) for sm_90a, one nvcc each, in
+  2. build: compiles K1/K2 (fea_tpu_torch/csrc/stencil.cu), K4/K5
+     (fea_tpu_torch/csrc/varstencil.cu) and K6/K7
+     (fea_tpu_torch/csrc/element_apply.cu) for sm_90a, one nvcc each, in
      parallel;
   3. K1/K2 against their plain version on the card, at small shapes and at
      every grid the flagship solve gives them, with random inputs from a
@@ -38,7 +39,24 @@ Phases, in order:
      seeded permutation, through ``fea_tpu_torch.solve``; its solution,
      permuted back, is checked against the host f64 true residual of the
      original system;
-  8. one JSON line of the kernels, the card's line, then the last line
+  8. K6/K7 against their plain version on the card: random inputs from a
+     NumPy seed at E in {1, 700, 1030} and k in {4, 6, 24}, at every
+     (E, k) that phase [9] gives them (APPLY_PATH), and at the 327,680
+     elements of the 32x32x320 mesh at k = 24: f32 within 2e-5 and f64
+     within 1e-12 of the plain version run in f64; at 327,680 elements and
+     at the 13,824 of phase [9.2]'s box, the CUDA-event times of each
+     kernel, of its plain version and of one library call (torch.bmm for
+     K6, torch.matmul for K7, TF32 off), beside the kernel's bound;
+  9. element-by-element slice through ``fea_tpu_torch.solve``: the
+     cubebeam demo by cg and dense in f64 and by cg in f32 (K7); the
+     49,179-DOF voxel cantilever, auto-routed to Jacobi PCG over the
+     uniform operator (K7 f64 every iteration), checked by the host f64
+     true residual, max|u| and the tip deflection, with a torch.profiler
+     trace of its CG loop; the same box distorted, solved by the matfree
+     operator (no kernel) and by a prebuilt stored operator (K6 f64 every
+     iteration), which must agree; beams and bars (K6 at k = 4 and 6, f64
+     and f32) and the Newton-Krylov truss;
+ 10. one JSON line of the kernels, the card's line, then the last line
      ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the last line.
@@ -70,6 +88,23 @@ TIP_BAND = (0.70, 1.30)  # bench.py's band for the FEM / beam-theory tip ratio
 MAX_ITERS = 16
 CURV_MAX_ITERS = 80
 CANON_TOL = 2e-8
+APPLY_SMALL = [(E, k) for E in (1, 700, 1030) for k in (4, 6, 24)]  # tests/test_pallas.py's E
+APPLY_FULL = (32 * 32 * 320, 24)  # the elements of the 32x32x320 mesh, a timing size only
+EBE_BOX = (12, 12, 96)  # the largest voxel cantilever the auto route sends to Jacobi PCG
+CUBEBEAM_BOX = (4, 4, 49)
+BEAM_ELEMENTS = (100, 40)  # examples/euler_bernoulli.py's beam, tests/test_beam.py's cg beam
+TRIPOD_BARS = 3
+# (E, k) of every element apply phase [9] launches: cubebeam and the box
+# (hex8, k = 24; the distorted box has the same E), the beams (k = 4), the
+# bar3d tripod (k = 6); the truss's Newton solve runs no element kernel
+APPLY_PATH = ([(int(np.prod(CUBEBEAM_BOX)), 24), (int(np.prod(EBE_BOX)), 24)]
+              + [(n, 4) for n in BEAM_ELEMENTS] + [(TRIPOD_BARS, 6)])
+APPLY_TIMED = (APPLY_FULL, APPLY_PATH[1])
+EBE_LZ = 0.8
+EBE_JAX_ITERS = 404  # fea_tpu.solve on this scene, JAX on the CPU in f64
+EBE_MAX_U = 2.968e-7  # max|u| of the same JAX solve
+EBE_DISTORTED_JAX_ITERS = 1053  # fea_tpu.solve on the distorted box, JAX on the CPU in f64
+CUBEBEAM_ANCHOR = 3.0504e-4  # max|u| of the cubebeam demo (tests/test_integration.py)
 # NVIDIA H100 SXM data sheet: 3.35 TB/s of HBM3; 67 TFLOP/s f32 and
 # 34 TFLOP/s f64 outside the tensor cores, at the full 700 W
 HBM_BYTES_PER_S = 3.35e12
@@ -83,9 +118,18 @@ KERNELS = {
                     replaces="fea_tpu/ops/pallas_varstencil.py:183", dtype=torch.float32, tol=2e-5),
     "var_f64": dict(name="K5 var_apply_f64", source="fea_tpu_torch/csrc/varstencil.cu",
                     replaces="fea_tpu/ops/pallas_varstencil.py:277", dtype=torch.float64, tol=1e-12),
+    "stored_f32": dict(name="K6 batched_matvec_stored_f32", source="fea_tpu_torch/csrc/element_apply.cu",
+                       replaces="fea_tpu/ops/pallas_apply.py:47", dtype=torch.float32, tol=2e-5),
+    "stored_f64": dict(name="K6 batched_matvec_stored_f64", source="fea_tpu_torch/csrc/element_apply.cu",
+                       replaces="fea_tpu/ops/pallas_apply.py:47", dtype=torch.float64, tol=1e-12),
+    "uniform_f32": dict(name="K7 batched_matvec_uniform_f32", source="fea_tpu_torch/csrc/element_apply.cu",
+                        replaces="fea_tpu/ops/pallas_apply.py:90", dtype=torch.float32, tol=2e-5),
+    "uniform_f64": dict(name="K7 batched_matvec_uniform_f64", source="fea_tpu_torch/csrc/element_apply.cu",
+                        replaces="fea_tpu/ops/pallas_apply.py:90", dtype=torch.float64, tol=1e-12),
 }
 STENCIL_KEYS = ("f32", "f64")
 VAR_KEYS = ("var_f32", "var_f64")
+APPLY_KEYS = ("stored_f32", "stored_f64", "uniform_f32", "uniform_f64")
 
 
 def say(msg: str) -> None:
@@ -149,7 +193,7 @@ def stencil_csr(w: torch.Tensor) -> torch.Tensor:
     crow = torch.zeros(3 * N + 1, dtype=torch.int64, device=dev)
     crow[1:] = torch.cumsum(per_row, 0)
     return torch.sparse_csr_tensor(
-        crow.to(torch.int32), col[keep].to(torch.int32), val[keep], size=(3 * N, 3 * N)
+        crow.to(torch.int32), col[keep].to(torch.int32), val[keep], size=(3 * N, 3 * N), check_invariants=False
     )
 
 
@@ -378,30 +422,28 @@ def run_slice(ftt, cuda_stencil, cuda_varstencil) -> dict:
         "K1 launched": launches["f32"] > 0,
         "K2 launched": launches["f64"] > 0,
     }
-    failed = [k for k, ok in checks.items() if not ok]
-    if failed:
-        raise AssertionError(f"slice checks failed: {failed}")
+    require(checks, "slice")
     return launches
 
 
-def distorted_scene_arrays(ftt, dims):
-    """tools/curv_bench.py's scene: a 0.1 x 0.1 x 1.0 box, interior nodes
-    moved by 0.25 h U(-1, 1) (seed 7), z = 0 fixed, a total +y load of 1.0
-    on the tip face. Returns the arrays and the generator, which
-    tools/canon_bench.py goes on drawing from."""
+def distorted_scene_arrays(ftt, dims, lz=1.0):
+    """tools/curv_bench.py's scene: a 0.1 x 0.1 x lz box, interior nodes
+    moved by 0.25 h U(-1, 1) (seed 7, h = 0.1 / nx), z = 0 fixed, a total
+    +y load of 1.0 on the tip face. Returns the arrays and the generator,
+    which tools/canon_bench.py goes on drawing from."""
     nx, ny, nz = dims
-    nodes, elements = ftt.mesh.box_hex_mesh(nx, ny, nz, 0.1, 0.1, 1.0)
+    nodes, elements = ftt.mesh.box_hex_mesh(nx, ny, nz, 0.1, 0.1, lz)
     rng = np.random.default_rng(7)
     h = 0.1 / nx
-    interior = (nodes[:, 2] > 0) & (nodes[:, 2] < 1.0)
+    interior = (nodes[:, 2] > 0) & (nodes[:, 2] < lz)
     nodes = nodes + 0.25 * h * rng.uniform(-1, 1, nodes.shape) * interior[:, None]
     return nodes, elements, rng
 
 
-def cantilever_bcs(ftt, nodes):
+def cantilever_bcs(ftt, nodes, lz=1.0):
     fixed = ftt.fix_where(nodes, lambda q: np.isclose(q[:, 2], 0.0), 3)
     loads = np.zeros_like(nodes)
-    tip = np.isclose(nodes[:, 2], 1.0)
+    tip = np.isclose(nodes[:, 2], lz)
     loads[tip, 1] = 1.0 / tip.sum()
     return fixed, loads, tip
 
@@ -582,9 +624,7 @@ def run_curvilinear(ftt, cuda_stencil, cuda_varstencil) -> dict:
         "K5 launched": launches["var_f64"] > 0,
         "K1/K2 not launched": launches["f32"] == 0 and launches["f64"] == 0,
     }
-    failed = [k for k, ok in checks.items() if not ok]
-    if failed:
-        raise AssertionError(f"curvilinear checks failed: {failed}")
+    require(checks, "curvilinear")
     return launches
 
 
@@ -649,16 +689,345 @@ def run_canonical(ftt, cuda_stencil, cuda_varstencil) -> None:
         "K4 launched": launches["var_f32"] > 0,
         "K5 launched": launches["var_f64"] > 0,
     }
+    require(checks, "canonicalized")
+
+
+def apply_bound(key: str, E: int, k: int) -> tuple[float, str, int]:
+    """K6/K7's bound (ms, what sets it) and the bytes it counts: each input
+    read once and the output written once (K6: the (E, k, k) batch, u and
+    out; K7: u, out and the one Ke), 2 E k^2 operations."""
+    dtype = KERNELS[key]["dtype"]
+    size = torch.empty((), dtype=dtype).element_size()
+    values = E * k * k + 2 * E * k if key.startswith("stored") else 2 * E * k + k * k
+    ms, by = bound(dtype, values * size, 2 * E * k * k)
+    return ms, by, values * size
+
+
+def check_apply_kernels(cuda_apply) -> dict:
+    torch.backends.cuda.matmul.allow_tf32 = False  # the library calls in full f32
+    fns = {
+        "stored": (cuda_apply.batched_matvec_stored, cuda_apply.batched_matvec_stored_plain,
+                   lambda ke, u: torch.bmm(ke, u[..., None])[..., 0], "torch.bmm"),
+        "uniform": (cuda_apply.batched_matvec_uniform, cuda_apply.batched_matvec_uniform_plain,
+                    lambda ke, u: torch.matmul(u, ke.T), "torch.matmul"),
+    }
+    rng = np.random.default_rng(20261018)
+    report = {k: dict(max_abs_err=0.0, max_rel_err=0.0) for k in APPLY_KEYS}
+    for E, k in APPLY_SMALL + APPLY_PATH + [APPLY_FULL]:
+        u64 = torch.as_tensor(rng.standard_normal((E, k)), device=DEV)
+        for kind, (kernel, plain, library, lib_name) in fns.items():
+            ke64 = torch.as_tensor(rng.standard_normal((E, k, k) if kind == "stored" else (k, k)), device=DEV)
+            want = plain(ke64, u64)
+            scale = float(want.abs().max())
+            for key in (f"{kind}_f32", f"{kind}_f64"):
+                spec = KERNELS[key]
+                ke, u = ke64.to(spec["dtype"]), u64.to(spec["dtype"])
+                got = kernel(ke, u)
+                torch.cuda.synchronize()
+                err = float((got.double() - want).abs().max())
+                rel = err / scale
+                if (E, k) in APPLY_PATH + [APPLY_FULL]:
+                    say(f"  {spec['name']} E={E} k={k}: max abs err {err:.3e}, rel {rel:.3e} (tol {spec['tol']:g})")
+                if not rel <= spec["tol"]:
+                    raise AssertionError(f"{spec['name']} at E={E}, k={k}: rel err {rel:.3e} > {spec['tol']:g}")
+                report[key]["max_abs_err"] = max(report[key]["max_abs_err"], err)
+                report[key]["max_rel_err"] = max(report[key]["max_rel_err"], rel)
+                if (E, k) in APPLY_TIMED:
+                    lib_rel = float((library(ke, u).double() - want).abs().max()) / scale
+                    if not lib_rel <= 1e-5:
+                        raise AssertionError(f"{lib_name} disagrees with the plain version: rel err {lib_rel:.3e}")
+                    ms = event_ms(lambda: kernel(ke, u))
+                    plain_ms = event_ms(lambda: plain(ke, u))
+                    lib_ms = event_ms(lambda: library(ke, u))
+                    bound_ms, bound_by, nbytes = apply_bound(key, E, k)
+                    gbs = nbytes / (ms * 1e-3) / 1e9
+                    say(f"  {spec['name']} E={E} k={k}: kernel {ms:.4f} ms ({gbs:.1f} GB/s), plain version "
+                        f"{plain_ms:.4f} ms, {lib_name} {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+                    times = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                 gb_per_s=gbs)
+                    if (E, k) == APPLY_FULL:
+                        report[key].update(times)
+                    else:  # the same at the size phase [9.2] runs, under path_*
+                        report[key].update(path_E=E, **{f"path_{n}": v for n, v in times.items()})
+                del ke, u, got
+            del ke64, want
+    say("  every shape: " + ", ".join(f"{KERNELS[k]['name'].split()[0]} {k[-3:]} rel err <= "
+                                      f"{report[k]['max_rel_err']:.2e}" for k in APPLY_KEYS))
+    return report
+
+
+def counted(counters, fn):
+    """``fn()`` with every launch count set to 0 just before it, and the
+    counts read just after: (result, counts, wall seconds)."""
+    zero_counts(*counters)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {}
+    for c in counters:
+        counts.update(c)
+    return out, counts, wall
+
+
+def require(checks: dict, what: str) -> None:
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
-        raise AssertionError(f"canonicalized checks failed: {failed}")
+        raise AssertionError(f"{what} checks failed: {failed}")
+
+
+def cubebeam_arrays(ftt):
+    """The reference cubebeam demo (tests/test_integration.py:15-33): a
+    0.1 x 0.1 x 1.0 cantilever of 4x4x49 hex8, E = 10e6 psi, nu = 0.3,
+    100 lbf/ft along its y = 0 face."""
+    nodes, elements = ftt.mesh.box_hex_mesh(*CUBEBEAM_BOX, 0.1, 0.1, 1.0)
+    loads = np.zeros_like(nodes)
+    loads[nodes[:, 1] == 0.0, 1] += 100.0 * ftt.units.lbf / ftt.units.ft / (5 * 51)
+    fixed = ftt.fix_where(nodes, lambda p: p[:, 2] == 0.0, 3)
+    return nodes, elements, fixed, loads, ftt.Material(E=10_000_000 * ftt.units.psi, nu=0.3)
+
+
+def run_cubebeam(ftt, counters) -> dict:
+    nodes, elements, fixed, loads, mat = cubebeam_arrays(ftt)
+    root = nodes[:, 2] == 0.0
+    checks = {"(E, k) held against the plain version in [8]": (elements.shape[0], 24) in APPLY_PATH}
+    launches = {}
+    scene64 = ftt.make_scene(nodes, elements, fixed, loads, mat, dtype=torch.float64)
+    # f32 node coordinates are not congruent to build_operator's 1e-9, so
+    # an f32 scene would get the matfree kind (as in the reference): the
+    # f32 solve takes the uniform operator of the f64 mesh, cast to f32
+    op32 = ftt.build_operator(scene64, dtype=torch.float32)
+    for label, dtype, kw in (("cg f64", torch.float64, dict(method="cg", tol=1e-8)),
+                             ("dense f64", torch.float64, dict(method="dense")),
+                             ("cg f32", torch.float32, dict(method="cg", tol=1e-5, on_nonconverged="ignore",
+                                                            operator=op32))):
+        scene = ftt.make_scene(nodes, elements, fixed, loads, mat, dtype=dtype)
+        sol, counts, wall = counted(counters, lambda: ftt.solve(scene, **kw))
+        launches[f"cubebeam {label}"] = counts
+        u = sol.displacements.cpu().numpy()
+        r = sol.reactions.cpu().double().numpy()
+        max_u = float(np.abs(u).max())
+        balance = abs(r[root, 1].sum() + loads[~root, 1].sum()) / np.abs(loads).sum()
+        st = sol.stats
+        say(f"  cubebeam {label} ({scene.n_dof} DOF): {wall:.3f} s, {st.iterations} iterations, reported true "
+            f"residual {st.relative_residual:.3e}, converged {st.converged}; max|u| {max_u:.5e} "
+            f"(anchor {CUBEBEAM_ANCHOR:g}); root reactions + load {balance:.2e} of the load; launches K7 f32 "
+            f"{counts['uniform_f32']}, K7 f64 {counts['uniform_f64']}")
+        checks[f"{label}: max|u| within 1e-3 of the anchor"] = abs(max_u / CUBEBEAM_ANCHOR - 1) <= 1e-3
+        if dtype == torch.float64:
+            checks[f"{label}: converged"] = st.converged
+            checks[f"{label}: root reactions balance the load (1e-8)"] = balance <= 1e-8
+            checks[f"{label}: K7 f64 launched, not f32"] = counts["uniform_f64"] > 0 and counts["uniform_f32"] == 0
+        else:
+            checks[f"{label}: K7 f32 launched, not f64"] = counts["uniform_f32"] > 0 and counts["uniform_f64"] == 0
+    require(checks, "cubebeam")
+    return launches
+
+
+def run_voxel_ebe(ftt, counters) -> dict:
+    nodes, elements = ftt.mesh.box_hex_mesh(*EBE_BOX, 0.1, 0.1, EBE_LZ)
+    fixed, loads, tip = cantilever_bcs(ftt, nodes, EBE_LZ)
+    mat = ftt.Material(E=10_000_000 * ftt.units.psi, nu=0.3)
+    scene = ftt.make_scene(nodes, elements, fixed, loads, mat, dtype=torch.float64)
+    say(f"  scene: {EBE_BOX} voxels, 0.1 x 0.1 x {EBE_LZ}, {scene.n_dof} DOF on {scene.device}")
+    sol, counts, wall = counted(counters, lambda: ftt.solve(scene, tol=1e-8))
+    st = sol.stats
+    say(f"  whole solve (fea_tpu_torch.solve): {wall:.3f} s, {st.iterations} iterations "
+        f"({wall / max(st.iterations, 1) * 1e3:.3f} ms an iteration), reported true residual "
+        f"{st.relative_residual:.3e}, converged {st.converged}")
+    say("  launches in that solve: " + ", ".join(f"{KERNELS[k]['name'].split()[0]} {k} {counts[k]}"
+                                                 for k in KERNELS))
+
+    # stage breakdown: a second solve, stage by stage, then the CG loop profiled
+    t0 = time.perf_counter()
+    op = ftt.build_operator(scene, dtype=torch.float64)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    presc = scene.prescribed_or_zero(torch.float64)
+    budget = min(max(1000, 10 * scene.n_dof), 100_000)
+    t0 = time.perf_counter()
+    sol2 = ftt.solve_operator(op, scene.loads, presc, tol=1e-8, max_iters=budget)
+    torch.cuda.synchronize()
+    t_cg = time.perf_counter() - t0
+    say(f"  stages (second solve): build_operator ({op.kind}) {t_build:.3f} s, Jacobi PCG with the true "
+        f"residual {t_cg:.3f} s; {sol2.stats.iterations} iterations")
+    prof = profile_fcg(lambda: ftt.solve_operator(op, scene.loads, presc, tol=1e-8, max_iters=budget))
+    it = prof["sol"].stats.iterations
+    say(f"  profiled CG stage: wall {prof['wall_s']:.3f} s under the profiler, device time "
+        f"{prof['device_ms']:.1f} ms in {prof['n_device']} device activities "
+        f"({prof['n_device'] / max(it, 1):.1f} an iteration over {it} iterations); "
+        f"busy share {prof['device_ms'] / 1e3 / t_cg:.3f} of the unprofiled CG stage")
+    for name, ms in prof["top"]:
+        say(f"    {ms:9.2f} ms  {name[:90]}")
+    del op
+
+    u = sol.displacements.cpu().numpy()
+    if u.shape != nodes.shape or not np.all(np.isfinite(u)):
+        raise AssertionError(f"displacements: shape {u.shape}, finite {np.all(np.isfinite(u))}")
+    _, rel_host = host_check(nodes, elements, mat, fixed, loads, u)
+    max_u = float(np.abs(u).max())
+    I = 0.1 * 0.1**3 / 12.0
+    tip_ratio = float(u[tip, 1].mean()) / (EBE_LZ**3 / (3 * mat.E * I))
+    say(f"  host f64 true relative residual {rel_host:.3e}; max|u| {max_u:.6e} (JAX {EBE_MAX_U:g}); "
+        f"tip ratio {tip_ratio:.5f}; iterations {st.iterations} (JAX {EBE_JAX_ITERS})")
+    require({
+        "converged": st.converged,
+        f"iterations within 5% of {EBE_JAX_ITERS}": abs(st.iterations - EBE_JAX_ITERS) <= 0.05 * EBE_JAX_ITERS,
+        "host true residual <= 1e-8": rel_host <= 1e-8,
+        "max|u| within 5e-4": abs(max_u / EBE_MAX_U - 1) <= 5e-4,
+        f"tip ratio in {TIP_BAND}": TIP_BAND[0] < tip_ratio < TIP_BAND[1],
+        "K7 f64 launches >= iterations": counts["uniform_f64"] >= st.iterations,
+        "K1/K2/K4/K5 not launched": all(counts[k] == 0 for k in STENCIL_KEYS + VAR_KEYS),
+        "(E, k) held against the plain version in [8]": (elements.shape[0], 24) in APPLY_PATH,
+    }, "voxel element-by-element")
+    return {"voxel": counts}
+
+
+def run_distorted_ebe(ftt, counters) -> dict:
+    nodes, elements, _ = distorted_scene_arrays(ftt, EBE_BOX, EBE_LZ)
+    fixed, loads, _ = cantilever_bcs(ftt, nodes, EBE_LZ)
+    mat = ftt.Material(E=10_000_000 * ftt.units.psi, nu=0.3)
+    scene = ftt.make_scene(nodes, elements, fixed, loads, mat, dtype=torch.float64)
+    say(f"  scene: {EBE_BOX} distorted, {scene.n_dof} DOF")
+    sol_m, c_m, wall_m = counted(counters, lambda: ftt.solve(scene, tol=1e-8))
+    mf = ftt.build_operator(scene, dtype=torch.float64)
+    stored = dataclasses.replace(mf, kind="stored", ke=mf.element_matrices().contiguous(), geom=None, material=None)
+    del mf
+    sol_s, c_s, wall_s = counted(counters, lambda: ftt.solve(scene, method="cg", operator=stored, tol=1e-8))
+    del stored
+    results = {}
+    for label, sol, counts, wall in (("matfree", sol_m, c_m, wall_m), ("stored", sol_s, c_s, wall_s)):
+        u = sol.displacements.cpu().numpy()
+        _, rel_host = host_check(nodes, elements, mat, fixed, loads, u)
+        st = sol.stats
+        results[label] = (u, rel_host, st)
+        say(f"  {label} solve: {wall:.3f} s, {st.iterations} iterations "
+            f"({wall / max(st.iterations, 1) * 1e3:.3f} ms an iteration), reported {st.relative_residual:.3e}, "
+            f"host f64 true residual {rel_host:.3e}; launches K6 f64 {counts['stored_f64']}, "
+            f"K7 f64 {counts['uniform_f64']}")
+    (u_m, r_m, st_m), (u_s, r_s, st_s) = results["matfree"], results["stored"]
+    diff = float(np.abs(u_m - u_s).max() / np.abs(u_m).max())
+    say(f"  matfree vs stored displacements: {diff:.3e} of max|u|; iterations {st_m.iterations} and "
+        f"{st_s.iterations} (JAX {EBE_DISTORTED_JAX_ITERS})")
+    require({
+        "both converged": st_m.converged and st_s.converged,
+        "both host true residuals <= 1e-8": r_m <= 1e-8 and r_s <= 1e-8,
+        "displacements agree within 1e-4 of max|u|": diff <= 1e-4,
+        "iterations within 5% of each other": abs(st_m.iterations - st_s.iterations) <= 0.05 * st_m.iterations,
+        f"matfree iterations within 5% of {EBE_DISTORTED_JAX_ITERS}":
+            abs(st_m.iterations - EBE_DISTORTED_JAX_ITERS) <= 0.05 * EBE_DISTORTED_JAX_ITERS,
+        "matfree: no kernel launched": all(v == 0 for v in c_m.values()),
+        "stored: K6 f64 launches >= iterations": c_s["stored_f64"] >= st_s.iterations,
+        "(E, k) held against the plain version in [8]": (elements.shape[0], 24) in APPLY_PATH,
+    }, "distorted element-by-element")
+    return {"distorted matfree": c_m, "distorted stored": c_s}
+
+
+def run_beams_bars(ftt, counters) -> dict:
+    E, I, L, q = 210e9, 1e-6, 1.0, 1000.0  # examples/euler_bernoulli.py
+
+    def beam(n):
+        x = np.linspace(0.0, L, n + 1)[:, None]
+        el = np.stack([np.arange(n), np.arange(n) + 1], axis=1)
+        fe = ftt.elements.beam.uniform_load_vector(torch.as_tensor(x), torch.as_tensor(el), q).numpy()
+        loads = np.zeros((n + 1, 2))
+        np.add.at(loads.reshape(-1), (el[:, :, None] * 2 + np.arange(2)).reshape(-1), fe.reshape(-1))
+        fixed = np.zeros((n + 1, 2), bool)
+        fixed[0] = fixed[-1] = True
+        return ftt.make_scene(x, el, fixed, loads, ftt.Material(E, 0.0), family="eb_beam", section=np.float64(I),
+                              dtype=torch.float64)
+
+    s32 = np.sqrt(3.0) / 2.0
+    tripod_nodes = np.array([[1.0, 0.0, 0.0], [-0.5, s32, 0.0], [-0.5, -s32, 0.0], [0.0, 0.0, 1.0]])
+    tripod_fixed = np.zeros((4, 3), bool)
+    tripod_fixed[:3] = True
+    tripod_loads = np.zeros((4, 3))
+    tripod_loads[3, 2] = -50.0
+
+    tripod_el = np.array([[0, 3], [1, 3], [2, 3]])
+
+    def tripod(dtype):
+        return ftt.make_scene(tripod_nodes, tripod_el, tripod_fixed, tripod_loads,
+                              ftt.Material(1.0, 0.0), family="bar3d", section=np.full(3, 1000.0), dtype=dtype)
+
+    truss_fixed = np.zeros((3, 2), bool)
+    truss_fixed[:2] = True
+    truss_loads = np.zeros((3, 2))
+    truss_loads[2] = [0.0, -100.0]
+    truss = ftt.make_scene(np.array([[0.0, 0.0], [0.0, 1.0], [1.0, 0.5]]), np.array([[0, 2], [1, 2]]), truss_fixed,
+                           truss_loads, ftt.Material(1.0, 0.0), family="bar2d", section=np.full(2, 1000.0),
+                           dtype=torch.float64)
+    runs = {
+        "beam 100 dense": lambda: ftt.solve(beam(BEAM_ELEMENTS[0]), method="dense"),
+        "beam 40 dense": lambda: ftt.solve(beam(BEAM_ELEMENTS[1]), method="dense"),
+        "beam 40 cg": lambda: ftt.solve(beam(BEAM_ELEMENTS[1]), method="cg", tol=1e-12, on_nonconverged="ignore"),
+        "tripod f64 dense": lambda: ftt.solve(tripod(torch.float64), method="dense"),
+        "tripod f32 cg": lambda: ftt.solve(tripod(torch.float32), method="cg", tol=1e-6),
+        "truss newton": lambda: ftt.solve_nonlinear(truss, tol=1e-12),
+    }
+    out, launches = {}, {}
+    for label, fn in runs.items():
+        out[label], launches[label], wall = counted(counters, fn)
+        say(f"  {label}: {wall:.3f} s; launches K6 f32 {launches[label]['stored_f32']}, "
+            f"K6 f64 {launches[label]['stored_f64']}")
+    w = out["beam 100 dense"].displacements.cpu().numpy()[:, 0]
+    mid_err = abs(w[50] / (q * L**4 / (384 * E * I)) - 1)
+    ud, uc = (out[k].displacements.cpu().numpy() for k in ("beam 40 dense", "beam 40 cg"))
+    cg_err = float(np.abs(ud - uc).max() / np.abs(ud).max())
+    ut = out["tripod f64 dense"].displacements.cpu().numpy()
+    ut32 = out["tripod f32 cg"].displacements.cpu().numpy()
+    uz = -50.0 / 1500.0
+    u_nl, nst = out["truss newton"]
+    say(f"  beam midspan vs qL^4/384EI: {mid_err:.2e}; 40-element cg ({out['beam 40 cg'].stats.iterations} "
+        f"iterations, reported {out['beam 40 cg'].stats.relative_residual:.2e}) vs dense {cg_err:.2e}; tripod "
+        f"u_z {ut[3, 2]:.12f} (f32 {ut32[3, 2]:.8f}, exact {uz:.12f}); truss Newton {nst.iterations} steps, "
+        f"|R| {nst.residual_norm:.2e}, apex {u_nl[2].cpu().numpy()}")
+    require({
+        "beam midspan within 1e-9": mid_err <= 1e-9,
+        "beam cg within 1e-9 of dense": cg_err <= 1e-9,
+        "tripod f64 within 1e-9": abs(ut[3, 2] / uz - 1) <= 1e-9 and np.abs(ut[3, :2]).max() < 1e-9,
+        "tripod f32 within 1e-5": abs(ut32[3, 2] / uz - 1) <= 1e-5,
+        "truss Newton converged (1e-12) within 10 steps": nst.converged and nst.iterations <= 10,
+        "K6 f64 launched at k = 4": launches["beam 100 dense"]["stored_f64"] > 0
+        and launches["beam 40 cg"]["stored_f64"] > 0,
+        "K6 f64 launched at k = 6": launches["tripod f64 dense"]["stored_f64"] > 0,
+        "K6 f32 launched at k = 6": launches["tripod f32 cg"]["stored_f32"] > 0,
+        "tripod (E, k) held against the plain version in [8]": (len(tripod_el), 6) in APPLY_PATH,
+    }, "beams and bars")
+    return launches
+
+
+# The one solve of phase [9] whose launches the kernels line reports for each key
+PER_SOLVE = {"stored_f32": "tripod f32 cg", "stored_f64": "distorted stored",
+             "uniform_f32": "cubebeam cg f32", "uniform_f64": "voxel"}
+
+
+def run_ebe(ftt, counters) -> dict:
+    """Phase [9]: every element-by-element path, each solve counted from
+    0. Returns each K6/K7 key's launches in its solve of ``PER_SOLVE``."""
+    solves = {}
+    say("  [9.1] cubebeam")
+    solves.update(run_cubebeam(ftt, counters))
+    say("  [9.2] 49,179-DOF voxel cantilever, auto-routed")
+    solves.update(run_voxel_ebe(ftt, counters))
+    say("  [9.3] the same box distorted: matfree and stored")
+    solves.update(run_distorted_ebe(ftt, counters))
+    say("  [9.4] beams and bars")
+    solves.update(run_beams_bars(ftt, counters))
+    per_solve = {k: solves[label][k] for k, label in PER_SOLVE.items()}
+    say("  K6/K7 launches in one solve each: " + ", ".join(f"{k} {per_solve[k]} ({PER_SOLVE[k]})"
+                                                         for k in APPLY_KEYS))
+    say("  K6/K7 launches over phase [9]: " + ", ".join(f"{k} {sum(c[k] for c in solves.values())}"
+                                                       for k in APPLY_KEYS))
+    require({f"{k} launched in {PER_SOLVE[k]}": v > 0 for k, v in per_solve.items()}, "element-by-element launches")
+    return per_solve
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
     import fea_tpu_torch as ftt
-    from fea_tpu_torch.ops import cuda_stencil, cuda_varstencil, nvcc
+    from fea_tpu_torch.ops import cuda_apply, cuda_stencil, cuda_varstencil, nvcc
 
     say("[1] device")
     smi = subprocess.run(
@@ -673,10 +1042,10 @@ def main() -> None:
 
     say("[2] build")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        for fut in [pool.submit(cuda_stencil.build), pool.submit(cuda_varstencil.build)]:
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        for fut in [pool.submit(m.build) for m in (cuda_stencil, cuda_varstencil, cuda_apply)]:
             fut.result()
-    say(f"  K1/K2 and K4/K5 built in {time.perf_counter() - t0:.2f} s")
+    say(f"  K1/K2, K4/K5 and K6/K7 built in {time.perf_counter() - t0:.2f} s")
 
     say("[3] K1/K2 vs plain version (f64) on the card")
     report = check_kernels(ftt, cuda_stencil)
@@ -693,6 +1062,12 @@ def main() -> None:
 
     say("[7] canonicalized slice: the renumbered 181,875-DOF scene through fea_tpu_torch.solve")
     run_canonical(ftt, cuda_stencil, cuda_varstencil)
+
+    say("[8] K6/K7 vs plain version (f64) on the card")
+    report.update(check_apply_kernels(cuda_apply))
+
+    say("[9] element-by-element slice through fea_tpu_torch.solve")
+    launches.update(run_ebe(ftt, (cuda_stencil.LAUNCHES, cuda_varstencil.LAUNCHES, cuda_apply.LAUNCHES)))
 
     say(json.dumps({"kernels": [
         dict(name=spec["name"], route="cuda", source=spec["source"], replaces=spec["replaces"],

@@ -3,9 +3,18 @@ NVIDIA Hopper card (sm_90a).
 
 A port of the JAX package ``fea_tpu`` that takes the same scene in and
 gives the same solution out. It imports torch and NumPy, never JAX. This
-version serves the voxel-box, curvilinear and canonicalized hex8 routes;
-see ROADMAP.md for the rest. Entry points run on the CUDA card unless the
-caller passes ``device="cpu"``.
+version serves:
+
+  * the large hex8 routes: the voxel box (K1/K2), the curvilinear grid
+    (K4/K5) and the canonicalized (renumbered) grid;
+  * the element-by-element operator (``build_operator``, K6/K7): an
+    explicit ``method="cg"`` (Jacobi, block-Jacobi or none) or
+    ``"dense"``, a prebuilt ``operator=``, hex8 scenes under 50,000 DOF,
+    Euler-Bernoulli beams and 2D/3D bars, and ``solve_nonlinear`` for
+    bars.
+
+See ROADMAP.md for the rest. Entry points run on the CUDA card unless
+the caller passes ``device="cpu"``.
 
 Quick start::
 
@@ -22,12 +31,23 @@ Quick start::
 """
 from __future__ import annotations
 
-from . import mesh
+from . import assembly, mesh, post
 from .config import DEFAULT_CONFIG, SolverConfig
 from .materials import Material, units
+from .operator import StiffnessOperator, build_operator
 from .scene import FAMILIES, ElementFamily, Scene, fix_where, make_scene, scene_from_numpy
-from .solve import Solution, build_curvilinear, solve, solve_curvilinear
-from .solvers.cg import SolveStats
+from .solve import (
+    Solution,
+    build_curvilinear,
+    solve,
+    solve_curvilinear,
+    solve_displacements,
+    solve_nonlinear,
+    solve_operator,
+)
+from .solvers.cg import SolveStats, pcg
+from .solvers.dense import dense_solve
+from .solvers.newton import newton_krylov
 
 __version__ = "0.1.0"
 
@@ -40,12 +60,22 @@ __all__ = [
     "Solution",
     "SolveStats",
     "SolverConfig",
+    "StiffnessOperator",
+    "assembly",
     "build_curvilinear",
+    "build_operator",
+    "dense_solve",
     "fix_where",
     "make_scene",
     "mesh",
+    "newton_krylov",
+    "pcg",
+    "post",
     "scene_from_numpy",
     "solve",
     "solve_curvilinear",
+    "solve_displacements",
+    "solve_nonlinear",
+    "solve_operator",
     "units",
 ]

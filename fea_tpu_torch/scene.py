@@ -26,6 +26,7 @@ __all__ = [
     "scene_from_numpy",
     "fix_where",
     "resolve_device",
+    "dof_ids",
 ]
 
 
@@ -197,17 +198,28 @@ def make_scene(
     )
 
 
-def scene_from_numpy(nodes, elements, fixed, loads, E, nu, prescribed=None, *, device=None) -> Scene:
-    """A hex8 scene from the NumPy arrays of another scene (for example a
+def scene_from_numpy(
+    nodes, elements, fixed, loads, E, nu, prescribed=None, *, family: str = "hex8", section=None, device=None
+) -> Scene:
+    """A scene from the NumPy arrays of another scene (for example a
     ``fea_tpu`` scene pulled to the host), in the floating dtype of
     ``nodes``, on ``device`` as :func:`make_scene` places it. A scene and
     its material are this system's only parameters, so this carries one
-    across whole."""
+    across whole: a beam or bar scene with its ``family`` and
+    ``section``."""
     nodes = np.asarray(nodes)
     return make_scene(
-        nodes, elements, fixed, loads, Material(E=float(E), nu=float(nu)),
-        prescribed=prescribed, dtype=torch_dtype(nodes.dtype), device=device,
+        nodes, elements, fixed, loads, Material(E=float(E), nu=float(nu)), family=family,
+        prescribed=prescribed, section=section, dtype=torch_dtype(nodes.dtype), device=device,
     )
+
+
+def dof_ids(elements: torch.Tensor, dofs_per_node: int) -> torch.Tensor:
+    """Element-local to global DOF map, (E, npe * dpn) int64 on the
+    elements' device: entry [e, a * dpn + j] = elements[e, a] * dpn + j."""
+    E, npe = elements.shape
+    offs = torch.arange(dofs_per_node, dtype=torch.int64, device=elements.device)
+    return (elements.to(torch.int64)[:, :, None] * dofs_per_node + offs).reshape(E, npe * dofs_per_node)
 
 
 def fix_where(nodes, predicate, dofs_per_node: int) -> np.ndarray:

@@ -1,25 +1,32 @@
 """Top-level solve API.
 
     solution = fea_tpu_torch.solve(scene)
-    solution.displacements   # (N, 3), prescribed values on fixed DOFs
-    solution.reactions       # (N, 3) = K @ u over ALL DOFs
+    solution.displacements   # (N, dpn), prescribed values on fixed DOFs
+    solution.reactions       # (N, dpn) = K @ u over ALL DOFs
     solution.stats           # iterations / true residual / convergence
 
-Counterpart of ``fea_tpu/solve/__init__.py::solve``. A hex8 scene of
-``_STRUCTURED_MIN_DOF`` DOFs or more is routed in the reference's order:
+Counterpart of ``fea_tpu/solve/__init__.py::solve``. Routes, in the
+reference's order:
 
-  1. a regular voxel box: the structured stencil operator (K1/K2);
-  2. an extruded mesh: not ported yet, raises (item 12);
-  3. box-grid connectivity with free node positions: the curvilinear
-     route (``solve/curv.py``, K4/K5);
-  4. a box grid under node renumbering: canonicalized, solved through
-     this function, and permuted back;
-  5. anything else raises (items 11 and 13).
+  1. an explicit ``method="cg"`` or ``"dense"``, or a prebuilt
+     ``operator=``: the element-by-element operator (``operator.py``,
+     K6/K7) through :func:`solve_operator`, whatever the size;
+  2. a hex8 scene of ``_STRUCTURED_MIN_DOF`` DOFs or more, auto-routed:
+     a. a regular voxel box: the structured stencil operator (K1/K2);
+     b. an extruded mesh: not ported yet, raises (item 12);
+     c. box-grid connectivity with free node positions: the curvilinear
+        route (``solve/curv.py``, K4/K5);
+     d. a box grid under node renumbering: canonicalized, solved through
+        this function, and permuted back;
+     e. anything else raises (items 11 and 13);
+  3. any other scene, auto-routed: ``dense`` below 2,000 DOF, Jacobi PCG
+     over the element-by-element operator above (beams and bars at any
+     size).
 
-Each route runs f64 flexible PCG with a multigrid V-cycle, certified
-against the true f64 residual. Every route not ported raises
-``NotImplementedError`` naming the route and the ROADMAP item that ports
-it; no scene silently takes another path.
+The large routes run f64 flexible PCG with a multigrid V-cycle; every
+route reports the true residual of the displacements it returns. Every
+route not ported raises ``NotImplementedError`` naming the route and the
+ROADMAP item that ports it; no scene silently takes another path.
 """
 from __future__ import annotations
 
@@ -30,14 +37,27 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_CONFIG, SolverConfig
+from ..dtypes import precise_dot, torch_dtype
+from ..operator import StiffnessOperator, build_operator
 from ..scene import Scene
+from ..solvers.cg import SolveStats, pcg
+from ..solvers.dense import dense_solve
 from ._types import Solution
 from .curv import build_curvilinear, solve_curvilinear
 from .fpcg import solve_operator_fpcg
 
-__all__ = ["Solution", "build_curvilinear", "solve", "solve_curvilinear", "solve_operator_fpcg"]
+__all__ = [
+    "Solution",
+    "build_curvilinear",
+    "solve",
+    "solve_curvilinear",
+    "solve_displacements",
+    "solve_nonlinear",
+    "solve_operator",
+    "solve_operator_fpcg",
+]
 
-# auto-routing takes the voxel route from this size (tests lower it)
+# auto-routing takes the large-grid routes from this size (tests lower it)
 _STRUCTURED_MIN_DOF = 50_000
 
 
@@ -47,6 +67,80 @@ def _not_ported(route: str, item: str) -> NotImplementedError:
         f"not ported yet (ROADMAP.md queue 1 item {item}); no other route "
         "is taken in its place"
     )
+
+
+def _true_relative_residual(op: StiffnessOperator, b: torch.Tensor, u: torch.Tensor, safe_b_norm: float) -> float:
+    """||b - A u|| / ||b|| through the operator's own apply, f64 dots."""
+    r = b - op.apply(u)
+    return float(torch.sqrt(precise_dot(r, r))) / safe_b_norm
+
+
+def solve_operator(
+    op: StiffnessOperator,
+    loads: torch.Tensor,
+    prescribed: torch.Tensor,
+    *,
+    method: str = "cg",
+    tol: float = 1e-8,
+    max_iters: int = 20_000,
+    precondition: bool | str = True,
+    precond=None,
+) -> Solution:
+    """Solve with a prebuilt operator, in the operator's dtype.
+
+    ``method``: ``"cg"`` or ``"dense"``. ``precondition``: True (scalar
+    Jacobi), False, or ``"block"`` (nodal dpn x dpn block-Jacobi);
+    ``precond``, an SPD callable, wins over it.
+
+    The stats report the true residual: after CG it is recomputed as
+    ||b - A u|| with one more apply (the operator's own, f64 dots), and
+    ``relative_residual`` and ``converged`` come from it. When the
+    operator is f64 and the recurrence met ``tol`` but the true residual
+    did not, CG restarts from u on the true residual, within the same
+    ``max_iters``. An f32 operator gets no restart: it reports its own
+    true residual, at the floor of the f32 apply.
+    """
+    dtype = op.dtype
+    loads = loads.to(dtype)
+    prescribed = prescribed.to(dtype)
+    b = op.rhs(loads, prescribed)
+
+    if method == "cg":
+        x0 = (1.0 - op.free) * prescribed  # fixed rows exact from the start
+        if precond is None and precondition == "block":
+            Binv = op.block_diag_inv_masked()
+            precond = lambda r: torch.einsum("nij,nj->ni", Binv, r)  # noqa: E731
+        diag = op.diag_masked() if precond is None and precondition else None
+
+        def run(x, budget):
+            return pcg(op.apply, b, x, precond_diag=diag, precond=precond, tol=tol, max_iters=budget)
+
+        u, st = run(x0, max_iters)
+        iters = st.iterations
+        b_norm = float(torch.sqrt(precise_dot(b, b)))
+        safe_b_norm = b_norm if b_norm > 0 else 1.0
+        rel = _true_relative_residual(op, b, u, safe_b_norm)
+        while dtype == torch.float64 and st.converged and rel > tol and iters < max_iters:
+            u_new, st = run(u, max_iters - iters)
+            iters += st.iterations
+            rel_new = _true_relative_residual(op, b, u_new, safe_b_norm)
+            if st.iterations == 0 or not rel_new < rel:
+                break
+            u, rel = u_new, rel_new
+        stats = SolveStats(
+            iterations=iters, residual_norm=rel * safe_b_norm, relative_residual=rel, converged=rel <= tol
+        )
+    elif method == "dense":
+        x_flat, stats = dense_solve(op.dense(), b.reshape(-1), op.free.reshape(-1))
+        u = x_flat.reshape(loads.shape)
+    else:
+        raise ValueError(f"unknown method {method!r} (expected 'cg' or 'dense')")
+    return Solution(displacements=u, reactions=op.apply_raw(u), stats=stats)
+
+
+def solve_displacements(op: StiffnessOperator, loads, prescribed, *, tol: float = 1e-8, max_iters: int = 20_000):
+    """Displacements only, by Jacobi PCG over a prebuilt operator."""
+    return solve_operator(op, loads, prescribed, method="cg", tol=tol, max_iters=max_iters).displacements
 
 
 def solve(
@@ -66,9 +160,10 @@ def solve(
     """Solve a linear static scene end-to-end, on ``device`` (the scene's
     device when None: the card unless the scene was built on the CPU).
 
-    Every route builds its operator in f64 whatever ``dtype`` and the
-    scene's dtype are. ``check_jacobians`` raises ValueError on a
-    non-positive detJ on the curvilinear route (voxel detJ > 0).
+    The large-grid routes build their operator in f64 whatever ``dtype``
+    is; the element-by-element route builds it in ``dtype`` (the scene's
+    when None) and takes ``operator`` as given, on the scene's device.
+    ``check_jacobians`` raises ValueError on a non-positive detJ.
     ``on_nonconverged`` is 'warn' (default), 'raise', or 'ignore': a
     solve that exits without reaching ``tol`` is never silent. Defaults
     come from ``config`` (itself defaulting to ``DEFAULT_CONFIG``);
@@ -82,6 +177,8 @@ def solve(
     on_nonconverged = cfg.on_nonconverged if on_nonconverged is None else on_nonconverged
     if on_nonconverged not in ("warn", "raise", "ignore"):
         raise ValueError("on_nonconverged must be 'warn', 'raise', or 'ignore'")
+    if method not in ("auto", "cg", "dense"):
+        raise ValueError(f"unknown method {method!r} (expected 'auto', 'cg' or 'dense')")
     if device is not None:
         scene = scene.to(torch.device(device))
 
@@ -99,20 +196,37 @@ def solve(
 
     if debug_nans:
         raise _not_ported("debug_nans sanitizer", "15")
-    if method != "auto":
-        raise _not_ported(f"explicit method={method!r}", "8")
-    if operator is not None:
-        raise _not_ported("prebuilt-operator", "8")
-    if cfg.sharded:
-        raise _not_ported("sharded multi-device", "14")
-    if scene.n_dof < _STRUCTURED_MIN_DOF:
-        if scene.n_dof < 2000:
-            raise _not_ported("'dense'", "8")
-        raise _not_ported("'cg' (Jacobi / block-Jacobi PCG)", "8")
+    if method == "auto" and operator is None and (scene.n_dof >= _STRUCTURED_MIN_DOF or cfg.sharded):
+        if cfg.sharded:
+            raise _not_ported("sharded multi-device", "14")
+        if scene.family == "hex8":
+            sol, route = _solve_large_hex8(scene, config, tol, max_iters, dtype, check_jacobians)
+            return check(sol, route)
+    if method == "auto":
+        method = "dense" if scene.n_dof < 2000 else "cg"
+    if max_iters is None:
+        max_iters = min(max(1000, 10 * scene.n_dof), 100_000) if method == "cg" else 1
 
-    if scene.family != "hex8":
-        raise _not_ported("'cg' (Jacobi / block-Jacobi PCG)", "8")
+    if operator is None:
+        operator = build_operator(scene, dtype=scene.nodes.dtype if dtype is None else torch_dtype(dtype))
+    op = operator
+    if check_jacobians and op.geom is not None:
+        min_detj = float(op.geom.min_detj)
+        if min_detj <= 0.0:
+            raise ValueError(
+                f"Non-positive Jacobian determinant (min detJ = {min_detj:g}); "
+                "check element shapes / node ordering."
+            )
+    sol = solve_operator(
+        op, scene.loads, scene.prescribed_or_zero(op.dtype), method=method, tol=tol, max_iters=max_iters
+    )
+    return check(sol, method)
 
+
+def _solve_large_hex8(scene: Scene, config, tol, max_iters, dtype, check_jacobians) -> tuple[Solution, str]:
+    """The auto routes of a large hex8 scene, in the reference's order:
+    (solution, route name), or NotImplementedError for a route not
+    ported."""
     from ..ops.multigrid import build_multigrid
     from ..ops.structured import build_structured_operator, infer_box_dims
 
@@ -129,7 +243,7 @@ def solve(
             tol=tol,
             max_iters=max_iters if max_iters is not None else 300,
         )
-        return check(sol, "fpcg-multigrid")
+        return sol, "fpcg-multigrid"
 
     from ..ops.extruded import extruded_mg_coarsenable, infer_extruded
 
@@ -148,7 +262,7 @@ def solve(
             max_iters=max_iters if max_iters is not None else 300,
             check_jacobians=check_jacobians,
         )
-        return check(sol, "fpcg-curvilinear-multigrid")
+        return sol, "fpcg-curvilinear-multigrid"
     if tdims is None:
         from ..ops.canonical import canonicalize_scene, infer_renumbered_grid
 
@@ -158,7 +272,7 @@ def solve(
             # the current call's loads and prescribed values are permuted
             # in with the mesh, and the solution is permuted back
             sol_c = solve(
-                canonicalize_scene(scene, cdims, perm), config=config, method=method, tol=tol,
+                canonicalize_scene(scene, cdims, perm), config=config, method="auto", tol=tol,
                 max_iters=max_iters, dtype=dtype, check_jacobians=check_jacobians,
                 on_nonconverged="ignore",
             )
@@ -168,5 +282,32 @@ def solve(
                 reactions=sol_c.reactions[back],
                 stats=sol_c.stats,
             )
-            return check(sol, "fpcg-canonicalized-grid")
+            return sol, "fpcg-canonicalized-grid"
     raise _not_ported("embedded (box-subset) or arbitrary-topology", "11 (embedded) or 13 (arbitrary)")
+
+
+def solve_nonlinear(scene: Scene, *, tol: float = 1e-10, max_newton_iters: int = 50):
+    """Geometrically nonlinear equilibrium of a bar (truss) scene.
+
+    Finds u with loads + f_int(u) = 0 at the free DOFs by Newton-Krylov,
+    the internal force taken on the displaced geometry
+    (``elements/truss.py::internal_forces``), in the scene's dtype on its
+    device. Returns (u, NewtonStats).
+    """
+    from ..elements import truss as truss_el
+    from ..solvers.newton import newton_krylov
+
+    if scene.family not in ("bar2d", "bar3d"):
+        raise ValueError("solve_nonlinear currently supports bar scenes")
+    if scene.section is None:
+        raise ValueError("bar scenes require section = axial stiffness per element")
+    dtype = scene.nodes.dtype
+    F = scene.free_mask(dtype)
+    xp = scene.prescribed_or_zero(dtype)
+
+    def residual(u):
+        u_c = F * u + (1.0 - F) * xp
+        f_int = truss_el.internal_forces(scene.nodes, scene.elements, u_c, scene.section)
+        return F * -(scene.loads + f_int) + (1.0 - F) * (u - xp)
+
+    return newton_krylov(residual, (1.0 - F) * xp, tol=tol, max_newton_iters=max_newton_iters)

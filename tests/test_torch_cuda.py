@@ -1,4 +1,5 @@
-"""K1, K2, K4 and K5 on the card against their plain version (f64) on the card.
+"""K1, K2, K4, K5, K6 and K7 on the card against their plain version (f64)
+on the card.
 
 Needs a CUDA card and nvcc; skips without a card. This file imports
 neither JAX nor fea_tpu, so it runs where only the port is installed:
@@ -63,3 +64,34 @@ def test_var_kernels_match_plain_version_on_card(dims):
         assert cuda_varstencil.LAUNCHES[key] == n0 + 1
         rel = float((got.double() - want).abs().max() / want.abs().max())
         assert rel < bound, (dims, key, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [4, 6, 24])
+@pytest.mark.parametrize("E", [1, 700, 1030])
+def test_element_apply_kernels_match_plain_version_on_card(k, E):
+    """K6 (stored Ke batch) and K7 (one shared Ke) in f32 and f64 against
+    their plain versions in f64, at the k of beams and 2D bars (4), 3D
+    bars (6) and hex8 (24); each call launches its kernel once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K6 and K7 have no CPU mode")
+    from fea_tpu_torch.ops import cuda_apply
+
+    rng = np.random.default_rng(10 * k + E)
+    ke_s = torch.as_tensor(rng.normal(size=(E, k, k)), device="cuda")
+    ke_u = torch.as_tensor(rng.normal(size=(k, k)), device="cuda")
+    u = torch.as_tensor(rng.normal(size=(E, k)), device="cuda")
+    cases = (
+        ("stored", cuda_apply.batched_matvec_stored, ke_s, cuda_apply.batched_matvec_stored_plain(ke_s, u)),
+        ("uniform", cuda_apply.batched_matvec_uniform, ke_u, cuda_apply.batched_matvec_uniform_plain(ke_u, u)),
+    )
+    for kind, fn, ke, want in cases:
+        for dt, bound in ((torch.float32, 2e-5), (torch.float64, 1e-12)):
+            key = f"{kind}_{'f32' if dt == torch.float32 else 'f64'}"
+            n0 = cuda_apply.LAUNCHES[key]
+            got = fn(ke.to(dt).contiguous(), u.to(dt).contiguous())
+            torch.cuda.synchronize()
+            assert cuda_apply.LAUNCHES[key] == n0 + 1
+            assert got.dtype == dt and got.shape == (E, k)
+            rel = float((got.double() - want).abs().max() / want.abs().max())
+            assert rel < bound, (kind, key, k, E, rel)

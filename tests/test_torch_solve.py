@@ -92,25 +92,19 @@ def test_voxel_solve_matches_jax(prescribed, voxel_route_for_small_scenes):
 
 def test_routes_not_ported_raise_with_their_name():
     mat = ftt.Material(E=1e7, nu=0.3)
-    # a tube (examples/tube.py's kind): 26 segments x 50 layers, 7,800 DOF
-    n2, q = ftt.mesh.annulus_section(26, 0.099, 0.1016)
-    nodes, elements = ftt.mesh.extrude_quads(n2, q, np.linspace(0.0, 1.0, 50))
-    fixed = ftt.fix_where(nodes, lambda p: p[:, 2] == 0.0, 3)
-    tube = ftt.make_scene(nodes, elements, fixed, np.ones_like(nodes), mat, dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="'cg'"):
-        ftt.solve(tube)
     nodes, elements = ftt.mesh.box_hex_mesh(4, 4, 8, 0.1, 0.1, 0.5)
     fixed = ftt.fix_where(nodes, lambda p: p[:, 2] == 0.0, 3)
     box = ftt.make_scene(nodes, elements, fixed, np.ones_like(nodes), mat, dtype=torch.float64, device="cpu")
     assert box.n_dof < 2000
-    with pytest.raises(NotImplementedError, match="'dense'"):
-        ftt.solve(box)
-    with pytest.raises(NotImplementedError, match="method='cg'"):
-        ftt.solve(box, method="cg")
-    with pytest.raises(NotImplementedError, match="sharded"):
+    with pytest.raises(NotImplementedError, match="sharded.*item 14"):
         ftt.solve(box, config=ftt.SolverConfig(sharded=True))
+    with pytest.raises(NotImplementedError, match="debug_nans.*item 15"):
+        ftt.solve(box, debug_nans=True)
     with pytest.raises(ValueError, match="on_nonconverged"):
         ftt.solve(box, on_nonconverged="sometimes")
+    # the element-by-element routes (item 8) are ported: they solve
+    assert ftt.solve(box).stats.converged
+    assert ftt.solve(box, method="cg").stats.converged
 
 
 def test_large_non_voxel_scene_raises(voxel_route_for_small_scenes):
