@@ -6,7 +6,8 @@
 Phases, in order:
   1. device: the card's name and power limit (nvidia-smi), torch, CUDA
      and nvcc versions; raises without a card;
-  2. build: compiles K1/K2 (fea_tpu_torch/csrc/stencil.cu), K4/K5
+  2. build: compiles K1/K2 with their slab forms K1-halo/K3
+     (fea_tpu_torch/csrc/stencil.cu), K4/K5
      (fea_tpu_torch/csrc/varstencil.cu) and K6/K7
      (fea_tpu_torch/csrc/element_apply.cu) for sm_90a, one nvcc each, in
      parallel;
@@ -56,7 +57,31 @@ Phases, in order:
      operator (no kernel) and by a prebuilt stored operator (K6 f64 every
      iteration), which must agree; beams and bars (K6 at k = 4 and 6, f64
      and f32) and the Newton-Krylov truss;
- 10. one JSON line of the kernels, the card's line, then the last line
+ 10. K1's halo form (f32) and K3 (f64) against their plain version on the
+     card, within 2e-5 and 1e-12 of it run in f64: each shard's slab of
+     small grids and of the flagship cut as [12] cuts it into 2, 3, 4 and
+     8 shards (padding past a whole shard included), beside the unchunked
+     K1/K2 (bit for bit?); ``stencil_apply_chunked`` on the flagship in 4
+     slabs and on the 8,124,675- and 16,236,675-DOF capacity grids in the
+     reference's 3 and 6 chunks (``dd_z_chunks``), within 1e-15 of the
+     unchunked K1/K2; CUDA-event times of one apply over the four
+     halo-extended shards that [12]'s solver runs, at the flagship and at
+     8,124,675 DOF, beside K1/K2 unchunked, the plain version (flagship),
+     one cuSPARSE CSR SpMV (where it fits the card's free memory) and the
+     bound;
+ 11. capacity: the 64x64x640 cantilever (8,124,675 DOF, bench.py's
+     capacity_8m) through ``fea_tpu_torch.solve`` on the one card, K2
+     unchunked: the host f64 true residual by ``host_ku``, the tip ratio,
+     the iteration count beside the reference's, stage times, peak
+     memory, and no slab launched;
+ 12. z-sharded solve: ``build_zsharded_solver`` over four shards on the
+     one card at the flagship and at 8,124,675 DOF, against the unsharded
+     solves of [4] and [11]: host f64 true residual, iterations within 1,
+     displacements within 10 tol, tip ratio; launches (K1-halo and K3 on
+     the shards, K1/K2 only on the replicated coarse levels); wall time,
+     launches an iteration and busy share (device time over the profiled
+     run's wall) of both solves from a torch.profiler trace;
+ 13. one JSON line of the kernels, the card's line, then the last line
      ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the last line.
@@ -65,6 +90,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -104,6 +130,14 @@ EBE_LZ = 0.8
 EBE_JAX_ITERS = 404  # fea_tpu.solve on this scene, JAX on the CPU in f64
 EBE_MAX_U = 2.968e-7  # max|u| of the same JAX solve
 EBE_DISTORTED_JAX_ITERS = 1053  # fea_tpu.solve on the distorted box, JAX on the CPU in f64
+CAPACITY = (64, 64, 640)  # bench.py's capacity_8m: 8,124,675 DOF
+CAPACITY_16M = (64, 64, 1280)  # the 16,236,675-DOF capacity grid of ROADMAP queue 1 item 7
+CAPACITY_REF_ITERS = 19  # BENCH_r05's capacity_8m (the JAX package on its TPU): a count, not a time
+# (dims, shards) of the slab checks at small shapes: 2x2x12 over 8 pads past
+# a whole shard (tests/test_halo_sharding.py's choice)
+SLAB_SMALL = [((2, 2, 12), 8), ((2, 2, 12), 3), ((3, 2, 5), 8), ((3, 2, 5), 2), ((4, 4, 40), 3)]
+SLAB_FLAGSHIP_SHARDS = (2, 3, 4, 8)
+SHARDS = 4  # [12]: four shards, all on the one card
 CUBEBEAM_ANCHOR = 3.0504e-4  # max|u| of the cubebeam demo (tests/test_integration.py)
 # NVIDIA H100 SXM data sheet: 3.35 TB/s of HBM3; 67 TFLOP/s f32 and
 # 34 TFLOP/s f64 outside the tensor cores, at the full 700 W
@@ -126,10 +160,16 @@ KERNELS = {
                         replaces="fea_tpu/ops/pallas_apply.py:90", dtype=torch.float32, tol=2e-5),
     "uniform_f64": dict(name="K7 batched_matvec_uniform_f64", source="fea_tpu_torch/csrc/element_apply.cu",
                         replaces="fea_tpu/ops/pallas_apply.py:90", dtype=torch.float64, tol=1e-12),
+    # K1's z_halo=True form on one shard (fea_tpu/parallel/halo.py::_f32_apply_shard)
+    "slab_f32": dict(name="K1-halo stencil_apply_slab_f32", source="fea_tpu_torch/csrc/stencil.cu",
+                     replaces="fea_tpu/ops/pallas_stencil.py:540", dtype=torch.float32, tol=2e-5),
+    "slab_f64": dict(name="K3 stencil_apply_slab_f64", source="fea_tpu_torch/csrc/stencil.cu",
+                     replaces="fea_tpu/ops/pallas_stencil.py:108", dtype=torch.float64, tol=1e-12),
 }
 STENCIL_KEYS = ("f32", "f64")
 VAR_KEYS = ("var_f32", "var_f64")
 APPLY_KEYS = ("stored_f32", "stored_f64", "uniform_f32", "uniform_f64")
+SLAB_KEYS = ("slab_f32", "slab_f64")
 
 
 def say(msg: str) -> None:
@@ -332,8 +372,10 @@ def check_var_kernels(cuda_varstencil) -> dict:
     return report
 
 
-def flagship_scene(ftt):
-    nx, ny, nz = FLAGSHIP
+def flagship_scene(ftt, dims=None):
+    """bench.py's cantilever at ``dims`` voxels (the flagship when None,
+    or the capacity grid), on the card."""
+    nx, ny, nz = dims or FLAGSHIP
     lx = ly = 0.1
     lz = 1.0
     nodes, elements = ftt.mesh.box_hex_mesh(nx, ny, nz, lx, ly, lz)
@@ -355,7 +397,7 @@ def zero_counts(*counters) -> None:
             c[key] = 0
 
 
-def run_slice(ftt, cuda_stencil, cuda_varstencil) -> dict:
+def run_slice(ftt, cuda_stencil, cuda_varstencil) -> tuple[dict, dict]:
     from fea_tpu_torch.ops.multigrid import build_multigrid
     from fea_tpu_torch.ops.structured import build_structured_operator, stencil_apply_np
     from fea_tpu_torch.solve import solve_operator_fpcg
@@ -423,7 +465,8 @@ def run_slice(ftt, cuda_stencil, cuda_varstencil) -> dict:
         "K2 launched": launches["f64"] > 0,
     }
     require(checks, "slice")
-    return launches
+    return launches, dict(scene=scene, op_hi=op_hi, mg=mg, u=u, iterations=st.iterations, tip=tip,
+                          tip_exact=tip_exact, dims=dims, ke=ke)
 
 
 def distorted_scene_arrays(ftt, dims, lz=1.0):
@@ -460,28 +503,40 @@ def host_ku(nodes, elements, E, nu, u, chunk=32_768):
     At each 2x2x2 Gauss point of each element the displacement gradient
     gives the stress sigma = lam tr(eps) I + 2 mu eps, which goes back to
     corner a as detJ sigma grad N_a; the corner forces are summed into
-    their nodes. No weight field, stencil, B matrix or Voigt order: this
-    shares no code with the package's assembly or its kernels.
+    their nodes. The Jacobian is inverted by its cofactors. No weight
+    field, stencil, B matrix or Voigt order: this shares no code with the
+    package's assembly or its kernels. Chunks of elements run on the
+    host's cores; their forces are summed in chunk order.
     """
     lam = E * nu / ((1.0 + nu) * (1.0 - 2.0 * nu))
     mu = E / (2.0 * (1.0 + nu))
-    Ku = np.zeros_like(u)
-    for e0 in range(0, elements.shape[0], chunk):
+
+    def forces(e0):
         el = elements[e0 : e0 + chunk]
         X, U = nodes[el], u[el]  # (E, 8, 3)
         f = np.zeros_like(U)
         for q in _HEX_SIGNS / np.sqrt(3.0):
             t = 1.0 + q * _HEX_SIGNS  # (8, 3)
             dN = _HEX_SIGNS / 8.0 * np.stack([t[:, 1] * t[:, 2], t[:, 0] * t[:, 2], t[:, 0] * t[:, 1]], 1)
-            J = np.einsum("ai,eaj->eij", dN, X)  # dx_j / dxi_i
-            G = np.einsum("eji,ai->eaj", np.linalg.inv(J), dN)  # dN_a / dx_j
-            H = np.einsum("eai,eaj->eij", U, G)  # du_i / dx_j
-            eps = 0.5 * (H + H.transpose(0, 2, 1))
+            J = np.transpose(X, (0, 2, 1)) @ dN  # J[e, j, i] = dx_j / dxi_i
+            # row i of J^-1 is (column i+1 x column i+2) / det
+            cof = np.stack([np.cross(J[:, :, (i + 1) % 3], J[:, :, (i + 2) % 3]) for i in range(3)], 1)
+            det = np.einsum("ej,ej->e", J[:, :, 0], cof[:, 0])
+            G = dN @ (cof / det[:, None, None])  # dN_a / dx_j
+            H = np.transpose(U, (0, 2, 1)) @ G  # du_i / dx_j
+            eps = 0.5 * (H + np.transpose(H, (0, 2, 1)))
             sig = 2.0 * mu * eps
             sig[:, [0, 1, 2], [0, 1, 2]] += lam * np.trace(eps, axis1=1, axis2=2)[:, None]
-            f += np.einsum("e,eij,eaj->eai", np.linalg.det(J), sig, G)
-        for c in range(3):
-            Ku[:, c] += np.bincount(el.ravel(), weights=f[..., c].ravel(), minlength=u.shape[0])
+            f += det[:, None, None] * (G @ sig)
+        return f
+
+    Ku = np.zeros_like(u)
+    starts = range(0, elements.shape[0], chunk)
+    with ThreadPoolExecutor(max_workers=os.cpu_count()) as pool:
+        for e0, f in zip(starts, pool.map(forces, starts)):
+            el = elements[e0 : e0 + chunk]
+            for c in range(3):
+                Ku[:, c] += np.bincount(el.ravel(), weights=f[..., c].ravel(), minlength=u.shape[0])
     return Ku
 
 
@@ -1023,6 +1078,273 @@ def run_ebe(ftt, counters) -> dict:
     return per_solve
 
 
+def shard_bytes(ext: list, table: torch.Tensor) -> int:
+    """Bytes of one slab apply a shard: each halo-extended input (Zl + 2
+    planes) read once, its Zl output planes written once, the region
+    table read once."""
+    g = ext[0]
+    plane = g[0].numel()
+    return sum(2 * e.numel() - 2 * plane for e in ext) * g.element_size() + table.numel() * table.element_size()
+
+
+def csr_fits(N: int, dtype: torch.dtype) -> tuple[bool, str]:
+    """Whether ``stencil_csr`` of an N-node grid and its weight field fit
+    the card's free memory: the field, the int64 column grid, the kept
+    columns (int64, then int32) and values, at 243 entries a node."""
+    torch.cuda.empty_cache()
+    need = 243 * N * (torch.empty((), dtype=dtype).element_size() * 2 + 8 * 2 + 4)
+    free = torch.cuda.mem_get_info()[0]
+    return need < 0.9 * free, f"needs ~{need / 1e9:.1f} GB, {free / 1e9:.1f} GB free"
+
+
+def check_slab_kernels(ftt, cuda_stencil) -> dict:
+    """Phase [10]: K1's halo form and K3 against their plain versions."""
+    from fea_tpu_torch.ops.structured import stencil_apply_chunked_grid, stencil_apply_slab_grid
+    from fea_tpu_torch.parallel import shard_geometry
+
+    ke = flagship_ke(ftt)
+    ke64 = torch.as_tensor(ke, device=DEV)
+    weights = {k: cuda_stencil.stencil_weights(ke, KERNELS[k]["dtype"], DEV) for k in SLAB_KEYS}
+    whole_name = {"slab_f32": "K1", "slab_f64": "K2"}
+    rng = np.random.default_rng(20261019)
+    report = {k: dict(max_abs_err=0.0, max_rel_err=0.0) for k in SLAB_KEYS}
+
+    def hold(key, got, want, what):
+        spec = KERNELS[key]
+        err = float((got.double() - want).abs().max())
+        rel = err / float(want.abs().max())
+        if not rel <= spec["tol"]:
+            raise AssertionError(f"{spec['name']} at {what}: rel err {rel:.3e} > {spec['tol']:g}")
+        report[key]["max_abs_err"] = max(report[key]["max_abs_err"], err)
+        report[key]["max_rel_err"] = max(report[key]["max_rel_err"], rel)
+        return rel
+
+    # the shards of [12]'s decomposition, each slab on its halo-extended input
+    for dims, n in SLAB_SMALL + [(FLAGSHIP, n) for n in SLAB_FLAGSHIP_SHARDS]:
+        nx, ny, nz = dims
+        Z, Y, X = nz + 1, ny + 1, nx + 1
+        Zl, Zp = shard_geometry(Z, n, dims == FLAGSHIP)
+        g64 = torch.zeros((Zp + 2, Y, X, 3), dtype=torch.float64, device=DEV)
+        g64[1 : Z + 1] = torch.as_tensor(rng.normal(size=(Z, Y, X, 3)), device=DEV)
+        want = torch.cat([stencil_apply_slab_grid(ke64, g64[i * Zl : i * Zl + Zl + 2], i * Zl, Z) for i in range(n)])
+        parts = []
+        for key in SLAB_KEYS:
+            w, g = weights[key], g64.to(KERNELS[key]["dtype"])
+            got = torch.cat([cuda_stencil.stencil_apply_slab(w, g[i * Zl : i * Zl + Zl + 2], i * Zl, Z)
+                             for i in range(n)])
+            torch.cuda.synchronize()
+            rel = hold(key, got, want, f"{dims} in {n} shards")
+            same = torch.equal(got[:Z], cuda_stencil.stencil_apply(w, g[1 : Z + 1].contiguous()))
+            parts.append(f"{KERNELS[key]['name'].split()[0]} rel err {rel:.3e}, bitwise {whole_name[key]}: {same}")
+        say(f"  {dims} in {n} shards of {Zl} planes ({Zp - Z} padded): " + "; ".join(parts))
+
+    # the whole grid in slabs over views, against the plain version and the unchunked kernel
+    for dims, n in [(FLAGSHIP, SHARDS), (CAPACITY, None), (CAPACITY_16M, None)]:
+        nx, ny, nz = dims
+        Z, Y, X = nz + 1, ny + 1, nx + 1
+        n = n or cuda_stencil.dd_z_chunks(Y, X, Z)
+        g64 = torch.as_tensor(rng.normal(size=(Z, Y, X, 3)), device=DEV)
+        want = stencil_apply_chunked_grid(ke64, g64, n)
+        for key in SLAB_KEYS:
+            spec = KERNELS[key]
+            w, g = weights[key], g64.to(spec["dtype"]).contiguous()
+            got = cuda_stencil.stencil_apply_chunked(w, g, n)
+            whole = cuda_stencil.stencil_apply(w, g)
+            torch.cuda.synchronize()
+            rel = hold(key, got, want, f"{dims} in {n} chunks")
+            rel_whole = float((got - whole).abs().max() / whole.abs().max())
+            if not rel_whole <= 1e-15:
+                raise AssertionError(f"{spec['name']} chunked vs {whole_name[key]} at {dims}: {rel_whole:.3e}")
+            say(f"  {spec['name']} {dims} ({3 * Z * Y * X} DOF) in {n} chunks: rel err {rel:.3e}; "
+                f"vs {whole_name[key]} unchunked {rel_whole:.1e}, bitwise {torch.equal(got, whole)}")
+        del g64, want, g, got, whole
+
+    # times on the shards [12]'s solver applies: SHARDS halo-extended slabs,
+    # each its own tensor, at the flagship and the capacity grid
+    for dims in (FLAGSHIP, CAPACITY):
+        nx, ny, nz = dims
+        Z, Y, X = nz + 1, ny + 1, nx + 1
+        Zl, Zp = shard_geometry(Z, SHARDS, True)
+        g64 = torch.zeros((Zp + 2, Y, X, 3), dtype=torch.float64, device=DEV)
+        g64[1 : Z + 1] = torch.as_tensor(rng.normal(size=(Z, Y, X, 3)), device=DEV)
+        ext64 = [g64[i * Zl : i * Zl + Zl + 2].clone() for i in range(SHARDS)]
+        want = torch.cat([stencil_apply_slab_grid(ke64, e, i * Zl, Z) for i, e in enumerate(ext64)])[:Z]
+        for key in SLAB_KEYS:
+            spec = KERNELS[key]
+            w, ext = weights[key], [e.to(spec["dtype"]) for e in ext64]
+            g = g64[1 : Z + 1].to(spec["dtype"]).contiguous()
+
+            def shards():
+                return [cuda_stencil.stencil_apply_slab(w, e, i * Zl, Z) for i, e in enumerate(ext)]
+
+            got = torch.cat(shards())[:Z]
+            torch.cuda.synchronize()
+            rel = hold(key, got, want, f"{dims} on {SHARDS} shards")
+            ms = event_ms(shards)
+            whole_ms = event_ms(lambda: cuda_stencil.stencil_apply(w, g))
+            nbytes = shard_bytes(ext, w.table)
+            bound_ms, bound_by = bound(spec["dtype"], nbytes, 2 * 9 * neighbour_terms(Z, Y, X))
+            fits, why = csr_fits(Z * Y * X, spec["dtype"])
+            lib_ms = library_ms(region_field(w.table, Z, Y, X), g, want) if fits else None
+            line = (f"  {spec['name']} {dims} ({3 * Z * Y * X} DOF) on {SHARDS} shards of {Zl} + 2 planes: rel err "
+                    f"{rel:.3e}; kernel {ms:.4f} ms ({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s), {whole_name[key]} "
+                    f"unchunked {whole_ms:.4f} ms, CSR SpMV " + (f"{lib_ms:.4f} ms" if fits else f"not built ({why})")
+                    + f", bound {bound_ms:.4f} ms ({bound_by})")
+            if dims == FLAGSHIP:
+                plain_ms = event_ms(lambda: [stencil_apply_slab_grid(w.ke, e, i * Zl, Z) for i, e in enumerate(ext)])
+                say(line + f", plain version {plain_ms:.4f} ms")
+                report[key].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                   whole_ms=whole_ms, shards=SHARDS, shard_planes=Zl)
+            else:
+                say(line)
+                report[key].update(capacity_ms=ms, capacity_whole_ms=whole_ms, capacity_bound_ms=bound_ms,
+                                   capacity_library_ms=lib_ms)
+        del g64, ext64, ext, want, g, got
+    return report
+
+
+def run_capacity(ftt, counters) -> dict:
+    """Phase [11]: the 8,124,675-DOF cantilever through fea_tpu_torch.solve
+    on one card, unchunked."""
+    from fea_tpu_torch.ops.multigrid import build_multigrid
+    from fea_tpu_torch.ops.structured import build_structured_operator
+    from fea_tpu_torch.solve import solve_operator_fpcg
+
+    t0 = time.perf_counter()
+    scene, (nodes, elements, fixed, loads, tip, tip_exact) = flagship_scene(ftt, CAPACITY)
+    say(f"  scene: {CAPACITY} voxels, {scene.n_dof} DOF on {scene.device} (mesh and scene "
+        f"{time.perf_counter() - t0:.2f} s)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sol, counts, wall = counted(counters, lambda: ftt.solve(scene, tol=1e-8))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    st = sol.stats
+    say(f"  whole solve (fea_tpu_torch.solve): {wall:.3f} s, peak device memory {peak_gb:.3f} GB")
+    say(f"  iterations {st.iterations} (the JAX package on its TPU: {CAPACITY_REF_ITERS}), reported true "
+        f"relative residual {st.relative_residual:.3e}, converged {st.converged}")
+    say(f"  launches in that solve: K1 {counts['f32']}, K2 {counts['f64']}, K1-halo {counts['slab_f32']}, "
+        f"K3 {counts['slab_f64']}")
+
+    stage = {}
+    t0 = time.perf_counter()
+    op_hi = build_structured_operator(scene, CAPACITY, dtype=torch.float64)
+    torch.cuda.synchronize()
+    stage["operator_build"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mg = build_multigrid(op_hi.astype(torch.float32), dtype=torch.float32, free_np=1.0 - fixed.astype(np.float64))
+    torch.cuda.synchronize()
+    stage["multigrid_build"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sol2 = solve_operator_fpcg(op_hi, scene.loads, scene.prescribed_or_zero(torch.float64), mg, tol=1e-8)
+    torch.cuda.synchronize()
+    stage["solve"] = time.perf_counter() - t0
+    say("  stages (second solve): " + ", ".join(f"{k} {v:.3f} s" for k, v in stage.items())
+        + f"; {sol2.stats.iterations} iterations, levels "
+        + ", ".join(f"{lv.dims}:{str(lv.dtype).replace('torch.', '')}" for lv in mg.levels))
+    del sol2
+
+    u = sol.displacements.cpu().numpy()
+    if u.shape != nodes.shape or not np.all(np.isfinite(u)):
+        raise AssertionError(f"displacements: shape {u.shape}, finite {np.all(np.isfinite(u))}")
+    t0 = time.perf_counter()
+    _, rel_host = host_check(nodes, elements, scene.material, fixed, loads, u)
+    tip_ratio = float(u[tip, 1].mean()) / tip_exact
+    say(f"  host f64 true relative residual {rel_host:.3e} (host element-by-element K u "
+        f"{time.perf_counter() - t0:.1f} s); tip ratio {tip_ratio:.5f}")
+    require({
+        "converged": st.converged,
+        "host true residual <= 1e-8": rel_host <= 1e-8,
+        f"tip ratio in {TIP_BAND}": TIP_BAND[0] < tip_ratio < TIP_BAND[1],
+        "K2 launched unchunked": counts["f64"] > 0,
+        "no slab launched": counts["slab_f64"] == 0 and counts["slab_f32"] == 0,
+    }, "capacity")
+    from fea_tpu_torch.elements.hex8 import stiffness_matrix_np
+
+    return dict(scene=scene, op_hi=op_hi, mg=mg, u=u, iterations=st.iterations, tip=tip, tip_exact=tip_exact,
+                dims=CAPACITY, ke=stiffness_matrix_np(nodes[elements[0]], scene.material))
+
+
+def run_sharded(ftt, counters, refs: dict) -> dict:
+    """Phase [12]: the z-sharded solve, SHARDS shards on the one card, at
+    the flagship and the capacity grid, against the unsharded solves of
+    [4] and [11]. Returns the flagship solve's launches."""
+    from fea_tpu_torch.ops.structured import stencil_apply_np
+    from fea_tpu_torch.parallel import build_zsharded_solver
+    from fea_tpu_torch.solve import solve_operator_fpcg
+
+    flagship_counts = None
+    for label, ref in refs.items():
+        scene, op_hi, mg = ref["scene"], ref["op_hi"], ref["mg"]
+        presc = scene.prescribed_or_zero(torch.float64)
+        t0 = time.perf_counter()
+        solver = build_zsharded_solver(op_hi, mg, [torch.device(DEV, 0)] * SHARDS)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        Z = solver.grid_shape[0]
+        say(f"  {label} ({scene.n_dof} DOF): Z = {Z}, Zl = {solver.z_local}, Zp = {solver.z_pad}; sharded levels "
+            f"{'0-1' if solver.shard_l1 else '0'}, replicated "
+            + ", ".join(f"{lv.dims}:{str(lv.dtype).replace('torch.', '')}" for lv in solver.rest.levels)
+            + f"; solver build {t_build:.3f} s")
+        vcycles = []
+        precondition = solver.precondition
+        solver.precondition = lambda r: vcycles.append(1) or precondition(r)
+        sol, counts, wall = counted(counters, lambda: solver.solve(scene.loads, presc, tol=1e-8))
+        n_vc = len(vcycles)
+        # the replicated remainder's launches in one V-cycle, counted apart
+        rest0 = solver.rest.levels[0]
+        _, rest, _ = counted(counters, lambda: solver.rest._vcycle(0, torch.zeros_like(rest0.free)))
+        st = sol.stats
+        say(f"  sharded solve: {wall:.3f} s, {st.iterations} iterations (unsharded {ref['iterations']}), reported "
+            f"true residual {st.relative_residual:.3e}, converged {st.converged}; {n_vc} V-cycles")
+        say(f"  launches: K1-halo {counts['slab_f32']}, K3 {counts['slab_f64']}, K1 {counts['f32']}, K2 "
+            f"{counts['f64']} (the replicated levels: K1 {rest['f32']}, K2 {rest['f64']} a V-cycle)")
+
+        t0 = time.perf_counter()
+        solve_operator_fpcg(op_hi, scene.loads, presc, mg, tol=1e-8)
+        torch.cuda.synchronize()
+        wall_one = time.perf_counter() - t0
+        for name, fn, w in (("unsharded", lambda: solve_operator_fpcg(op_hi, scene.loads, presc, mg, tol=1e-8),
+                             wall_one),
+                            ("sharded", lambda: solver.solve(scene.loads, presc, tol=1e-8), wall)):
+            prof = profile_fcg(fn)
+            it = prof["sol"].stats.iterations
+            say(f"  profiled {name} FCG with certification: wall {w:.3f} s unprofiled, {prof['wall_s']:.3f} s "
+                f"profiled; device time {prof['device_ms']:.1f} ms in {prof['n_device']} device activities "
+                f"({prof['n_device'] / max(it, 1):.0f} an iteration over {it}); busy share "
+                f"{prof['device_ms'] / 1e3 / prof['wall_s']:.3f} of the profiled wall")
+            for kname, ms in prof["top"][:4]:
+                say(f"    {ms:9.2f} ms  {kname[:90]}")
+
+        u = sol.displacements.cpu().numpy()
+        if u.shape != ref["u"].shape or not np.all(np.isfinite(u)):
+            raise AssertionError(f"displacements: shape {u.shape}, finite {np.all(np.isfinite(u))}")
+        nx, ny, nz = ref["dims"]
+        Ku = stencil_apply_np(ref["ke"], u.reshape(nz + 1, ny + 1, nx + 1, 3), ref["dims"]).reshape(-1, 3)
+        F = scene.free_mask(torch.float64).cpu().numpy()
+        loads = scene.loads.cpu().numpy()
+        rel_host = float(np.linalg.norm(F * (loads - Ku)) / np.linalg.norm(F * loads))
+        du = float(np.abs(u - ref["u"]).max() / np.abs(ref["u"]).max())
+        tip_ratio = float(u[ref["tip"], 1].mean()) / ref["tip_exact"]
+        say(f"  host f64 true relative residual {rel_host:.3e}; displacements vs the unsharded solve {du:.3e} of "
+            f"max|u|; tip ratio {tip_ratio:.5f}")
+        require({
+            "converged": st.converged,
+            "host true residual <= 1e-8": rel_host <= 1e-8,
+            "iterations within 1 of the unsharded solve": abs(st.iterations - ref["iterations"]) <= 1,
+            "displacements within 10 tol of the unsharded solve": du <= 1e-7,
+            f"tip ratio in {TIP_BAND}": TIP_BAND[0] < tip_ratio < TIP_BAND[1],
+            "K3 launched on every shard of every FCG apply": counts["slab_f64"] >= SHARDS * (st.iterations + 1),
+            "K1-halo launched": counts["slab_f32"] > 0,
+            "level 1 sharded (the shard shape [10] timed)": solver.shard_l1,
+            "K1/K2 only on the replicated levels": counts["f32"] == n_vc * rest["f32"]
+            and counts["f64"] == n_vc * rest["f64"],
+        }, f"sharded {label}")
+        if label == "flagship":
+            flagship_counts = counts
+        del solver, sol
+    return flagship_counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -1045,13 +1367,13 @@ def main() -> None:
     with ThreadPoolExecutor(max_workers=3) as pool:
         for fut in [pool.submit(m.build) for m in (cuda_stencil, cuda_varstencil, cuda_apply)]:
             fut.result()
-    say(f"  K1/K2, K4/K5 and K6/K7 built in {time.perf_counter() - t0:.2f} s")
+    say(f"  K1/K2 with K1-halo/K3, K4/K5 and K6/K7 built in {time.perf_counter() - t0:.2f} s")
 
     say("[3] K1/K2 vs plain version (f64) on the card")
     report = check_kernels(ftt, cuda_stencil)
 
     say("[4] voxel slice: flagship cantilever through fea_tpu_torch.solve")
-    launches = run_slice(ftt, cuda_stencil, cuda_varstencil)
+    launches, flagship_ref = run_slice(ftt, cuda_stencil, cuda_varstencil)
 
     say("[5] K4/K5 vs plain version (f64) on the card")
     report.update(check_var_kernels(cuda_varstencil))
@@ -1067,7 +1389,18 @@ def main() -> None:
     report.update(check_apply_kernels(cuda_apply))
 
     say("[9] element-by-element slice through fea_tpu_torch.solve")
-    launches.update(run_ebe(ftt, (cuda_stencil.LAUNCHES, cuda_varstencil.LAUNCHES, cuda_apply.LAUNCHES)))
+    counters = (cuda_stencil.LAUNCHES, cuda_varstencil.LAUNCHES, cuda_apply.LAUNCHES)
+    launches.update(run_ebe(ftt, counters))
+
+    say("[10] K1-halo/K3 vs plain version (f64) on the card")
+    report.update(check_slab_kernels(ftt, cuda_stencil))
+
+    say(f"[11] capacity: the {CAPACITY} cantilever through fea_tpu_torch.solve on one card")
+    capacity_ref = run_capacity(ftt, counters)
+
+    say(f"[12] z-sharded solve: build_zsharded_solver over {SHARDS} shards on the one card")
+    sharded = run_sharded(ftt, counters, {"flagship": flagship_ref, "capacity": capacity_ref})
+    launches.update({k: sharded[k] for k in SLAB_KEYS})
 
     say(json.dumps({"kernels": [
         dict(name=spec["name"], route="cuda", source=spec["source"], replaces=spec["replaces"],

@@ -7,6 +7,10 @@ version serves:
 
   * the large hex8 routes: the voxel box (K1/K2), the curvilinear grid
     (K4/K5) and the canonicalized (renumbered) grid;
+  * the voxel box z-sharded over several devices
+    (``parallel.build_zsharded_solver``, K3 and K1's halo form), which
+    ``solve`` takes under ``SolverConfig(sharded=True)`` when more than
+    one card is visible;
   * the element-by-element operator (``build_operator``, K6/K7): an
     explicit ``method="cg"`` (Jacobi, block-Jacobi or none) or
     ``"dense"``, a prebuilt ``operator=``, hex8 scenes under 50,000 DOF,

@@ -24,8 +24,11 @@ class SolverConfig:
       mg_degree:   Chebyshev smoother degree for multigrid.
       on_nonconverged: 'warn' | 'raise' | 'ignore' (host-facing solves).
       debug_nans:  NaN sanitizer mode of the JAX package.
-      sharded:     None -> single device; True asks for the multi-device
-                   solver.
+      sharded:     the z-sharded solve of a voxel box over the visible
+                   devices (fea_tpu_torch/parallel/halo.py). None or
+                   False -> one device; True -> sharded when more than
+                   one device is visible, the box has >= 16 z node planes
+                   and a >= 2-level hierarchy, else one device.
     """
 
     tol: float = 1e-8

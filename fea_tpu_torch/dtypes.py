@@ -25,6 +25,10 @@ def torch_dtype(dtype) -> torch.dtype:
     return _BY_NAME[name]
 
 
-def precise_dot(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype = torch.float64) -> torch.Tensor:
-    """<a, b> accumulated in ``dtype``, as a 0-d tensor on a's device."""
+def precise_dot(a, b, dtype: torch.dtype = torch.float64) -> torch.Tensor:
+    """<a, b> accumulated in ``dtype``, as a 0-d tensor on a's device. Two
+    z-sharded vectors (``parallel.halo.Shards``) give their ``dot``: the
+    per-shard partials summed in shard order."""
+    if not isinstance(a, torch.Tensor):
+        return a.dot(b, dtype)
     return torch.dot(a.reshape(-1).to(dtype), b.reshape(-1).to(dtype))

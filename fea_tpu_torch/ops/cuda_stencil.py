@@ -1,11 +1,22 @@
-"""K1 and K2: the structured voxel stencil ``K @ u`` as CUDA kernels.
+"""K1, K2 and K3: the structured voxel stencil ``K @ u`` as CUDA kernels.
 
-``stencil_apply(ke_table, g)`` is the one entry point. For a CPU tensor
-it runs the plain torch version,
-:func:`fea_tpu_torch.ops.structured.stencil_apply_grid`. For a CUDA
-tensor it launches the hand-written kernel of ``csrc/stencil.cu`` (K1 for
-f32, K2 for f64) or raises: nothing falls back to the plain version on
-the card.
+Three entry points, each with its plain torch version in
+:mod:`fea_tpu_torch.ops.structured`:
+
+  * ``stencil_apply(ke_table, g)``: the whole grid, K1 (f32) or K2 (f64);
+    plain version ``stencil_apply_grid``;
+  * ``stencil_apply_slab(ke_table, g_ext, z0, z_real)``: the planes of
+    one z slab from its halo-extended input, K1's halo form (f32) or K3
+    (f64), as the z-sharded solve runs them on each shard; plain version
+    ``stencil_apply_slab_grid``;
+  * ``stencil_apply_chunked(ke_table, g, n_chunks)``: the whole grid in
+    ``n_chunks`` slab launches over views of ``g``, the counterpart of
+    ``fea_tpu/ops/pallas_stencil.py::stencil_apply_transposed_dd_chunked``;
+    plain version ``stencil_apply_chunked_grid``.
+
+For a CPU tensor each runs its plain version. For a CUDA tensor it
+launches the hand-written kernel of ``csrc/stencil.cu`` or raises:
+nothing falls back to the plain version on the card.
 
 The kernels are built at first use by :mod:`fea_tpu_torch.ops.nvcc`.
 """
@@ -24,9 +35,13 @@ __all__ = [
     "LAUNCHES",
     "StencilWeights",
     "build",
+    "dd_z_chunks",
     "region_weight_table",
     "stencil_apply",
+    "stencil_apply_chunked",
+    "stencil_apply_slab",
     "stencil_weights",
+    "z_chunk_bounds",
 ]
 
 _CORNERS = (
@@ -41,12 +56,15 @@ _CORNERS = (
 )  # == ops.structured._CORNERS (element corner order, (cz, cy, cx))
 
 # Launches of each kernel, counted where the wrapper launches it and
-# nowhere else: a run shows through these that it went through K1 / K2.
-LAUNCHES = {"f32": 0, "f64": 0}
+# nowhere else: a run shows through these that it went through K1 / K2
+# (whole grid) or K1's halo form / K3 (z slabs).
+LAUNCHES = {"f32": 0, "f64": 0, "slab_f32": 0, "slab_f64": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 _ENTRY = {torch.float32: ("f32", "fea_stencil_apply_f32"),
           torch.float64: ("f64", "fea_stencil_apply_f64")}
+_SLAB_ENTRY = {torch.float32: ("slab_f32", "fea_stencil_apply_slab_f32"),
+               torch.float64: ("slab_f64", "fea_stencil_apply_slab_f64")}
 
 
 def region_weight_table(ke: np.ndarray) -> np.ndarray:
@@ -105,12 +123,49 @@ def build() -> ctypes.CDLL:
     if _LIB is not None:
         return _LIB
     lib = load_library(CSRC / "stencil.cu", "feastencil_cuda")
-    for _, fn in _ENTRY.values():
-        f = getattr(lib, fn)
-        f.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [ctypes.c_void_p]
-        f.restype = ctypes.c_int
+    for entries, n_ints in ((_ENTRY, 3), (_SLAB_ENTRY, 6)):
+        for _, fn in entries.values():
+            f = getattr(lib, fn)
+            f.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * n_ints + [ctypes.c_void_p]
+            f.restype = ctypes.c_int
     _LIB = lib
     return lib
+
+
+def _check(name: str, ke_table: StencilWeights, g: torch.Tensor, min_planes: int) -> None:
+    """Raise unless ``g`` is a (planes, Y, X, 3) f32/f64 grid with at
+    least ``min_planes`` planes and Y, X >= 2, and ``ke_table`` matches it
+    in dtype and device."""
+    if g.dtype not in _ENTRY:
+        raise TypeError(f"{name}: dtype {g.dtype} is neither float32 nor float64")
+    if g.ndim != 4 or g.shape[3] != 3 or g.shape[0] < min_planes or min(g.shape[1:3]) < 2:
+        raise ValueError(
+            f"{name}: g must be (Z, Y, X, 3) with Z >= {min_planes} and Y, X >= 2, got {tuple(g.shape)}"
+        )
+    tab, ke = ke_table.table, ke_table.ke
+    if tab.dtype != g.dtype or ke.dtype != g.dtype:
+        raise TypeError(f"{name}: weights are {tab.dtype}, g is {g.dtype}")
+    if tab.device != g.device or ke.device != g.device:
+        raise ValueError(f"{name}: weights on {tab.device}, g on {g.device}")
+    if tuple(tab.shape) != (27, 27, 3, 3) or tuple(ke.shape) != (24, 24):
+        raise ValueError(f"{name}: weights must be a (24, 24) Ke and a (27, 27, 3, 3) table")
+    if g.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {g.device}")
+    if g.device.type == "cuda" and not (g.is_contiguous() and tab.is_contiguous()):
+        raise ValueError(f"{name}: g and the table must be contiguous")
+
+
+def _launch(entries: dict, tab: torch.Tensor, g: torch.Tensor, out: torch.Tensor, *sizes: int) -> None:
+    """One launch of the kernel of ``g``'s dtype in ``entries`` on the
+    current stream of ``g``'s card; raises on a launch error."""
+    key, fn = entries[g.dtype]
+    lib = build()
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        err = getattr(lib, fn)(tab.data_ptr(), g.data_ptr(), out.data_ptr(), *sizes, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: CUDA error {err} at launch (sizes {sizes})")
+    LAUNCHES[key] += 1
 
 
 def stencil_apply(ke_table: StencilWeights, g: torch.Tensor) -> torch.Tensor:
@@ -120,33 +175,83 @@ def stencil_apply(ke_table: StencilWeights, g: torch.Tensor) -> torch.Tensor:
     plain torch version. ``ke_table`` must match ``g`` in dtype and
     device.
     """
-    if g.dtype not in _ENTRY:
-        raise TypeError(f"stencil_apply: dtype {g.dtype} is neither float32 nor float64")
-    if g.ndim != 4 or g.shape[3] != 3 or min(g.shape[:3]) < 2:
-        raise ValueError(f"stencil_apply: g must be (Z, Y, X, 3) with Z, Y, X >= 2, got {tuple(g.shape)}")
-    tab, ke = ke_table.table, ke_table.ke
-    if tab.dtype != g.dtype or ke.dtype != g.dtype:
-        raise TypeError(f"stencil_apply: weights are {tab.dtype}, g is {g.dtype}")
-    if tab.device != g.device or ke.device != g.device:
-        raise ValueError(f"stencil_apply: weights on {tab.device}, g on {g.device}")
-    if tuple(tab.shape) != (27, 27, 3, 3) or tuple(ke.shape) != (24, 24):
-        raise ValueError("stencil_apply: weights must be a (24, 24) Ke and a (27, 27, 3, 3) table")
+    _check("stencil_apply", ke_table, g, 2)
     Z, Y, X, _ = g.shape
     if g.device.type == "cpu":
         from .structured import stencil_apply_grid
 
-        return stencil_apply_grid(ke, g, (X - 1, Y - 1, Z - 1))
-    if g.device.type != "cuda":
-        raise ValueError(f"stencil_apply: no kernel for device {g.device}")
-    if not (g.is_contiguous() and tab.is_contiguous()):
-        raise ValueError("stencil_apply: g and the table must be contiguous")
-    key, fn = _ENTRY[g.dtype]
-    lib = build()
+        return stencil_apply_grid(ke_table.ke, g, (X - 1, Y - 1, Z - 1))
     out = torch.empty_like(g)
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = getattr(lib, fn)(tab.data_ptr(), g.data_ptr(), out.data_ptr(), X, Y, Z, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn}: CUDA error {err} at launch ({X}x{Y}x{Z} nodes)")
-    LAUNCHES[key] += 1
+    _launch(_ENTRY, ke_table.table, g, out, X, Y, Z)
+    return out
+
+
+def stencil_apply_slab(ke_table: StencilWeights, g_ext: torch.Tensor, z0: int, z_real: int) -> torch.Tensor:
+    """``K @ u`` on one z slab of a grid of ``z_real`` planes:
+    g_ext (Zl + 2, Y, X, 3) -> (Zl, Y, X, 3).
+
+    ``g_ext`` holds global planes ``z0 - 1 .. z0 + Zl``: the slab's own
+    planes between the neighbour's plane below (index 0) and above
+    (index Zl + 1). Planes at or past ``z_real`` are zero padding: they
+    are never read, and their output is 0. f32 runs K1's halo form and
+    f64 runs K3 on a CUDA tensor; a CPU tensor takes the plain torch
+    version.
+    """
+    _check("stencil_apply_slab", ke_table, g_ext, 3)
+    if z0 < 0 or z_real < 2:
+        raise ValueError(f"stencil_apply_slab: need z0 >= 0 and z_real >= 2, got z0={z0}, z_real={z_real}")
+    Ze, Y, X, _ = g_ext.shape
+    if g_ext.device.type == "cpu":
+        from .structured import stencil_apply_slab_grid
+
+        return stencil_apply_slab_grid(ke_table.ke, g_ext, z0, z_real)
+    out = torch.empty((Ze - 2, Y, X, 3), dtype=g_ext.dtype, device=g_ext.device)
+    _launch(_SLAB_ENTRY, ke_table.table, g_ext, out, X, Y, Ze - 2, z0, z0 - 1, z_real)
+    return out
+
+
+def z_chunk_bounds(Z: int, n_chunks: int) -> list[tuple[int, int]]:
+    """The planes [s, e) of each of at most ``n_chunks`` z chunks of
+    ``ceil(Z / n_chunks)`` planes (the last one shorter), as the reference
+    cuts them."""
+    cz = -(-Z // n_chunks)
+    return [(s, min(s + cz, Z)) for s in range(0, Z, cz)]
+
+
+def dd_z_chunks(Y: int, X: int, Z: int) -> int:
+    """The chunk count ``fea_tpu/ops/pallas_stencil.py::dd_z_chunks`` gives
+    a grid of (Z, Y, X) nodes: the fewest z slabs whose halo-extended
+    width keeps X * (planes + 2) <= 16,000, the TPU kernel's VMEM fit.
+
+    The card needs no chunking (it holds the whole grid); the rule is kept
+    so that K3 can be run at the reference's own chunk counts.
+    """
+    n = 1
+    while X * (-(-Z // n) + 2) > 16_000 and n < Z:
+        n += 1
+    return n
+
+
+def stencil_apply_chunked(ke_table: StencilWeights, g: torch.Tensor, n_chunks: int) -> torch.Tensor:
+    """``K @ u`` on the whole grid g (Z, Y, X, 3) in ``n_chunks`` z slabs.
+
+    On a CUDA tensor each slab is one launch of K1's halo form (f32) or
+    K3 (f64) on a view of ``g`` (the slab and its halo planes are one
+    contiguous range of planes), writing its planes of one output tensor:
+    no concatenation. The result is bit for bit that of
+    :func:`stencil_apply` (the same kernel body). A CPU tensor takes the
+    plain torch version.
+    """
+    _check("stencil_apply_chunked", ke_table, g, 2)
+    if n_chunks < 1:
+        raise ValueError(f"stencil_apply_chunked: n_chunks must be >= 1, got {n_chunks}")
+    Z, Y, X, _ = g.shape
+    if g.device.type == "cpu":
+        from .structured import stencil_apply_chunked_grid
+
+        return stencil_apply_chunked_grid(ke_table.ke, g, n_chunks)
+    out = torch.empty_like(g)
+    for s, e in z_chunk_bounds(Z, n_chunks):
+        lo, hi = max(s - 1, 0), min(e + 1, Z)
+        _launch(_SLAB_ENTRY, ke_table.table, g[lo:hi], out[s:e], X, Y, e - s, s, lo, Z)
     return out

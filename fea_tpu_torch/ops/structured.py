@@ -12,8 +12,11 @@ needs no index arrays at all:
 That is :func:`stencil_apply_grid`, the plain torch version of the CUDA
 kernels K1 and K2 (:mod:`fea_tpu_torch.ops.cuda_stencil`), which
 :class:`StructuredOperator` applies through
-:func:`~fea_tpu_torch.ops.cuda_stencil.stencil_apply`. The NumPy helpers
-below are the host f64 oracle and the hierarchy builder's region tables.
+:func:`~fea_tpu_torch.ops.cuda_stencil.stencil_apply`;
+:func:`stencil_apply_slab_grid` and :func:`stencil_apply_chunked_grid` are
+the plain versions of their z-slab forms, K1's halo form and K3. The
+NumPy helpers below are the host f64 oracle and the hierarchy builder's
+region tables.
 
 Counterpart of ``fea_tpu/ops/structured.py``.
 """
@@ -35,8 +38,10 @@ __all__ = [
     "build_structured_operator",
     "structured_scene",
     "infer_box_dims",
+    "stencil_apply_chunked_grid",
     "stencil_apply_grid",
     "stencil_apply_np",
+    "stencil_apply_slab_grid",
 ]
 
 # Corner offsets (dz, dy, dx) in node-grid index space, in the element's
@@ -70,6 +75,45 @@ def stencil_apply_grid(ke: torch.Tensor, g: torch.Tensor, dims: tuple[int, int, 
     for a, (dz, dy, dx) in enumerate(_CORNERS):
         f[dz : dz + nz, dy : dy + ny, dx : dx + nx, :] += f_e[..., 3 * a : 3 * a + 3]
     return f
+
+
+def stencil_apply_slab_grid(ke: torch.Tensor, g_ext: torch.Tensor, z0: int, z_real: int) -> torch.Tensor:
+    """K @ u on the planes ``z0 .. z0 + Zl - 1`` of a grid of ``z_real``
+    planes, from the halo-extended slab g_ext (Zl + 2, Y, X, 3) that holds
+    global planes ``z0 - 1 .. z0 + Zl``: (Zl, Y, X, 3).
+
+    The plain version of K1's halo form (f32) and K3 (f64): the elements
+    that touch the slab's planes and exist in the global grid (element
+    layers ``max(z0 - 1, 0) .. min(z0 + Zl, z_real - 1) - 1``) go through
+    :func:`stencil_apply_grid`. Planes at or past ``z_real`` are zero
+    padding, never read, with output 0.
+    """
+    Zl = g_ext.shape[0] - 2
+    Y, X = g_ext.shape[1:3]
+    lo, hi = max(z0 - 1, 0), min(z0 + Zl, z_real - 1)  # global element layers [lo, hi)
+    out = torch.zeros((Zl,) + tuple(g_ext.shape[1:]), dtype=g_ext.dtype, device=g_ext.device)
+    if hi > lo:
+        a = lo - (z0 - 1)  # slab index of global plane lo
+        f = stencil_apply_grid(ke, g_ext[a : a + hi - lo + 1], (X - 1, Y - 1, hi - lo))  # planes lo..hi
+        s, e = max(z0, lo), min(z0 + Zl - 1, hi)
+        out[s - z0 : e - z0 + 1] = f[s - lo : e - lo + 1]
+    return out
+
+
+def stencil_apply_chunked_grid(ke: torch.Tensor, g: torch.Tensor, n_chunks: int) -> torch.Tensor:
+    """K @ u on the whole grid g (Z, Y, X, 3), as :func:`stencil_apply_slab_grid`
+    on each of the z chunks of ``cuda_stencil.z_chunk_bounds(Z, n_chunks)``
+    with zero planes past the grid's ends: the plain version of
+    ``cuda_stencil.stencil_apply_chunked``."""
+    from .cuda_stencil import z_chunk_bounds
+
+    Z = g.shape[0]
+    zero = torch.zeros_like(g[:1])
+    slabs = []
+    for s, e in z_chunk_bounds(Z, n_chunks):
+        g_ext = torch.cat([g[s - 1 : s] if s > 0 else zero, g[s:e], g[e : e + 1] if e < Z else zero])
+        slabs.append(stencil_apply_slab_grid(ke, g_ext, s, Z))
+    return torch.cat(slabs)
 
 
 # -- host-side (NumPy) twins ---------------------------------------------------

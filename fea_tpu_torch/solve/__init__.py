@@ -11,8 +11,12 @@ reference's order:
   1. an explicit ``method="cg"`` or ``"dense"``, or a prebuilt
      ``operator=``: the element-by-element operator (``operator.py``,
      K6/K7) through :func:`solve_operator`, whatever the size;
-  2. a hex8 scene of ``_STRUCTURED_MIN_DOF`` DOFs or more, auto-routed:
-     a. a regular voxel box: the structured stencil operator (K1/K2);
+  2. a hex8 scene of ``_STRUCTURED_MIN_DOF`` DOFs or more (or any hex8
+     scene under ``SolverConfig(sharded=True)``), auto-routed:
+     a. a regular voxel box: the structured stencil operator (K1/K2) on
+        one device, or, when ``sharded=True`` asks for it and more than
+        one device is visible, its z-sharded solve over them
+        (``parallel/halo.py``, K1's halo form and K3);
      b. an extruded mesh: not ported yet, raises (item 12);
      c. box-grid connectivity with free node positions: the curvilinear
         route (``solve/curv.py``, K4/K5);
@@ -197,10 +201,8 @@ def solve(
     if debug_nans:
         raise _not_ported("debug_nans sanitizer", "15")
     if method == "auto" and operator is None and (scene.n_dof >= _STRUCTURED_MIN_DOF or cfg.sharded):
-        if cfg.sharded:
-            raise _not_ported("sharded multi-device", "14")
         if scene.family == "hex8":
-            sol, route = _solve_large_hex8(scene, config, tol, max_iters, dtype, check_jacobians)
+            sol, route = _solve_large_hex8(scene, cfg, tol, max_iters, dtype, check_jacobians)
             return check(sol, route)
     if method == "auto":
         method = "dense" if scene.n_dof < 2000 else "cg"
@@ -223,7 +225,13 @@ def solve(
     return check(sol, method)
 
 
-def _solve_large_hex8(scene: Scene, config, tol, max_iters, dtype, check_jacobians) -> tuple[Solution, str]:
+def _device_count(device: torch.device) -> int:
+    """Devices a sharded solve of a scene on ``device`` may use: the
+    visible cards for a scene on the card, 1 for a CPU scene."""
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+def _solve_large_hex8(scene: Scene, cfg: SolverConfig, tol, max_iters, dtype, check_jacobians) -> tuple[Solution, str]:
     """The auto routes of a large hex8 scene, in the reference's order:
     (solution, route name), or NotImplementedError for a route not
     ported."""
@@ -234,7 +242,31 @@ def _solve_large_hex8(scene: Scene, config, tol, max_iters, dtype, check_jacobia
     if dims is not None:
         op_hi = build_structured_operator(scene, dims, dtype=torch.float64)
         free_np = 1.0 - scene.fixed.cpu().numpy().astype(np.float64)
-        mg = build_multigrid(op_hi.astype(torch.float32), dtype=torch.float32, free_np=free_np)
+        # the z-sharded solve only when asked for (``sharded=True``) and more
+        # than one device is visible; a scene it does not take falls through
+        # to the one-device route
+        n_dev = _device_count(scene.device)
+        shard = bool(cfg.sharded) and n_dev > 1 and dims[2] + 1 >= 16
+        # a small sharded scene still needs a >= 2-level hierarchy; where
+        # this limit leaves one level, the default one leaves the same
+        limit = min(3000, max(300, scene.n_dof // 8)) if shard else 3000
+        mg = build_multigrid(op_hi.astype(torch.float32), dtype=torch.float32, free_np=free_np,
+                             coarse_dof_limit=limit)
+        if shard and len(mg.levels) >= 2:
+            from ..parallel.halo import build_zsharded_solver
+
+            # the first shard, where the solution lands, is the scene's device
+            if scene.device.type == "cuda":
+                devices = [torch.device("cuda", (scene.device.index + i) % n_dev) for i in range(n_dev)]
+            else:
+                devices = [scene.device] * n_dev
+            solver = build_zsharded_solver(op_hi, mg, devices)
+            del op_hi, mg  # the solver holds its shards; the whole-grid levels go
+            sol = solver.solve(
+                scene.loads, scene.prescribed_or_zero(torch.float64), tol=tol,
+                max_iters=max_iters if max_iters is not None else 300,
+            )
+            return sol, "fpcg-multigrid-zsharded"
         sol = solve_operator_fpcg(
             op_hi,
             scene.loads,
@@ -272,7 +304,7 @@ def _solve_large_hex8(scene: Scene, config, tol, max_iters, dtype, check_jacobia
             # the current call's loads and prescribed values are permuted
             # in with the mesh, and the solution is permuted back
             sol_c = solve(
-                canonicalize_scene(scene, cdims, perm), config=config, method="auto", tol=tol,
+                canonicalize_scene(scene, cdims, perm), config=cfg, method="auto", tol=tol,
                 max_iters=max_iters, dtype=dtype, check_jacobians=check_jacobians,
                 on_nonconverged="ignore",
             )

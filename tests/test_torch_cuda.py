@@ -1,5 +1,5 @@
-"""K1, K2, K4, K5, K6 and K7 on the card against their plain version (f64)
-on the card.
+"""K1, K2, K3 (and K1's halo form), K4, K5, K6 and K7 on the card against
+their plain version (f64) on the card, and the z-sharded solve on one card.
 
 Needs a CUDA card and nvcc; skips without a card. This file imports
 neither JAX nor fea_tpu, so it runs where only the port is installed:
@@ -95,3 +95,92 @@ def test_element_apply_kernels_match_plain_version_on_card(k, E):
             assert got.dtype == dt and got.shape == (E, k)
             rel = float((got.double() - want).abs().max() / want.abs().max())
             assert rel < bound, (kind, key, k, E, rel)
+
+
+def _flagship_like_ke():
+    corners = np.array([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0],
+                        [0, 0, 1], [1, 0, 1], [1, 1, 1], [0, 1, 1]], np.float64) * 0.01
+    return stiffness_matrix_np(corners, Material(E=1e7, nu=0.3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3, 8])
+@pytest.mark.parametrize("dims", [(3, 2, 5), (2, 2, 12), (16, 16, 160)])
+def test_slab_kernels_match_plain_version_on_card(dims, n):
+    """K1's halo form (f32, 2e-5) and K3 (f64, 1e-12) on each shard's
+    halo-extended slab against the plain slab version in f64; the global
+    z-max plane falls mid-shard, and past it the padding comes out 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K1's halo form and K3 have no CPU mode")
+    from fea_tpu_torch.ops.structured import stencil_apply_slab_grid
+    from fea_tpu_torch.parallel import shard_geometry
+
+    nx, ny, nz = dims
+    Z, Y, X = nz + 1, ny + 1, nx + 1
+    ke = _flagship_like_ke()
+    Zl, Zp = shard_geometry(Z, n, False)
+    g = torch.zeros((Zp + 2, Y, X, 3), dtype=torch.float64, device="cuda")
+    g[1 : Z + 1] = torch.as_tensor(np.random.default_rng(14).normal(size=(Z, Y, X, 3)), device="cuda")
+    ke64 = torch.as_tensor(ke, device="cuda")
+    for dt, (key, bound) in BOUNDS.items():
+        w = stencil_weights(ke, dt, "cuda")
+        for i in range(n):
+            ext = g[i * Zl : i * Zl + Zl + 2]
+            want = stencil_apply_slab_grid(ke64, ext, i * Zl, Z)
+            n0 = cuda_stencil.LAUNCHES["slab_" + key]
+            got = cuda_stencil.stencil_apply_slab(w, ext.to(dt).contiguous(), i * Zl, Z)
+            torch.cuda.synchronize()
+            assert cuda_stencil.LAUNCHES["slab_" + key] == n0 + 1
+            scale = float(want.abs().max()) or 1.0
+            assert float((got.double() - want).abs().max()) / scale < bound, (dims, n, i, key)
+            assert torch.count_nonzero(got[max(Z - i * Zl, 0):]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 3, 5])
+def test_chunked_kernel_is_k2_bitwise_on_card(n):
+    """``stencil_apply_chunked`` (n slab launches over views) equals the
+    unchunked K1/K2 bit for bit: one kernel body, one FMA order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K3 has no CPU mode")
+    g64 = torch.as_tensor(np.random.default_rng(15).normal(size=(161, 17, 17, 3)), device="cuda")
+    for dt, (key, _) in BOUNDS.items():
+        w = stencil_weights(_flagship_like_ke(), dt, "cuda")
+        g = g64.to(dt).contiguous()
+        n0 = cuda_stencil.LAUNCHES["slab_" + key]
+        got = cuda_stencil.stencil_apply_chunked(w, g, n)
+        torch.cuda.synchronize()
+        assert cuda_stencil.LAUNCHES["slab_" + key] == n0 + len(cuda_stencil.z_chunk_bounds(161, n))
+        assert torch.equal(got, stencil_apply(w, g)), (n, key)
+
+
+@pytest.mark.cuda
+def test_zsharded_solve_on_one_card():
+    """Four shards on one card against the unsharded voxel solve of the
+    same scene: iterations within 1, displacements within 10 tol, and the
+    slab kernels launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import fea_tpu_torch as ftt
+    from fea_tpu_torch.ops.multigrid import build_multigrid
+    from fea_tpu_torch.ops.structured import build_structured_operator, structured_scene
+    from fea_tpu_torch.parallel import build_zsharded_solver
+    from fea_tpu_torch.solve import solve_operator_fpcg
+
+    scene, dims = structured_scene(8, 8, 64, 0.05, 0.05, 1.0, ftt.Material(E=1e7, nu=0.3),
+                                   dtype=torch.float64, device="cuda")
+    nodes = scene.host_nodes
+    loads = np.zeros_like(nodes)
+    loads[nodes[:, 2] == 1.0, 1] = 1.0
+    loads = torch.as_tensor(loads, device="cuda")
+    op = build_structured_operator(scene, dims, dtype=torch.float64)
+    mg = build_multigrid(op.astype(torch.float32), dtype=torch.float32, coarse_dof_limit=300,
+                         free_np=1.0 - scene.fixed.cpu().numpy().astype(np.float64))
+    ref = solve_operator_fpcg(op, loads, torch.zeros_like(loads), mg, tol=1e-8)
+    n0 = dict(cuda_stencil.LAUNCHES)
+    sol = build_zsharded_solver(op, mg, ["cuda"] * 4).solve(loads, tol=1e-8)
+    torch.cuda.synchronize()
+    assert sol.stats.converged and abs(sol.stats.iterations - ref.stats.iterations) <= 1
+    du = (sol.displacements - ref.displacements).abs().max() / ref.displacements.abs().max()
+    assert float(du) <= 1e-7
+    assert all(cuda_stencil.LAUNCHES[k] > n0[k] for k in ("slab_f32", "slab_f64"))
