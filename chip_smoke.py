@@ -10,13 +10,22 @@ Phases, in order:
      (fea_tpu_torch/csrc/stencil.cu), K4/K5
      (fea_tpu_torch/csrc/varstencil.cu) and K6/K7
      (fea_tpu_torch/csrc/element_apply.cu) for sm_90a, one nvcc each, in
-     parallel;
-  3. K1/K2 against their plain version on the card, at small shapes and at
-     every grid the flagship solve gives them, with random inputs from a
-     NumPy seed: K1 within 2e-5 and K2 within 1e-12 (max error relative to
-     max|K u|) of the plain version run in f64; at the flagship grid, the
-     CUDA-event times of each kernel, of its plain version and of one
-     cuSPARSE CSR SpMV of the same operator, beside the kernel's bound;
+     parallel; what ptxas says of the registers and spills of each kernel of
+     stencil.cu and element_apply.cu;
+  3. K1/K2 against their plain version on the card, at small shapes, at
+     shapes that straddle the kernel's band, warp and chunk edges, at rows
+     wider than a block (cut into segments), at every
+     grid the flagship solve gives them and at the 8,124,675-DOF grid, with
+     random inputs from a NumPy seed: K1 within 2e-5 and K2 within 1e-12
+     (max error relative to max|K u|) of the plain version run in f64, raw
+     and masked (a random 0/1 mask, and the flagship's own), the masked
+     kernel also value for value against the unfused expression around the
+     raw kernel; at every level grid of the flagship hierarchy and at
+     8,124,675 DOF the CUDA-event times of each kernel raw and masked
+     beside their bounds and beside the six launches the masked form
+     replaces; at the flagship grid also the plain version and one
+     cuSPARSE CSR SpMV of the same operator; the host's cost of one
+     wrapper call;
   4. voxel slice: the flagship cantilever (32x32x320 voxels, 1,048,707
      DOF, the yardstick of bench.py) through ``fea_tpu_torch.solve``,
      checked by a true residual recomputed on the host in NumPy f64
@@ -41,7 +50,8 @@ Phases, in order:
      permuted back, is checked against the host f64 true residual of the
      original system;
   8. K6/K7 against their plain version on the card: random inputs from a
-     NumPy seed at E in {1, 700, 1030} and k in {4, 6, 24}, at every
+     NumPy seed at E in {1, 700, 1030} and k in {4, 6, 24}, at E in
+     {127, 128, 129} (around K7's tile) and k in {1, 4, 6, 24, 32}, at every
      (E, k) that phase [9] gives them (APPLY_PATH), and at the 327,680
      elements of the 32x32x320 mesh at k = 24: f32 within 2e-5 and f64
      within 1e-12 of the plain version run in f64; at 327,680 elements and
@@ -58,15 +68,17 @@ Phases, in order:
      iteration), which must agree; beams and bars (K6 at k = 4 and 6, f64
      and f32) and the Newton-Krylov truss;
  10. K1's halo form (f32) and K3 (f64) against their plain version on the
-     card, within 2e-5 and 1e-12 of it run in f64: each shard's slab of
+     card, within 2e-5 and 1e-12 of it run in f64, raw and masked, and bit
+     for bit the unchunked K1/K2 (the script fails otherwise): each shard's slab of
      small grids and of the flagship cut as [12] cuts it into 2, 3, 4 and
      8 shards (padding past a whole shard included), beside the unchunked
      K1/K2 (bit for bit?); ``stencil_apply_chunked`` on the flagship in 4
      slabs and on the 8,124,675- and 16,236,675-DOF capacity grids in the
      reference's 3 and 6 chunks (``dd_z_chunks``), within 1e-15 of the
      unchunked K1/K2; CUDA-event times of one apply over the four
-     halo-extended shards that [12]'s solver runs, at the flagship and at
-     8,124,675 DOF, beside K1/K2 unchunked, the plain version (flagship),
+     halo-extended shards that [12]'s solver runs, at the host's pace and
+     on the card (graph replay), at the flagship and at 8,124,675 DOF,
+     beside K1/K2 unchunked, the plain version (flagship),
      one cuSPARSE CSR SpMV (where it fits the card's free memory) and the
      bound;
  11. capacity: the 64x64x640 cantilever (8,124,675 DOF, bench.py's
@@ -106,7 +118,13 @@ sys.path.insert(0, str(ROOT))
 
 DEV = "cuda"
 FLAGSHIP = (32, 32, 320)
-SHAPES = [(1, 1, 1), (3, 2, 5), (4, 4, 8), (4, 4, 40), (8, 8, 80), (16, 16, 160), FLAGSHIP]
+# small shapes, shapes that straddle the kernel's band, warp and chunk edges
+# (all three counts odd and unequal; two planes only; one row of elements),
+# the widest row a block holds whole (256 nodes) and a wider one, which the
+# kernel cuts into segments, and the flagship hierarchy's grids (2^k + 1
+# nodes an axis)
+SHAPES = [(1, 1, 1), (3, 2, 5), (13, 7, 29), (5, 9, 1), (40, 1, 3), (255, 1, 2), (300, 2, 3), (4, 4, 8), (2, 2, 20),
+          (4, 4, 40), (8, 8, 80), (16, 16, 160), FLAGSHIP]
 CURV = (40, 40, 160)  # bench.py's curvilinear_812k
 CANON = (24, 24, 96)  # bench.py's canonicalized
 VAR_SMALL = [(1, 1, 1), (3, 4, 6)]
@@ -114,7 +132,9 @@ TIP_BAND = (0.70, 1.30)  # bench.py's band for the FEM / beam-theory tip ratio
 MAX_ITERS = 16
 CURV_MAX_ITERS = 80
 CANON_TOL = 2e-8
-APPLY_SMALL = [(E, k) for E in (1, 700, 1030) for k in (4, 6, 24)]  # tests/test_pallas.py's E
+# tests/test_pallas.py's E, and E around K7's tile of 128 elements at every kind of k
+APPLY_SMALL = ([(E, k) for E in (1, 700, 1030) for k in (4, 6, 24)]
+               + [(E, k) for E in (127, 128, 129) for k in (1, 4, 6, 24, 32)])
 APPLY_FULL = (32 * 32 * 320, 24)  # the elements of the 32x32x320 mesh, a timing size only
 EBE_BOX = (12, 12, 96)  # the largest voxel cantilever the auto route sends to Jacobi PCG
 CUBEBEAM_BOX = (4, 4, 49)
@@ -135,7 +155,9 @@ CAPACITY_16M = (64, 64, 1280)  # the 16,236,675-DOF capacity grid of ROADMAP que
 CAPACITY_REF_ITERS = 19  # BENCH_r05's capacity_8m (the JAX package on its TPU): a count, not a time
 # (dims, shards) of the slab checks at small shapes: 2x2x12 over 8 pads past
 # a whole shard (tests/test_halo_sharding.py's choice)
-SLAB_SMALL = [((2, 2, 12), 8), ((2, 2, 12), 3), ((3, 2, 5), 8), ((3, 2, 5), 2), ((4, 4, 40), 3)]
+SLAB_SMALL = [((2, 2, 12), 8), ((2, 2, 12), 3), ((3, 2, 5), 8), ((3, 2, 5), 2), ((4, 4, 40), 3),
+              ((13, 7, 29), 4),  # 30 planes over 4 shards of 8: the z-max plane falls mid-slab
+              ((300, 2, 6), 2)]  # rows of 301 nodes, cut into segments
 SLAB_FLAGSHIP_SHARDS = (2, 3, 4, 8)
 SHARDS = 4  # [12]: four shards, all on the one card
 CUBEBEAM_ANCHOR = 3.0504e-4  # max|u| of the cubebeam demo (tests/test_integration.py)
@@ -172,8 +194,16 @@ APPLY_KEYS = ("stored_f32", "stored_f64", "uniform_f32", "uniform_f64")
 SLAB_KEYS = ("slab_f32", "slab_f64")
 
 
+T_START = time.perf_counter()
+
+
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def phase(msg: str) -> None:
+    """A phase's heading, with the seconds the script has run so far."""
+    say(f"{msg} (at {time.perf_counter() - T_START:.0f} s)")
 
 
 def event_ms(fn, runs: int = 20, reps: int = 5) -> float:
@@ -192,6 +222,68 @@ def event_ms(fn, runs: int = 20, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def graph_ms(fn, calls: int = 20, runs: int = 10) -> float:
+    """The card's time of one call of ``fn``: ``calls`` calls captured in one
+    CUDA graph, the median over ``runs`` replays of the CUDA-event time of a
+    replay, over ``calls``. A replay costs the host one launch, so this is
+    the kernels' own time where ``event_ms`` reads the host's pace."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
+
+
+PTXAS_SOURCES = ("stencil.cu", "element_apply.cu")  # the redesigned sources
+
+
+def ptxas_log(nvcc, name: str) -> str:
+    """What ``nvcc -Xptxas -v`` prints while it compiles source ``name``."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [nvcc.find_nvcc(), *nvcc.NVCC_FLAGS, "-Xptxas", "-v", str(nvcc.CSRC / name), "-o", f"{tmp}/x.so"]
+        return subprocess.run(cmd, capture_output=True, text=True, check=True, timeout=600).stderr
+
+
+def ptxas_report(logs: dict) -> None:
+    """The registers and spills of each kernel in ``logs`` (source name ->
+    :func:`ptxas_log`), one line a kernel."""
+    import re
+
+    for name, log in logs.items():
+        lines = log.splitlines()
+        for i, line in enumerate(lines):
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                parts = re.search(r"\d+((?:stencil27|uniform_tile|uniform|stored)_kernel)I([df])(?:Li(\d+)E)?"
+                                  r"(?:Lb([01])E)?(?:Lb([01])E)?", m.group(1))
+                kernel = m.group(1)[-40:] if not parts else (
+                    f"{parts.group(1)}<{'double' if parts.group(2) == 'd' else 'float'}"
+                    + (f", {parts.group(3)}" if parts.group(3) else "")
+                    + ("" if parts.group(4) is None else ", masked" if parts.group(4) == "1" else ", raw")
+                    + (", segments" if parts.group(5) == "1" else "") + ">")
+                info = " ".join(lines[i + 1 : i + 4])
+                regs = re.search(r"Used (\d+) registers", info)
+                spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
+                say(f"  {name} {kernel}: {regs.group(1) if regs else '?'} registers, spills "
+                    f"{spill.group(1) if spill else '?'} / {spill.group(2) if spill else '?'} bytes")
 
 
 def neighbour_terms(Z: int, Y: int, X: int) -> int:
@@ -274,6 +366,33 @@ def region_field(table: torch.Tensor, Z: int, Y: int, X: int) -> torch.Tensor:
     return table[region].permute(3, 4, 5, 0, 1, 2).contiguous()
 
 
+def flagship_level_grids() -> list[tuple[int, int, int]]:
+    """The level grids of the voxel hierarchy under FLAGSHIP, as
+    ``build_multigrid`` cuts them."""
+    from fea_tpu_torch.ops.multigrid import coarsen_dims
+
+    grids = [FLAGSHIP]
+    while 3 * int(np.prod([s + 1 for s in grids[-1]])) > 3000 and coarsen_dims(grids[-1]) is not None:
+        grids.append(coarsen_dims(grids[-1]))
+    return grids
+
+
+def unfused_masked(cuda_stencil, w, g, F):
+    """The six launches the masked kernel replaces: the raw kernel between
+    five elementwise passes."""
+    return F * cuda_stencil.stencil_apply(w, F * g) + (1.0 - F) * g
+
+
+def stencil_bound(dtype, g, table, masked: bool):
+    """(bound ms, what sets it, bytes) of one apply on grid ``g``: g read
+    once, the output written once, the region table and (masked) the mask
+    read once; 2 x 9 operations for each neighbour inside the grid."""
+    Z, Y, X, _ = g.shape
+    nbytes = (3 if masked else 2) * g.numel() * g.element_size() + table.numel() * table.element_size()
+    ms, by = bound(dtype, nbytes, 2 * 9 * neighbour_terms(Z, Y, X))
+    return ms, by, nbytes
+
+
 def check_kernels(ftt, cuda_stencil) -> dict:
     from fea_tpu_torch.ops.structured import stencil_apply_grid
 
@@ -282,40 +401,97 @@ def check_kernels(ftt, cuda_stencil) -> dict:
     weights = {k: cuda_stencil.stencil_weights(ke, KERNELS[k]["dtype"], DEV) for k in STENCIL_KEYS}
     rng = np.random.default_rng(20261016)
     report = {k: dict(max_abs_err=0.0, max_rel_err=0.0) for k in STENCIL_KEYS}
-    for dims in SHAPES:
+    timed = flagship_level_grids() + [CAPACITY]
+    for dims in SHAPES + [CAPACITY]:
         nx, ny, nz = dims
-        g64 = torch.as_tensor(rng.normal(size=(nz + 1, ny + 1, nx + 1, 3)), device=DEV)
+        Z, Y, X = nz + 1, ny + 1, nx + 1
+        g64 = torch.as_tensor(rng.normal(size=(Z, Y, X, 3)), device=DEV)
+        masks = {"random mask": torch.as_tensor((rng.random((Z, Y, X, 3)) < 0.8).astype(np.float64), device=DEV)}
+        if dims == FLAGSHIP:  # the flagship's own mask: the z = 0 plane fixed
+            real = torch.ones_like(g64)
+            real[0] = 0.0
+            masks["the flagship's mask"] = real
         want = stencil_apply_grid(ke64, g64, dims)
         scale = float(want.abs().max())
+        parts = []
         for key in STENCIL_KEYS:
             spec = KERNELS[key]
-            got = cuda_stencil.stencil_apply(weights[key], g64.to(spec["dtype"]).contiguous())
+            w, g = weights[key], g64.to(spec["dtype"]).contiguous()
+            got = cuda_stencil.stencil_apply(w, g)
             torch.cuda.synchronize()
             err = float((got.double() - want).abs().max())
             rel = err / scale
-            say(f"  {spec['name']} {dims}: max abs err {err:.3e}, rel {rel:.3e} (tol {spec['tol']:g})")
+            worst = rel
+            for label, F64 in masks.items():
+                F = F64.to(spec["dtype"])
+                got_m = cuda_stencil.stencil_apply(w, g, F)
+                torch.cuda.synchronize()
+                # against the unfused plain expression in f64, and value for value against the unfused kernel
+                want_m = stencil_apply_grid(ke64, g64, dims, F64)
+                rel_m = float((got_m.double() - want_m).abs().max()) / scale
+                if not rel_m <= spec["tol"]:
+                    raise AssertionError(f"{spec['name']} masked ({label}) at {dims}: rel err {rel_m:.3e} > "
+                                         f"{spec['tol']:g}")
+                if not torch.equal(got_m, unfused_masked(cuda_stencil, w, g, F)):
+                    raise AssertionError(f"{spec['name']} masked ({label}) at {dims} differs from the unfused "
+                                         "expression")
+                worst = max(worst, rel_m)
+            parts.append(f"{spec['name'].split()[0]} rel err {rel:.3e}, masked {worst:.3e} (tol {spec['tol']:g})")
             if not rel <= spec["tol"]:
                 raise AssertionError(f"{spec['name']} at {dims}: rel err {rel:.3e} > {spec['tol']:g}")
             report[key]["max_abs_err"] = max(report[key]["max_abs_err"], err)
-            report[key]["max_rel_err"] = max(report[key]["max_rel_err"], rel)
-        if dims == FLAGSHIP:
-            Z, Y, X = nz + 1, ny + 1, nx + 1
+            report[key]["max_rel_err"] = max(report[key]["max_rel_err"], worst)
+        say(f"  {dims}: " + "; ".join(parts) + "; masked == the unfused expression value for value")
+        if dims in timed:
             for key in STENCIL_KEYS:
                 spec = KERNELS[key]
                 g = g64.to(spec["dtype"]).contiguous()
+                F = masks["random mask"].to(spec["dtype"])
                 w = weights[key]
-                ms = event_ms(lambda: cuda_stencil.stencil_apply(w, g))
-                plain_ms = event_ms(lambda: stencil_apply_grid(w.ke, g, dims))
-                lib_ms = library_ms(region_field(w.table, Z, Y, X), g, want)
-                # each input read once, the output written once
-                nbytes = 2 * g.numel() * g.element_size() + w.table.numel() * w.table.element_size()
-                bound_ms, bound_by = bound(spec["dtype"], nbytes, 2 * 9 * neighbour_terms(Z, Y, X))
-                gbs = nbytes / (ms * 1e-3) / 1e9
-                say(f"  {spec['name']} {dims} ({3 * Z * Y * X} DOF): kernel {ms:.4f} ms "
-                    f"({gbs:.1f} GB/s), plain version {plain_ms:.4f} ms, CSR SpMV {lib_ms:.4f} ms, "
-                    f"bound {bound_ms:.4f} ms ({bound_by})")
-                report[key].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                                   bound_by=bound_by, gb_per_s=gbs)
+                ms = event_ms(lambda: cuda_stencil.stencil_apply(w, g), runs=10)
+                masked_ms = event_ms(lambda: cuda_stencil.stencil_apply(w, g, F), runs=10)
+                unfused_ms = event_ms(lambda: unfused_masked(cuda_stencil, w, g, F), runs=10)
+                dev_ms = graph_ms(lambda: cuda_stencil.stencil_apply(w, g))
+                dev_masked_ms = graph_ms(lambda: cuda_stencil.stencil_apply(w, g, F))
+                dev_unfused_ms = graph_ms(lambda: unfused_masked(cuda_stencil, w, g, F))
+                bound_ms, bound_by, nbytes = stencil_bound(spec["dtype"], g, w.table, False)
+                mbound_ms, mbound_by, _ = stencil_bound(spec["dtype"], g, w.table, True)
+                line = (f"  {spec['name']} {dims} ({3 * Z * Y * X} DOF): kernel {ms:.4f} ms at the host's pace, "
+                        f"{dev_ms:.4f} ms on the card (graph replay), bound {bound_ms:.4f} ms ({bound_by}); masked "
+                        f"{masked_ms:.4f} / {dev_masked_ms:.4f} ms, bound {mbound_ms:.4f} ms ({mbound_by}), the "
+                        f"unfused six launches {unfused_ms:.4f} / {dev_unfused_ms:.4f} ms")
+                times = dict(ms=ms, device_ms=dev_ms, bound_ms=bound_ms, bound_by=bound_by, masked_ms=masked_ms,
+                             masked_device_ms=dev_masked_ms, masked_bound_ms=mbound_ms, unfused_ms=unfused_ms,
+                             unfused_device_ms=dev_unfused_ms)
+                if dims == FLAGSHIP:
+                    plain_ms = event_ms(lambda: stencil_apply_grid(w.ke, g, dims))
+                    lib_ms = library_ms(region_field(w.table, Z, Y, X), g, want)
+                    gbs = nbytes / (ms * 1e-3) / 1e9
+                    line += f"; {gbs:.1f} GB/s, plain version {plain_ms:.4f} ms, CSR SpMV {lib_ms:.4f} ms"
+                    report[key].update(times, plain_ms=plain_ms, library_ms=lib_ms, gb_per_s=gbs)
+                else:
+                    tag = "capacity" if dims == CAPACITY else "x".join(map(str, dims))
+                    report[key].update({f"{tag}_{n}": v for n, v in times.items() if n != "bound_by"})
+                say(line)
+        del g64, masks, want
+    # what one wrapper call costs the host: calls issued without a synchronise, on the 9x9x81 level
+    g = torch.as_tensor(rng.normal(size=(81, 9, 9, 3)), device=DEV)
+    for key in STENCIL_KEYS:
+        w, gk = weights[key], g.to(KERNELS[key]["dtype"])
+        F = torch.ones_like(gk)
+        for label, fn in (("raw", lambda: cuda_stencil.stencil_apply(w, gk)),
+                          ("masked", lambda: cuda_stencil.stencil_apply(w, gk, F))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(1000):
+                fn()
+            host_us = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            total_us = (time.perf_counter() - t0) * 1e3
+            say(f"  host cost of one stencil_apply call ({KERNELS[key]['name'].split()[0]} {label}, 9x9x81 nodes): "
+                f"{host_us:.2f} us issued unsynchronised over 1,000 calls; {total_us:.2f} us a call with the final "
+                f"synchronise")
+            report[key][f"host_us_{label}"] = host_us
     return report
 
 
@@ -794,12 +970,15 @@ def check_apply_kernels(cuda_apply) -> dict:
                     ms = event_ms(lambda: kernel(ke, u))
                     plain_ms = event_ms(lambda: plain(ke, u))
                     lib_ms = event_ms(lambda: library(ke, u))
+                    dev_ms = graph_ms(lambda: kernel(ke, u))
+                    dev_lib_ms = graph_ms(lambda: library(ke, u))
                     bound_ms, bound_by, nbytes = apply_bound(key, E, k)
                     gbs = nbytes / (ms * 1e-3) / 1e9
                     say(f"  {spec['name']} E={E} k={k}: kernel {ms:.4f} ms ({gbs:.1f} GB/s), plain version "
-                        f"{plain_ms:.4f} ms, {lib_name} {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+                        f"{plain_ms:.4f} ms, {lib_name} {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); on the "
+                        f"card (graph replay) kernel {dev_ms:.4f} ms, {lib_name} {dev_lib_ms:.4f} ms")
                     times = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
-                                 gb_per_s=gbs)
+                                 gb_per_s=gbs, device_ms=dev_ms, library_device_ms=dev_lib_ms)
                     if (E, k) == APPLY_FULL:
                         report[key].update(times)
                     else:  # the same at the size phase [9.2] runs, under path_*
@@ -1119,45 +1298,63 @@ def check_slab_kernels(ftt, cuda_stencil) -> dict:
         report[key]["max_rel_err"] = max(report[key]["max_rel_err"], rel)
         return rel
 
-    # the shards of [12]'s decomposition, each slab on its halo-extended input
+    # the shards of [12]'s decomposition, each slab on its halo-extended
+    # input, raw and masked (a random 0/1 mask, 0 on the padding)
     for dims, n in SLAB_SMALL + [(FLAGSHIP, n) for n in SLAB_FLAGSHIP_SHARDS]:
         nx, ny, nz = dims
         Z, Y, X = nz + 1, ny + 1, nx + 1
         Zl, Zp = shard_geometry(Z, n, dims == FLAGSHIP)
         g64 = torch.zeros((Zp + 2, Y, X, 3), dtype=torch.float64, device=DEV)
         g64[1 : Z + 1] = torch.as_tensor(rng.normal(size=(Z, Y, X, 3)), device=DEV)
-        want = torch.cat([stencil_apply_slab_grid(ke64, g64[i * Zl : i * Zl + Zl + 2], i * Zl, Z) for i in range(n)])
+        F64 = torch.zeros_like(g64)
+        F64[1 : Z + 1] = torch.as_tensor((rng.random((Z, Y, X, 3)) < 0.8).astype(np.float64), device=DEV)
+        slabs = [slice(i * Zl, i * Zl + Zl + 2) for i in range(n)]
+        want = torch.cat([stencil_apply_slab_grid(ke64, g64[sl], i * Zl, Z) for i, sl in enumerate(slabs)])
+        want_m = torch.cat([stencil_apply_slab_grid(ke64, g64[sl], i * Zl, Z, F64[sl]) for i, sl in enumerate(slabs)])
         parts = []
         for key in SLAB_KEYS:
-            w, g = weights[key], g64.to(KERNELS[key]["dtype"])
-            got = torch.cat([cuda_stencil.stencil_apply_slab(w, g[i * Zl : i * Zl + Zl + 2], i * Zl, Z)
-                             for i in range(n)])
+            w, g, F = weights[key], g64.to(KERNELS[key]["dtype"]), F64.to(KERNELS[key]["dtype"])
+            got = torch.cat([cuda_stencil.stencil_apply_slab(w, g[sl], i * Zl, Z) for i, sl in enumerate(slabs)])
+            got_m = torch.cat([cuda_stencil.stencil_apply_slab(w, g[sl], i * Zl, Z, F[sl])
+                               for i, sl in enumerate(slabs)])
             torch.cuda.synchronize()
             rel = hold(key, got, want, f"{dims} in {n} shards")
-            same = torch.equal(got[:Z], cuda_stencil.stencil_apply(w, g[1 : Z + 1].contiguous()))
-            parts.append(f"{KERNELS[key]['name'].split()[0]} rel err {rel:.3e}, bitwise {whole_name[key]}: {same}")
+            rel_m = float((got_m.double() - want_m).abs().max() / want.abs().max())
+            if not rel_m <= KERNELS[key]["tol"]:
+                raise AssertionError(f"{KERNELS[key]['name']} masked at {dims} in {n} shards: rel err {rel_m:.3e}")
+            whole = g[1 : Z + 1].contiguous()
+            same = torch.equal(got[:Z], cuda_stencil.stencil_apply(w, whole))
+            same_m = (torch.equal(got_m[:Z], cuda_stencil.stencil_apply(w, whole, F[1 : Z + 1].contiguous()))
+                      and int(torch.count_nonzero(got_m[Z:])) == 0)
+            if not (same and same_m):
+                raise AssertionError(f"{KERNELS[key]['name']} at {dims} in {n} shards: slabs differ from "
+                                     f"{whole_name[key]} (raw equal {same}, masked equal {same_m})")
+            parts.append(f"{KERNELS[key]['name'].split()[0]} rel err {rel:.3e}, masked {rel_m:.3e}, bitwise "
+                         f"{whole_name[key]} raw {same} masked {same_m}")
         say(f"  {dims} in {n} shards of {Zl} planes ({Zp - Z} padded): " + "; ".join(parts))
 
     # the whole grid in slabs over views, against the plain version and the unchunked kernel
-    for dims, n in [(FLAGSHIP, SHARDS), (CAPACITY, None), (CAPACITY_16M, None)]:
+    for dims, n in [((13, 7, 29), 4), (FLAGSHIP, SHARDS), (CAPACITY, None), (CAPACITY_16M, None)]:
         nx, ny, nz = dims
         Z, Y, X = nz + 1, ny + 1, nx + 1
         n = n or cuda_stencil.dd_z_chunks(Y, X, Z)
         g64 = torch.as_tensor(rng.normal(size=(Z, Y, X, 3)), device=DEV)
+        F64 = torch.as_tensor((rng.random((Z, Y, X, 3)) < 0.8).astype(np.float64), device=DEV)
         want = stencil_apply_chunked_grid(ke64, g64, n)
         for key in SLAB_KEYS:
             spec = KERNELS[key]
-            w, g = weights[key], g64.to(spec["dtype"]).contiguous()
+            w, g, F = weights[key], g64.to(spec["dtype"]).contiguous(), F64.to(spec["dtype"])
             got = cuda_stencil.stencil_apply_chunked(w, g, n)
             whole = cuda_stencil.stencil_apply(w, g)
+            same_m = torch.equal(cuda_stencil.stencil_apply_chunked(w, g, n, F), cuda_stencil.stencil_apply(w, g, F))
             torch.cuda.synchronize()
             rel = hold(key, got, want, f"{dims} in {n} chunks")
-            rel_whole = float((got - whole).abs().max() / whole.abs().max())
-            if not rel_whole <= 1e-15:
-                raise AssertionError(f"{spec['name']} chunked vs {whole_name[key]} at {dims}: {rel_whole:.3e}")
-            say(f"  {spec['name']} {dims} ({3 * Z * Y * X} DOF) in {n} chunks: rel err {rel:.3e}; "
-                f"vs {whole_name[key]} unchunked {rel_whole:.1e}, bitwise {torch.equal(got, whole)}")
-        del g64, want, g, got, whole
+            if not (torch.equal(got, whole) and same_m):
+                raise AssertionError(f"{spec['name']} chunked vs {whole_name[key]} at {dims}: raw equal "
+                                     f"{torch.equal(got, whole)}, masked equal {same_m}")
+            say(f"  {spec['name']} {dims} ({3 * Z * Y * X} DOF) in {n} chunks: rel err {rel:.3e}; bitwise "
+                f"{whole_name[key]} unchunked raw True, masked True")
+        del g64, F64, want, g, F, got, whole
 
     # times on the shards [12]'s solver applies: SHARDS halo-extended slabs,
     # each its own tensor, at the flagship and the capacity grid
@@ -1177,29 +1374,40 @@ def check_slab_kernels(ftt, cuda_stencil) -> dict:
             def shards():
                 return [cuda_stencil.stencil_apply_slab(w, e, i * Zl, Z) for i, e in enumerate(ext)]
 
+            fext = [torch.ones_like(e) for e in ext]
+
+            def shards_masked():
+                return [cuda_stencil.stencil_apply_slab(w, e, i * Zl, Z, f) for i, (e, f) in enumerate(zip(ext, fext))]
+
             got = torch.cat(shards())[:Z]
             torch.cuda.synchronize()
             rel = hold(key, got, want, f"{dims} on {SHARDS} shards")
             ms = event_ms(shards)
+            masked_ms = event_ms(shards_masked)
+            dev_ms, dev_masked_ms = graph_ms(shards), graph_ms(shards_masked)
             whole_ms = event_ms(lambda: cuda_stencil.stencil_apply(w, g))
             nbytes = shard_bytes(ext, w.table)
             bound_ms, bound_by = bound(spec["dtype"], nbytes, 2 * 9 * neighbour_terms(Z, Y, X))
             fits, why = csr_fits(Z * Y * X, spec["dtype"])
             lib_ms = library_ms(region_field(w.table, Z, Y, X), g, want) if fits else None
             line = (f"  {spec['name']} {dims} ({3 * Z * Y * X} DOF) on {SHARDS} shards of {Zl} + 2 planes: rel err "
-                    f"{rel:.3e}; kernel {ms:.4f} ms ({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s), {whole_name[key]} "
+                    f"{rel:.3e}; kernel {ms:.4f} ms at the host's pace ({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s), "
+                    f"{dev_ms:.4f} ms on the card (graph replay), masked {masked_ms:.4f} / {dev_masked_ms:.4f} ms, "
+                    f"{whole_name[key]} "
                     f"unchunked {whole_ms:.4f} ms, CSR SpMV " + (f"{lib_ms:.4f} ms" if fits else f"not built ({why})")
                     + f", bound {bound_ms:.4f} ms ({bound_by})")
             if dims == FLAGSHIP:
                 plain_ms = event_ms(lambda: [stencil_apply_slab_grid(w.ke, e, i * Zl, Z) for i, e in enumerate(ext)])
                 say(line + f", plain version {plain_ms:.4f} ms")
                 report[key].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
-                                   whole_ms=whole_ms, shards=SHARDS, shard_planes=Zl)
+                                   whole_ms=whole_ms, masked_ms=masked_ms, device_ms=dev_ms,
+                                   masked_device_ms=dev_masked_ms, shards=SHARDS, shard_planes=Zl)
             else:
                 say(line)
-                report[key].update(capacity_ms=ms, capacity_whole_ms=whole_ms, capacity_bound_ms=bound_ms,
-                                   capacity_library_ms=lib_ms)
-        del g64, ext64, ext, want, g, got
+                report[key].update(capacity_ms=ms, capacity_masked_ms=masked_ms, capacity_device_ms=dev_ms,
+                                   capacity_masked_device_ms=dev_masked_ms, capacity_whole_ms=whole_ms,
+                                   capacity_bound_ms=bound_ms, capacity_library_ms=lib_ms)
+        del g64, ext64, ext, fext, want, g, got
     return report
 
 
@@ -1351,7 +1559,7 @@ def main() -> None:
     import fea_tpu_torch as ftt
     from fea_tpu_torch.ops import cuda_apply, cuda_stencil, cuda_varstencil, nvcc
 
-    say("[1] device")
+    phase("[1] device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -1362,43 +1570,46 @@ def main() -> None:
     say(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, nvcc: {version}")
     say(f"  device 0: {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
 
-    say("[2] build")
+    phase("[2] build")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        for fut in [pool.submit(m.build) for m in (cuda_stencil, cuda_varstencil, cuda_apply)]:
+    with ThreadPoolExecutor(max_workers=3 + len(PTXAS_SOURCES)) as pool:  # one nvcc each, all at once
+        builds = [pool.submit(m.build) for m in (cuda_stencil, cuda_varstencil, cuda_apply)]
+        logs = {name: pool.submit(ptxas_log, nvcc, name) for name in PTXAS_SOURCES}
+        for fut in builds:
             fut.result()
-    say(f"  K1/K2 with K1-halo/K3, K4/K5 and K6/K7 built in {time.perf_counter() - t0:.2f} s")
+        say(f"  K1/K2 with K1-halo/K3, K4/K5 and K6/K7 built in {time.perf_counter() - t0:.2f} s")
+        ptxas_report({name: fut.result() for name, fut in logs.items()})
 
-    say("[3] K1/K2 vs plain version (f64) on the card")
+    phase("[3] K1/K2 vs plain version (f64) on the card")
     report = check_kernels(ftt, cuda_stencil)
 
-    say("[4] voxel slice: flagship cantilever through fea_tpu_torch.solve")
+    phase("[4] voxel slice: flagship cantilever through fea_tpu_torch.solve")
     launches, flagship_ref = run_slice(ftt, cuda_stencil, cuda_varstencil)
 
-    say("[5] K4/K5 vs plain version (f64) on the card")
+    phase("[5] K4/K5 vs plain version (f64) on the card")
     report.update(check_var_kernels(cuda_varstencil))
 
-    say("[6] curvilinear slice: the 811,923-DOF distorted cantilever through fea_tpu_torch.solve")
+    phase("[6] curvilinear slice: the 811,923-DOF distorted cantilever through fea_tpu_torch.solve")
     launches_curv = run_curvilinear(ftt, cuda_stencil, cuda_varstencil)
     launches.update({k: launches_curv[k] for k in VAR_KEYS})
 
-    say("[7] canonicalized slice: the renumbered 181,875-DOF scene through fea_tpu_torch.solve")
+    phase("[7] canonicalized slice: the renumbered 181,875-DOF scene through fea_tpu_torch.solve")
     run_canonical(ftt, cuda_stencil, cuda_varstencil)
 
-    say("[8] K6/K7 vs plain version (f64) on the card")
+    phase("[8] K6/K7 vs plain version (f64) on the card")
     report.update(check_apply_kernels(cuda_apply))
 
-    say("[9] element-by-element slice through fea_tpu_torch.solve")
+    phase("[9] element-by-element slice through fea_tpu_torch.solve")
     counters = (cuda_stencil.LAUNCHES, cuda_varstencil.LAUNCHES, cuda_apply.LAUNCHES)
     launches.update(run_ebe(ftt, counters))
 
-    say("[10] K1-halo/K3 vs plain version (f64) on the card")
+    phase("[10] K1-halo/K3 vs plain version (f64) on the card")
     report.update(check_slab_kernels(ftt, cuda_stencil))
 
-    say(f"[11] capacity: the {CAPACITY} cantilever through fea_tpu_torch.solve on one card")
+    phase(f"[11] capacity: the {CAPACITY} cantilever through fea_tpu_torch.solve on one card")
     capacity_ref = run_capacity(ftt, counters)
 
-    say(f"[12] z-sharded solve: build_zsharded_solver over {SHARDS} shards on the one card")
+    phase(f"[12] z-sharded solve: build_zsharded_solver over {SHARDS} shards on the one card")
     sharded = run_sharded(ftt, counters, {"flagship": flagship_ref, "capacity": capacity_ref})
     launches.update({k: sharded[k] for k in SLAB_KEYS})
 

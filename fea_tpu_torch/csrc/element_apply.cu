@@ -18,15 +18,32 @@
 // once, k*k values an element against 2k of u and out: at k = 24 about
 // 26 B an FMA in f32, far above the card's ridge.
 //
-// K7: out[e, a] = sum_b ke[a, b] u[e, b]. One thread an output. The block
-// stages Ke transposed in shared memory (k*k <= 1,024 values, 8 kB in f64),
-// so that consecutive threads (consecutive a) read consecutive words. A
-// warp's u reads touch at most two elements' rows and hit L1 after the
-// first. Bound: bytes, u read once and out written once, 2k values an
-// element for 2k*k flops (6 flop/B in f32 at k = 24). On an H100 (700 W,
-// chip_smoke.py phase [8]) this form reaches only ~22% of that bound: its
-// k loads a thread through L1 cost more than the bytes. One thread an
-// element, Ke broadcast from shared memory, is the planned redesign.
+// K7: out[e, a] = sum_b ke[a, b] u[e, b]. Bound: bytes, u read once and
+// out written once, 2k values an element for 2k*k flops (6 flop/B in f32
+// at k = 24, 3 in f64, under the card's ridge). The first form (one thread
+// an output: one shared and one global load through L1 for every FMA, 24
+// threads reloading the same row of u) reached 21-24% of that bound and
+// was 2-2.9x slower than cuBLAS: the load pipes, not HBM, set its time.
+// For k = 24 (hex8, the only k the uniform operator meets today) the
+// kernel is uniform_tile_kernel<T, 24>:
+//   * a block owns a tile of 128 elements, whose rows of u are one
+//     contiguous range; it copies them to shared memory in coalesced
+//     16-byte pieces with cp.async, into rows padded to an odd number of
+//     pieces (7 in f32, 13 in f64), so that the 16-byte reads of a row by
+//     the threads of a quarter warp fall into different banks;
+//   * one thread two elements: their rows go into 48 registers; each
+//     output is 24 FMAs against a row of Ke read from shared memory as a
+//     broadcast in 16-byte pieces, each piece serving both elements (8
+//     FMAs a load in f32, 4 in f64: a broadcast load still fills 32 lanes'
+//     registers, so loads of Ke, not FMAs, are what a thread must save);
+//     the outputs go back into the thread's own rows of the tile, and the
+//     block stores the tile to global in coalesced 16-byte pieces;
+//   * u and out must be 16-byte aligned (the wrapper checks; a tile starts
+//     at a multiple of 128 rows), the last tile may be ragged.
+// Any other k <= 32 takes uniform_kernel, the first form, unchanged (one
+// thread an output, Ke transposed in shared memory): beams and bars
+// (k = 4, 6) never reach K7 today. Both are hand kernels; neither falls
+// back to a library.
 //
 // Sums run in the order b = 0 .. k-1 with fused multiply-adds. No tensor
 // cores: TF32 would break the f32 tolerance, and an f64 MMA tile does not
@@ -89,9 +106,104 @@ int launch_stored(const T* ke, const T* u, T* out, int64_t E, int k, void* strea
     return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T> struct Vec16;
+template <> struct Vec16<float> { using type = float4; };
+template <> struct Vec16<double> { using type = double2; };
+
+__device__ __forceinline__ void unpack(const float4& v, float* p) {
+    p[0] = v.x; p[1] = v.y; p[2] = v.z; p[3] = v.w;
+}
+__device__ __forceinline__ void unpack(const double2& v, double* p) {
+    p[0] = v.x; p[1] = v.y;
+}
+__device__ __forceinline__ float4 pack(const float* p) { return make_float4(p[0], p[1], p[2], p[3]); }
+__device__ __forceinline__ double2 pack(const double* p) { return make_double2(p[0], p[1]); }
+
+// 16 bytes global -> shared, asynchronously; both addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+constexpr int kTile = 128;       // elements a block
+constexpr int kRowsPerThread = 2;  // elements a thread: each piece of Ke read serves this many FMAs a value
+constexpr int kTileThreads = kTile / kRowsPerThread;
+
+template <typename T, int K>
+__global__ void __launch_bounds__(kTileThreads)
+uniform_tile_kernel(const T* __restrict__ ke, const T* __restrict__ u, T* __restrict__ out, int64_t E) {
+    using V = typename Vec16<T>::type;
+    constexpr int P = 16 / sizeof(T);  // values a 16-byte piece
+    constexpr int R = kRowsPerThread;
+    static_assert(K % P == 0, "a row must be whole 16-byte pieces");
+    constexpr int RP = K / P;          // pieces a row
+    constexpr int RS = RP | 1;         // row stride in shared memory, odd: no bank conflicts
+    __shared__ V s_ke[K * RP];         // ke[a][b], row-major
+    __shared__ V s_t[kTile * RS];      // the tile: u on the way in, out on the way back
+
+    const int tid = threadIdx.x;
+    const int64_t e0 = static_cast<int64_t>(blockIdx.x) * kTile;
+    const int rows = static_cast<int>(E - e0 < kTile ? E - e0 : kTile);
+    const int pieces = rows * RP;
+    const V* __restrict__ src = reinterpret_cast<const V*>(u + e0 * K);
+    for (int c = tid; c < pieces; c += kTileThreads) cp_async_16(&s_t[(c / RP) * RS + c % RP], src + c);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    for (int i = tid; i < K * K; i += kTileThreads) reinterpret_cast<T*>(s_ke)[i] = __ldg(ke + i);
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+
+    // rows tid and tid + kTileThreads of the tile; a row past the ragged
+    // end is computed on whatever the tile holds and never stored
+    if (tid < rows) {
+        T ur[R][K];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+#pragma unroll
+            for (int j = 0; j < RP; ++j) unpack(s_t[(tid + r * kTileThreads) * RS + j], ur[r] + j * P);
+        }
+#pragma unroll
+        for (int a0 = 0; a0 < K; a0 += P) {
+            T o[R][P];
+#pragma unroll
+            for (int i = 0; i < P; ++i) {
+                T acc[R];
+#pragma unroll
+                for (int r = 0; r < R; ++r) acc[r] = T(0);
+#pragma unroll
+                for (int j = 0; j < RP; ++j) {
+                    T w[P];
+                    unpack(s_ke[(a0 + i) * RP + j], w);
+#pragma unroll
+                    for (int b = 0; b < P; ++b) {  // b ascending over the row
+#pragma unroll
+                        for (int r = 0; r < R; ++r) acc[r] = fma(w[b], ur[r][j * P + b], acc[r]);
+                    }
+                }
+#pragma unroll
+                for (int r = 0; r < R; ++r) o[r][i] = acc[r];
+            }
+            // the thread's own rows: nobody else reads them
+#pragma unroll
+            for (int r = 0; r < R; ++r) s_t[(tid + r * kTileThreads) * RS + a0 / P] = pack(o[r]);
+        }
+    }
+    __syncthreads();
+    V* __restrict__ dst = reinterpret_cast<V*>(out + e0 * K);
+    for (int c = tid; c < pieces; c += kTileThreads) dst[c] = s_t[(c / RP) * RS + c % RP];
+}
+
 template <typename T>
 int launch_uniform(const T* ke, const T* u, T* out, int64_t E, int k, void* stream) {
     if (E < 1 || k < 1 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
+    if (k == 24) {
+        if ((reinterpret_cast<uintptr_t>(u) | reinterpret_cast<uintptr_t>(out)) & 15) {
+            return static_cast<int>(cudaErrorMisalignedAddress);
+        }
+        const int64_t blocks = (E + kTile - 1) / kTile;
+        uniform_tile_kernel<T, 24><<<static_cast<unsigned int>(blocks), kTileThreads, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(ke, u, out, E);
+        return static_cast<int>(cudaGetLastError());
+    }
     const int64_t n_out = E * k;
     const int64_t blocks = (n_out + kThreads - 1) / kThreads;
     uniform_kernel<T><<<static_cast<unsigned int>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -112,7 +224,8 @@ extern "C" int fea_batched_matvec_stored_f64(const double* ke, const double* u, 
     return launch_stored<double>(ke, u, out, E, k, stream);
 }
 
-// K7: the `uniform` operator's element apply (congruent hex8 meshes).
+// K7: the `uniform` operator's element apply (congruent hex8 meshes): the
+// tile kernel at k = 24, the one-thread-an-output kernel at any other k.
 extern "C" int fea_batched_matvec_uniform_f32(const float* ke, const float* u, float* out,
                                               int64_t E, int k, void* stream) {
     return launch_uniform<float>(ke, u, out, E, k, stream);

@@ -19,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from .nvcc import CSRC, load_library
+from .nvcc import CSRC, launch_on, load_library
 
 __all__ = [
     "LAUNCHES",
@@ -66,6 +66,19 @@ def build() -> ctypes.CDLL:
     return lib
 
 
+def _check_kernel_args(name: str, kind: str, ke: torch.Tensor, u_e: torch.Tensor, out: torch.Tensor) -> None:
+    """Raise on what the kernels do not take: a tensor that is not
+    contiguous, and for K7 at k = 24 a ``u_e`` or an output whose memory
+    does not start at a multiple of 16 bytes (its tile kernel moves both in
+    16-byte pieces; a view cut at an odd offset must be copied by the
+    caller, never by a slower path here). K6 and K7 at any other k read and
+    write value by value and take any contiguous view."""
+    if not (ke.is_contiguous() and u_e.is_contiguous() and out.is_contiguous()):
+        raise ValueError(f"{name}: ke, u_e and the output must be contiguous")
+    if kind == "uniform" and u_e.shape[1] == 24 and (u_e.data_ptr() % 16 or out.data_ptr() % 16):
+        raise ValueError(f"{name}: at k = 24 u_e and the output must start at a 16-byte aligned address")
+
+
 def _dispatch(kind: str, ke: torch.Tensor, u_e: torch.Tensor) -> torch.Tensor:
     name = f"batched_matvec_{kind}"
     if u_e.dtype not in _SUFFIX:
@@ -85,15 +98,12 @@ def _dispatch(kind: str, ke: torch.Tensor, u_e: torch.Tensor) -> torch.Tensor:
         return plain(ke, u_e)
     if u_e.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {u_e.device}")
-    if not (ke.is_contiguous() and u_e.is_contiguous()):
-        raise ValueError(f"{name}: ke and u_e must be contiguous")
+    out = torch.empty_like(u_e)
+    _check_kernel_args(name, kind, ke, u_e, out)
     suffix = _SUFFIX[u_e.dtype]
     fn = f"fea_{name}_{suffix}"
     lib = build()
-    out = torch.empty_like(u_e)
-    with torch.cuda.device(u_e.device):
-        stream = torch.cuda.current_stream(u_e.device).cuda_stream
-        err = getattr(lib, fn)(ke.data_ptr(), u_e.data_ptr(), out.data_ptr(), E, k, stream)
+    err = launch_on(u_e.device, getattr(lib, fn), ke.data_ptr(), u_e.data_ptr(), out.data_ptr(), E, k)
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA error {err} at launch (E={E}, k={k})")
     LAUNCHES[f"{kind}_{suffix}"] += 1

@@ -14,6 +14,11 @@ Three entry points, each with its plain torch version in
     ``fea_tpu/ops/pallas_stencil.py::stencil_apply_transposed_dd_chunked``;
     plain version ``stencil_apply_chunked_grid``.
 
+Each takes an optional ``free`` mask, a 0/1 grid of the input's shape
+and dtype (halo-extended like the input for a slab), and then computes
+the operator with Dirichlet rows, ``F * K(F * g) + (1 - F) * g``, in the
+same one launch; ``free=None`` is the raw ``K @ g``.
+
 For a CPU tensor each runs its plain version. For a CUDA tensor it
 launches the hand-written kernel of ``csrc/stencil.cu`` or raises:
 nothing falls back to the plain version on the card.
@@ -29,12 +34,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .nvcc import CSRC, load_library
+from .nvcc import CSRC, launch_on, load_library
 
 __all__ = [
     "LAUNCHES",
     "StencilWeights",
     "build",
+    "check_free_mask",
     "dd_z_chunks",
     "region_weight_table",
     "stencil_apply",
@@ -96,25 +102,43 @@ def region_weight_table(ke: np.ndarray) -> np.ndarray:
 
 @dataclasses.dataclass(frozen=True)
 class StencilWeights:
-    """One element Ke in the two forms the stencil takes: the (24, 24)
-    matrix for the plain version and the region table for the kernel,
-    both in one dtype on one device."""
+    """One element Ke in the forms the stencil takes: the (24, 24) matrix
+    for the plain version and the region table for the kernel, both in one
+    dtype on one device, and the same table in host memory, from which a
+    launch fills the kernel's parameters (the card's constant bank)."""
 
     ke: torch.Tensor  # (24, 24)
     table: torch.Tensor  # (27, 27, 3, 3)
+    host_table: torch.Tensor  # the table on the CPU, contiguous
 
     def astype(self, dtype: torch.dtype) -> "StencilWeights":
-        return StencilWeights(self.ke.to(dtype), self.table.to(dtype))
+        return StencilWeights(self.ke.to(dtype), self.table.to(dtype), self.host_table.to(dtype))
+
+    def to(self, device) -> "StencilWeights":
+        """The same weights with ``ke`` and ``table`` on ``device``."""
+        return StencilWeights(self.ke.to(device), self.table.to(device), self.host_table)
 
 
 def stencil_weights(ke: np.ndarray, dtype: torch.dtype, device) -> StencilWeights:
-    """Both forms of ``ke``: the region table is summed in f64 on the
-    host and rounded once to ``dtype``."""
+    """All forms of ``ke``: the region table is summed in f64 on the host
+    and rounded once to ``dtype``."""
     ke64 = np.asarray(ke, np.float64)
+    host = torch.as_tensor(region_weight_table(ke64)).to(dtype).contiguous()
     return StencilWeights(
         ke=torch.as_tensor(ke64, device=device).to(dtype),
-        table=torch.as_tensor(region_weight_table(ke64), device=device).to(dtype),
+        table=host.to(device),
+        host_table=host,
     )
+
+
+def check_free_mask(free: torch.Tensor) -> torch.Tensor:
+    """``free`` unchanged, once it is known to hold only 0 and 1: the
+    masked kernel selects by it where the unfused expression multiplies,
+    and the two agree only for such a mask. Called where a mask is built
+    (an operator, a multigrid level, a shard), never inside a loop."""
+    if not bool(((free == 0) | (free == 1)).all()):
+        raise ValueError("the free mask must hold only 0 and 1")
+    return free
 
 
 def build() -> ctypes.CDLL:
@@ -123,19 +147,20 @@ def build() -> ctypes.CDLL:
     if _LIB is not None:
         return _LIB
     lib = load_library(CSRC / "stencil.cu", "feastencil_cuda")
-    for entries, n_ints in ((_ENTRY, 3), (_SLAB_ENTRY, 6)):
+    for entries, n_ints in ((_ENTRY, 3), (_SLAB_ENTRY, 7)):
         for _, fn in entries.values():
             f = getattr(lib, fn)
-            f.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * n_ints + [ctypes.c_void_p]
+            f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * n_ints + [ctypes.c_void_p]
             f.restype = ctypes.c_int
     _LIB = lib
     return lib
 
 
-def _check(name: str, ke_table: StencilWeights, g: torch.Tensor, min_planes: int) -> None:
+def _check(name: str, ke_table: StencilWeights, g: torch.Tensor, min_planes: int,
+           free: Optional[torch.Tensor] = None) -> None:
     """Raise unless ``g`` is a (planes, Y, X, 3) f32/f64 grid with at
-    least ``min_planes`` planes and Y, X >= 2, and ``ke_table`` matches it
-    in dtype and device."""
+    least ``min_planes`` planes and Y, X >= 2, ``ke_table`` matches it in
+    dtype and device, and ``free`` (when given) in shape, dtype and device."""
     if g.dtype not in _ENTRY:
         raise TypeError(f"{name}: dtype {g.dtype} is neither float32 nor float64")
     if g.ndim != 4 or g.shape[3] != 3 or g.shape[0] < min_planes or min(g.shape[1:3]) < 2:
@@ -151,62 +176,92 @@ def _check(name: str, ke_table: StencilWeights, g: torch.Tensor, min_planes: int
         raise ValueError(f"{name}: weights must be a (24, 24) Ke and a (27, 27, 3, 3) table")
     if g.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: no kernel for device {g.device}")
-    if g.device.type == "cuda" and not (g.is_contiguous() and tab.is_contiguous()):
-        raise ValueError(f"{name}: g and the table must be contiguous")
+    if free is not None:
+        if free.dtype != g.dtype:
+            raise TypeError(f"{name}: free is {free.dtype}, g is {g.dtype}")
+        if free.shape != g.shape or free.device != g.device:
+            raise ValueError(
+                f"{name}: free must have g's shape and device, got {tuple(free.shape)} on {free.device} "
+                f"for {tuple(g.shape)} on {g.device}"
+            )
 
 
-def _launch(entries: dict, tab: torch.Tensor, g: torch.Tensor, out: torch.Tensor, *sizes: int) -> None:
+def _check_launch(name: str, tab: torch.Tensor, g: torch.Tensor, out: torch.Tensor,
+                  free: Optional[torch.Tensor]) -> None:
+    """Raise on what the kernel does not take: a tensor that is not
+    contiguous, or an output that shares memory with an input (a block
+    reads planes that another block writes). Any X, Y >= 2 is taken: the
+    kernel cuts rows too wide for a block into segments."""
+    for what, t in (("g", g), ("the table", tab), ("out", out), ("free", free)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous")
+    lo, hi = out.data_ptr(), out.data_ptr() + out.numel() * out.element_size()
+    for what, t in (("g", g), ("free", free)):
+        if t is not None and t.data_ptr() < hi and lo < t.data_ptr() + t.numel() * t.element_size():
+            raise ValueError(f"{name}: out must not alias {what}")
+
+
+def _launch(entries: dict, weights: StencilWeights, g: torch.Tensor, free: Optional[torch.Tensor],
+            out: torch.Tensor, *sizes: int) -> None:
     """One launch of the kernel of ``g``'s dtype in ``entries`` on the
     current stream of ``g``'s card; raises on a launch error."""
     key, fn = entries[g.dtype]
+    tab, host = weights.table, weights.host_table
+    _check_launch(fn, tab, g, out, free)
+    if host.device.type != "cpu" or host.dtype != tab.dtype or host.shape != tab.shape or not host.is_contiguous():
+        raise ValueError(f"{fn}: host_table must be the table on the CPU, contiguous, in {tab.dtype}")
     lib = build()
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = getattr(lib, fn)(tab.data_ptr(), g.data_ptr(), out.data_ptr(), *sizes, stream)
+    err = launch_on(g.device, getattr(lib, fn), host.data_ptr(), tab.data_ptr(), g.data_ptr(),
+                    None if free is None else free.data_ptr(), out.data_ptr(), *sizes)
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA error {err} at launch (sizes {sizes})")
     LAUNCHES[key] += 1
 
 
-def stencil_apply(ke_table: StencilWeights, g: torch.Tensor) -> torch.Tensor:
-    """``K @ u`` on the node grid: g (Z, Y, X, 3) -> (Z, Y, X, 3).
+def stencil_apply(ke_table: StencilWeights, g: torch.Tensor, free: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``K @ u`` on the node grid: g (Z, Y, X, 3) -> (Z, Y, X, 3); with a
+    0/1 mask ``free`` of g's shape and dtype, the masked operator
+    ``free * K(free * g) + (1 - free) * g``.
 
-    f32 runs K1 and f64 runs K2 on a CUDA tensor; a CPU tensor takes the
-    plain torch version. ``ke_table`` must match ``g`` in dtype and
-    device.
+    f32 runs K1 and f64 runs K2 on a CUDA tensor, one launch either way; a
+    CPU tensor takes the plain torch version. ``ke_table`` must match
+    ``g`` in dtype and device.
     """
-    _check("stencil_apply", ke_table, g, 2)
+    _check("stencil_apply", ke_table, g, 2, free)
     Z, Y, X, _ = g.shape
     if g.device.type == "cpu":
         from .structured import stencil_apply_grid
 
-        return stencil_apply_grid(ke_table.ke, g, (X - 1, Y - 1, Z - 1))
+        return stencil_apply_grid(ke_table.ke, g, (X - 1, Y - 1, Z - 1), free)
     out = torch.empty_like(g)
-    _launch(_ENTRY, ke_table.table, g, out, X, Y, Z)
+    _launch(_ENTRY, ke_table, g, free, out, X, Y, Z)
     return out
 
 
-def stencil_apply_slab(ke_table: StencilWeights, g_ext: torch.Tensor, z0: int, z_real: int) -> torch.Tensor:
+def stencil_apply_slab(ke_table: StencilWeights, g_ext: torch.Tensor, z0: int, z_real: int,
+                       free_ext: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``K @ u`` on one z slab of a grid of ``z_real`` planes:
     g_ext (Zl + 2, Y, X, 3) -> (Zl, Y, X, 3).
 
     ``g_ext`` holds global planes ``z0 - 1 .. z0 + Zl``: the slab's own
     planes between the neighbour's plane below (index 0) and above
     (index Zl + 1). Planes at or past ``z_real`` are zero padding: they
-    are never read, and their output is 0. f32 runs K1's halo form and
-    f64 runs K3 on a CUDA tensor; a CPU tensor takes the plain torch
-    version.
+    are never read, and their output is 0. With ``free_ext``, the 0/1 mask
+    on the same planes, the slab's planes of the masked operator
+    ``F * K(F * g) + (1 - F) * g`` (a padding plane comes out as
+    ``(1 - F) * g``). f32 runs K1's halo form and f64 runs K3 on a CUDA
+    tensor; a CPU tensor takes the plain torch version.
     """
-    _check("stencil_apply_slab", ke_table, g_ext, 3)
+    _check("stencil_apply_slab", ke_table, g_ext, 3, free_ext)
     if z0 < 0 or z_real < 2:
         raise ValueError(f"stencil_apply_slab: need z0 >= 0 and z_real >= 2, got z0={z0}, z_real={z_real}")
     Ze, Y, X, _ = g_ext.shape
     if g_ext.device.type == "cpu":
         from .structured import stencil_apply_slab_grid
 
-        return stencil_apply_slab_grid(ke_table.ke, g_ext, z0, z_real)
+        return stencil_apply_slab_grid(ke_table.ke, g_ext, z0, z_real, free_ext)
     out = torch.empty((Ze - 2, Y, X, 3), dtype=g_ext.dtype, device=g_ext.device)
-    _launch(_SLAB_ENTRY, ke_table.table, g_ext, out, X, Y, Ze - 2, z0, z0 - 1, z_real)
+    _launch(_SLAB_ENTRY, ke_table, g_ext, free_ext, out, X, Y, Ze - 2, Ze, z0, z0 - 1, z_real)
     return out
 
 
@@ -232,8 +287,10 @@ def dd_z_chunks(Y: int, X: int, Z: int) -> int:
     return n
 
 
-def stencil_apply_chunked(ke_table: StencilWeights, g: torch.Tensor, n_chunks: int) -> torch.Tensor:
-    """``K @ u`` on the whole grid g (Z, Y, X, 3) in ``n_chunks`` z slabs.
+def stencil_apply_chunked(ke_table: StencilWeights, g: torch.Tensor, n_chunks: int,
+                          free: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``K @ u`` on the whole grid g (Z, Y, X, 3) in ``n_chunks`` z slabs,
+    masked by ``free`` as :func:`stencil_apply` is.
 
     On a CUDA tensor each slab is one launch of K1's halo form (f32) or
     K3 (f64) on a view of ``g`` (the slab and its halo planes are one
@@ -242,16 +299,17 @@ def stencil_apply_chunked(ke_table: StencilWeights, g: torch.Tensor, n_chunks: i
     :func:`stencil_apply` (the same kernel body). A CPU tensor takes the
     plain torch version.
     """
-    _check("stencil_apply_chunked", ke_table, g, 2)
+    _check("stencil_apply_chunked", ke_table, g, 2, free)
     if n_chunks < 1:
         raise ValueError(f"stencil_apply_chunked: n_chunks must be >= 1, got {n_chunks}")
     Z, Y, X, _ = g.shape
     if g.device.type == "cpu":
         from .structured import stencil_apply_chunked_grid
 
-        return stencil_apply_chunked_grid(ke_table.ke, g, n_chunks)
+        return stencil_apply_chunked_grid(ke_table.ke, g, n_chunks, free)
     out = torch.empty_like(g)
     for s, e in z_chunk_bounds(Z, n_chunks):
         lo, hi = max(s - 1, 0), min(e + 1, Z)
-        _launch(_SLAB_ENTRY, ke_table.table, g[lo:hi], out[s:e], X, Y, e - s, s, lo, Z)
+        _launch(_SLAB_ENTRY, ke_table, g[lo:hi], None if free is None else free[lo:hi], out[s:e],
+                X, Y, e - s, hi - lo, s, lo, Z)
     return out

@@ -16,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from .nvcc import CSRC, load_library
+from .nvcc import CSRC, launch_on, load_library
 
 __all__ = ["LAUNCHES", "build", "var_apply"]
 
@@ -75,9 +75,7 @@ def var_apply(weights: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     key, fn = _ENTRY[g.dtype]
     lib = build()
     out = torch.empty_like(g)
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = getattr(lib, fn)(weights.data_ptr(), g.data_ptr(), out.data_ptr(), X, Y, Z, stream)
+    err = launch_on(g.device, getattr(lib, fn), weights.data_ptr(), g.data_ptr(), out.data_ptr(), X, Y, Z)
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA error {err} at launch ({X}x{Y}x{Z} nodes)")
     LAUNCHES[key] += 1

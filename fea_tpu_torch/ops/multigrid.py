@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..dtypes import torch_dtype
-from .cuda_stencil import StencilWeights, stencil_apply, stencil_weights
+from .cuda_stencil import StencilWeights, check_free_mask, stencil_apply, stencil_weights
 from .structured import StructuredOperator, corner_table_np, fill_regions_np
 
 __all__ = ["MultigridPreconditioner", "build_multigrid", "coarsen_dims", "chebyshev_smooth"]
@@ -77,9 +77,9 @@ class _Level:
         return self.free.dtype
 
     def apply(self, g: torch.Tensor) -> torch.Tensor:
-        """Masked operator in grid space."""
-        F = self.free
-        return F * stencil_apply(self.weights, F * g) + (1.0 - F) * g
+        """Masked operator in grid space, one kernel launch on the card
+        (the mask is applied inside the stencil)."""
+        return stencil_apply(self.weights, g.contiguous(), self.free)
 
 
 def _sl(ndim: int, axis: int, s: slice) -> tuple:
@@ -148,7 +148,7 @@ class MultigridPreconditioner:
             packed.append(
                 _Level(
                     weights=stencil_weights(lv["ke"], dt, device),
-                    free=torch.as_tensor(np.asarray(lv["free"]), device=device).to(dt),
+                    free=check_free_mask(torch.as_tensor(np.asarray(lv["free"]), device=device).to(dt)),
                     inv_diag=torch.as_tensor(np.asarray(lv["inv_diag"]), device=device).to(dt),
                     lam_max=float(lv["lam"]),
                     dims=tuple(lv["dims"]),

@@ -17,7 +17,9 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["CSRC", "NVCC_FLAGS", "find_nvcc", "load_library"]
+import torch
+
+__all__ = ["CSRC", "NVCC_FLAGS", "find_nvcc", "launch_on", "load_library"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -65,3 +67,14 @@ def load_library(source: Path, stem: str) -> ctypes.CDLL:
             if os.path.exists(tmp):
                 os.unlink(tmp)
     return ctypes.CDLL(str(so))
+
+
+def launch_on(device: torch.device, entry, *args) -> int:
+    """``entry(*args, stream)`` with ``device`` current and ``stream`` its
+    current stream: how every kernel wrapper calls its C entry. The device
+    guard is taken only when another device is current; it costs the host
+    several microseconds, and a Krylov loop pays the host for every launch."""
+    if torch.cuda.current_device() == device.index:
+        return entry(*args, torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        return entry(*args, torch.cuda.current_stream(device).cuda_stream)

@@ -31,7 +31,7 @@ import torch
 from ..elements import hex8 as hex8_el
 from ..materials import Material
 from ..scene import Scene, fix_where, make_scene
-from .cuda_stencil import StencilWeights, stencil_apply, stencil_weights
+from .cuda_stencil import StencilWeights, check_free_mask, stencil_apply, stencil_weights
 
 __all__ = [
     "StructuredOperator",
@@ -59,12 +59,17 @@ _CORNERS = (
 )
 
 
-def stencil_apply_grid(ke: torch.Tensor, g: torch.Tensor, dims: tuple[int, int, int]) -> torch.Tensor:
-    """K @ u in grid space: g (Z, Y, X, 3) -> (Z, Y, X, 3), in g's dtype.
+def stencil_apply_grid(ke: torch.Tensor, g: torch.Tensor, dims: tuple[int, int, int],
+                       free: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K @ u in grid space: g (Z, Y, X, 3) -> (Z, Y, X, 3), in g's dtype;
+    with a 0/1 mask ``free`` of g's shape, the masked operator
+    ``free * K(free * g) + (1 - free) * g``, written out unfused.
 
     The plain version of K1 (f32) and K2 (f64): 8 corner slice-gathers,
     one (E, 24) @ (24, 24) product, 8 corner slice-adds.
     """
+    if free is not None:
+        return free * stencil_apply_grid(ke, free * g, dims) + (1.0 - free) * g
     nx, ny, nz = dims
     ke = ke.to(device=g.device, dtype=g.dtype)
     u_e = torch.cat(
@@ -77,17 +82,23 @@ def stencil_apply_grid(ke: torch.Tensor, g: torch.Tensor, dims: tuple[int, int, 
     return f
 
 
-def stencil_apply_slab_grid(ke: torch.Tensor, g_ext: torch.Tensor, z0: int, z_real: int) -> torch.Tensor:
+def stencil_apply_slab_grid(ke: torch.Tensor, g_ext: torch.Tensor, z0: int, z_real: int,
+                            free_ext: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K @ u on the planes ``z0 .. z0 + Zl - 1`` of a grid of ``z_real``
     planes, from the halo-extended slab g_ext (Zl + 2, Y, X, 3) that holds
-    global planes ``z0 - 1 .. z0 + Zl``: (Zl, Y, X, 3).
+    global planes ``z0 - 1 .. z0 + Zl``: (Zl, Y, X, 3). With ``free_ext``,
+    the 0/1 mask on the same planes, those planes of the masked operator
+    ``F * K(F * g) + (1 - F) * g``.
 
     The plain version of K1's halo form (f32) and K3 (f64): the elements
     that touch the slab's planes and exist in the global grid (element
     layers ``max(z0 - 1, 0) .. min(z0 + Zl, z_real - 1) - 1``) go through
     :func:`stencil_apply_grid`. Planes at or past ``z_real`` are zero
-    padding, never read, with output 0.
+    padding, never read, with output 0 (masked: ``(1 - F) * g``).
     """
+    if free_ext is not None:
+        F = free_ext[1:-1]
+        return F * stencil_apply_slab_grid(ke, free_ext * g_ext, z0, z_real) + (1.0 - F) * g_ext[1:-1]
     Zl = g_ext.shape[0] - 2
     Y, X = g_ext.shape[1:3]
     lo, hi = max(z0 - 1, 0), min(z0 + Zl, z_real - 1)  # global element layers [lo, hi)
@@ -100,19 +111,24 @@ def stencil_apply_slab_grid(ke: torch.Tensor, g_ext: torch.Tensor, z0: int, z_re
     return out
 
 
-def stencil_apply_chunked_grid(ke: torch.Tensor, g: torch.Tensor, n_chunks: int) -> torch.Tensor:
+def stencil_apply_chunked_grid(ke: torch.Tensor, g: torch.Tensor, n_chunks: int,
+                               free: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K @ u on the whole grid g (Z, Y, X, 3), as :func:`stencil_apply_slab_grid`
     on each of the z chunks of ``cuda_stencil.z_chunk_bounds(Z, n_chunks)``
-    with zero planes past the grid's ends: the plain version of
+    with zero planes past the grid's ends, masked by ``free`` as
+    :func:`stencil_apply_grid` is: the plain version of
     ``cuda_stencil.stencil_apply_chunked``."""
     from .cuda_stencil import z_chunk_bounds
 
     Z = g.shape[0]
     zero = torch.zeros_like(g[:1])
+
+    def ext(t, s, e):
+        return torch.cat([t[s - 1 : s] if s > 0 else zero, t[s:e], t[e : e + 1] if e < Z else zero])
+
     slabs = []
     for s, e in z_chunk_bounds(Z, n_chunks):
-        g_ext = torch.cat([g[s - 1 : s] if s > 0 else zero, g[s:e], g[e : e + 1] if e < Z else zero])
-        slabs.append(stencil_apply_slab_grid(ke, g_ext, s, Z))
+        slabs.append(stencil_apply_slab_grid(ke, ext(g, s, e), s, Z, None if free is None else ext(free, s, e)))
     return torch.cat(slabs)
 
 
@@ -206,15 +222,18 @@ class StructuredOperator:
             self, weights=self.weights.astype(dtype), free=self.free.to(dtype)
         )
 
+    def _grid(self, u: torch.Tensor) -> torch.Tensor:
+        Z, Y, X = self.grid_shape
+        return u.reshape(Z, Y, X, 3).contiguous()
+
     def apply_raw(self, u: torch.Tensor) -> torch.Tensor:
         """K @ u over all DOFs.  u (N, 3) flat -> (N, 3) flat."""
-        Z, Y, X = self.grid_shape
-        g = u.reshape(Z, Y, X, 3).contiguous()
-        return stencil_apply(self.weights, g).reshape(-1, 3)
+        return stencil_apply(self.weights, self._grid(u)).reshape(-1, 3)
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
-        F = self.free.to(x.dtype)
-        return F * self.apply_raw(F * x) + (1.0 - F) * x
+        """The masked operator F K(F x) + (1 - F) x, one kernel launch on
+        the card (the mask is applied inside the stencil)."""
+        return stencil_apply(self.weights, self._grid(x), self._grid(self.free.to(x.dtype))).reshape(-1, 3)
 
     def rhs(self, loads: torch.Tensor, prescribed: torch.Tensor) -> torch.Tensor:
         F = self.free.to(loads.dtype)
@@ -328,7 +347,7 @@ def build_structured_operator(
     ke = hex8_el.stiffness_matrix_np(X0, scene.material)
     return StructuredOperator(
         weights=stencil_weights(ke, dtype, scene.device),
-        free=scene.free_mask(dtype),
+        free=check_free_mask(scene.free_mask(dtype)),
         dims=dims,
     )
 

@@ -23,8 +23,10 @@ each card of a host, with peer copies for the halos.
     (:func:`_halo_exchange`) and runs the slab kernel on the halo-extended
     slab: K3 (f64) for the FCG apply, the certification and the
     reactions; K1's halo form (f32) for the V-cycle's fine level and
-    level 1 (K3 where a level is f64). The slab kernel knows the global z
-    boundary, so the reference's table-row gating, thin-slab z-max
+    level 1 (K3 where a level is f64). A masked apply hands the kernel
+    the raw slab and the halo-extended free mask, built once at build
+    time, and the kernel masks inside its one launch. The slab kernel
+    knows the global z boundary, so the reference's table-row gating, thin-slab z-max
     correction and phantom subtraction have no counterpart here.
   * The V-cycle runs its fine level, and level 1 when the hierarchy has
     three levels or more, on the shards. The defect of the first
@@ -54,7 +56,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from ..dtypes import precise_dot
-from ..ops.cuda_stencil import StencilWeights, stencil_apply_slab
+from ..ops.cuda_stencil import StencilWeights, check_free_mask, stencil_apply_slab
 from ..ops.multigrid import MultigridPreconditioner, _Level, _prolong, _restrict, chebyshev_smooth
 from ..ops.structured import StructuredOperator
 from ..solve._types import Solution
@@ -191,7 +193,7 @@ def _device(d) -> torch.device:
 
 def _level_on(lv: _Level, dev: torch.device) -> _Level:
     return dataclasses.replace(
-        lv, weights=StencilWeights(lv.weights.ke.to(dev), lv.weights.table.to(dev)),
+        lv, weights=lv.weights.to(dev),
         free=lv.free.to(dev), inv_diag=lv.inv_diag.to(dev),
     )
 
@@ -203,6 +205,7 @@ class _ShardOperator:
 
     weights: list[StencilWeights]  # Ke on each shard's device
     free: Shards
+    free_ext: Shards  # the mask between its neighbours' edge planes, built once: the mask is static
     z_real: int  # real node planes
     z_local: int
 
@@ -213,7 +216,15 @@ class _ShardOperator:
             for i, (w, e) in enumerate(zip(self.weights, _halo_exchange(xs)))
         )
 
-    apply = StructuredOperator.apply
+    def apply(self, xs: Shards) -> Shards:
+        """The masked operator F K(F x) + (1 - F) x, one slab launch a
+        shard: the halos of ``xs`` are exchanged raw and the kernel masks
+        them by ``free_ext``."""
+        return Shards(
+            stencil_apply_slab(w, e, i * self.z_local, self.z_real, f)
+            for i, (w, e, f) in enumerate(zip(self.weights, _halo_exchange(xs), self.free_ext))
+        )
+
     rhs = StructuredOperator.rhs
 
 
@@ -246,9 +257,9 @@ class ZShardedSolver:
         self.shard_l1 = shard_levels >= 2 and len(mg.levels) >= 3
         self.z_local, self.z_pad = shard_geometry(Z, len(self.devices), self.shard_l1)
         self.degree, self.lam_min_frac = mg.degree, mg.lam_min_frac
+        free = _scatter(check_free_mask(op_hi.free).reshape(Z, Y, X, 3), self.devices, self.z_local)
         self.op = _ShardOperator(
-            weights=self._on_devices(op_hi.weights),
-            free=_scatter(op_hi.free.reshape(Z, Y, X, 3), self.devices, self.z_local),
+            weights=self._on_devices(op_hi.weights), free=free, free_ext=_halo_exchange(free),
             z_real=Z, z_local=self.z_local,
         )
         self.fine = self._shard(mg.levels[0], self.z_local)
@@ -261,13 +272,13 @@ class ZShardedSolver:
         )
 
     def _on_devices(self, w: StencilWeights) -> list[StencilWeights]:
-        per = {d: StencilWeights(w.ke.to(d), w.table.to(d)) for d in set(self.devices)}
+        per = {d: w.to(d) for d in set(self.devices)}
         return [per[d] for d in self.devices]
 
     def _shard(self, lv: _Level, zl: int) -> _ShardLevel:
+        free = _scatter(check_free_mask(lv.free), self.devices, zl)
         return _ShardLevel(
-            weights=self._on_devices(lv.weights),
-            free=_scatter(lv.free, self.devices, zl),
+            weights=self._on_devices(lv.weights), free=free, free_ext=_halo_exchange(free),
             inv_diag=_scatter(lv.inv_diag, self.devices, zl, pad=1.0),
             lam_max=lv.lam_max, z_real=lv.free.shape[0], z_local=zl,
         )

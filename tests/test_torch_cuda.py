@@ -22,8 +22,15 @@ BOUNDS = {torch.float32: ("f32", 2e-5), torch.float64: ("f64", 1e-12)}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dims", [(1, 1, 1), (3, 2, 5), (4, 4, 8), (16, 16, 160)])
+@pytest.mark.parametrize("dims", [(1, 1, 1), (3, 2, 5), (4, 4, 8), (16, 16, 160),
+                                  (13, 7, 29), (5, 9, 1), (40, 1, 3), (32, 32, 9),
+                                  (255, 1, 2), (256, 2, 2), (300, 2, 3), (517, 4, 5)])
 def test_kernels_match_plain_version_on_card(dims):
+    """K1/K2 raw and masked against the plain version in f64; the shapes
+    past the first four straddle the kernel's band, warp and chunk edges
+    (odd unequal counts, two planes, two rows, 2^k + 1 nodes), and the last
+    four the widest row a block holds whole (256 nodes) and rows cut into
+    segments."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: K1 and K2 have no CPU mode")
     nx, ny, nz = dims
@@ -39,6 +46,16 @@ def test_kernels_match_plain_version_on_card(dims):
         assert cuda_stencil.LAUNCHES[key] == n0 + 1
         rel = float((got.double() - want).abs().max() / want.abs().max())
         assert rel < bound, (dims, key, rel)
+        F64 = torch.as_tensor((np.random.default_rng(7).random(tuple(g64.shape)) < 0.8).astype(np.float64),
+                              device="cuda")
+        w, g, F = stencil_weights(ke, dt, "cuda"), g64.to(dt).contiguous(), F64.to(dt)
+        got_m = stencil_apply(w, g, F)
+        torch.cuda.synchronize()
+        assert cuda_stencil.LAUNCHES[key] == n0 + 2  # the masked form is one launch too
+        want_m = stencil_apply_grid(torch.as_tensor(ke, device="cuda"), g64, dims, F64)
+        assert float((got_m.double() - want_m).abs().max() / want.abs().max()) < bound, (dims, key, "masked")
+        # value for value the unfused expression around the raw kernel
+        assert torch.equal(got_m, F * stencil_apply(w, F * g) + (1.0 - F) * g), (dims, key)
 
 
 @pytest.mark.cuda
@@ -97,6 +114,40 @@ def test_element_apply_kernels_match_plain_version_on_card(k, E):
             assert rel < bound, (kind, key, k, E, rel)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 4, 6, 24, 32])
+@pytest.mark.parametrize("E", [127, 128, 129, 257])
+def test_uniform_kernel_at_its_tile_edges_on_card(k, E):
+    """K7 around its tile of 128 elements (a ragged last tile, a full
+    one, one element into the next) at k = 24 (the tile kernel) and at the
+    other kinds of k (the one-thread-an-output kernel), f32 and f64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K7 has no CPU mode")
+    from fea_tpu_torch.ops import cuda_apply
+
+    rng = np.random.default_rng(100 * k + E)
+    ke = torch.as_tensor(rng.normal(size=(k, k)), device="cuda")
+    u = torch.as_tensor(rng.normal(size=(E, k)), device="cuda")
+    want = cuda_apply.batched_matvec_uniform_plain(ke, u)
+    for dt, bound in ((torch.float32, 2e-5), (torch.float64, 1e-12)):
+        got = cuda_apply.batched_matvec_uniform(ke.to(dt).contiguous(), u.to(dt).contiguous())
+        torch.cuda.synchronize()
+        assert got.dtype == dt and got.shape == (E, k)
+        assert float((got.double() - want).abs().max() / want.abs().max()) < bound, (k, E, dt)
+    if k == 24:  # a view that starts off a 16-byte boundary is refused, not copied
+        flat = torch.zeros(E * k + 1, dtype=torch.float32, device="cuda")
+        with pytest.raises(ValueError, match="16-byte"):
+            cuda_apply.batched_matvec_uniform(ke.float().contiguous(), flat[1:].view(E, k))
+    else:  # the one-thread-an-output kernel and K6 go value by value: such a view is taken
+        flat = torch.zeros(E * k + 1, dtype=torch.float32, device="cuda")
+        flat[1:] = u.float().reshape(-1)
+        got = cuda_apply.batched_matvec_uniform(ke.float().contiguous(), flat[1:].view(E, k))
+        assert float((got.double() - want).abs().max() / want.abs().max()) < 2e-5, (k, E, "view")
+        ke_s = ke.float().expand(E, k, k).contiguous()
+        got = cuda_apply.batched_matvec_stored(ke_s, flat[1:].view(E, k))
+        assert float((got.double() - want).abs().max() / want.abs().max()) < 2e-5, (k, E, "stored view")
+
+
 def _flagship_like_ke():
     corners = np.array([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0],
                         [0, 0, 1], [1, 0, 1], [1, 1, 1], [0, 1, 1]], np.float64) * 0.01
@@ -105,7 +156,7 @@ def _flagship_like_ke():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [2, 3, 8])
-@pytest.mark.parametrize("dims", [(3, 2, 5), (2, 2, 12), (16, 16, 160)])
+@pytest.mark.parametrize("dims", [(3, 2, 5), (2, 2, 12), (16, 16, 160), (13, 7, 29), (300, 2, 7)])
 def test_slab_kernels_match_plain_version_on_card(dims, n):
     """K1's halo form (f32, 2e-5) and K3 (f64, 1e-12) on each shard's
     halo-extended slab against the plain slab version in f64; the global
@@ -134,6 +185,16 @@ def test_slab_kernels_match_plain_version_on_card(dims, n):
             scale = float(want.abs().max()) or 1.0
             assert float((got.double() - want).abs().max()) / scale < bound, (dims, n, i, key)
             assert torch.count_nonzero(got[max(Z - i * Zl, 0):]) == 0
+        # the masked form: every shard's planes bit for bit the whole-grid masked apply
+        F = torch.zeros_like(g)
+        F[1 : Z + 1] = torch.as_tensor((np.random.default_rng(16).random((Z, Y, X, 3)) < 0.8).astype(np.float64),
+                                       device="cuda")
+        gd, Fd = g.to(dt), F.to(dt)
+        got_m = torch.cat([cuda_stencil.stencil_apply_slab(w, gd[i * Zl : i * Zl + Zl + 2], i * Zl, Z,
+                                                           Fd[i * Zl : i * Zl + Zl + 2]) for i in range(n)])
+        whole_m = stencil_apply(w, gd[1 : Z + 1].contiguous(), Fd[1 : Z + 1].contiguous())
+        assert torch.equal(got_m[:Z], whole_m), (dims, n, key, "masked")
+        assert torch.count_nonzero(got_m[Z:]) == 0
 
 
 @pytest.mark.cuda
@@ -152,6 +213,8 @@ def test_chunked_kernel_is_k2_bitwise_on_card(n):
         torch.cuda.synchronize()
         assert cuda_stencil.LAUNCHES["slab_" + key] == n0 + len(cuda_stencil.z_chunk_bounds(161, n))
         assert torch.equal(got, stencil_apply(w, g)), (n, key)
+        F = (g64 > -1.0).to(dt)
+        assert torch.equal(cuda_stencil.stencil_apply_chunked(w, g, n, F), stencil_apply(w, g, F)), (n, key, "masked")
 
 
 @pytest.mark.cuda
@@ -184,3 +247,31 @@ def test_zsharded_solve_on_one_card():
     du = (sol.displacements - ref.displacements).abs().max() / ref.displacements.abs().max()
     assert float(du) <= 1e-7
     assert all(cuda_stencil.LAUNCHES[k] > n0[k] for k in ("slab_f32", "slab_f64"))
+
+
+@pytest.mark.cuda
+def test_voxel_solve_with_a_row_wider_than_a_block_on_card():
+    """A 300x8x8 beam laid along x (301 nodes a row, past the 256 a block
+    holds whole) through ``solve``: the voxel route, K1/K2 on row segments,
+    against the same solve on the CPU (the plain version)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import fea_tpu_torch as ftt
+
+    nodes, elements = ftt.mesh.box_hex_mesh(300, 8, 8, 3.0, 0.08, 0.08)
+    fixed = ftt.fix_where(nodes, lambda p: p[:, 0] == 0.0, 3)
+    loads = np.zeros_like(nodes)
+    loads[nodes[:, 0] == 3.0, 1] = 1.0
+    mat = ftt.Material(E=1e7, nu=0.3)
+    sols = {}
+    for device in ("cuda", "cpu"):
+        scene = ftt.make_scene(nodes, elements, fixed, loads, mat, dtype=torch.float64, device=device)
+        n0 = dict(cuda_stencil.LAUNCHES)
+        sols[device] = ftt.solve(scene, tol=1e-8)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert cuda_stencil.LAUNCHES["f64"] > n0["f64"] and cuda_stencil.LAUNCHES["f32"] > n0["f32"]
+    assert sols["cuda"].stats.converged
+    assert abs(sols["cuda"].stats.iterations - sols["cpu"].stats.iterations) <= 1
+    du = (sols["cuda"].displacements.cpu() - sols["cpu"].displacements).abs().max()
+    assert float(du / sols["cpu"].displacements.abs().max()) <= 1e-7

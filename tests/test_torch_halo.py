@@ -279,3 +279,54 @@ def test_solve_routes_sharded_only_when_asked(n_dev, sharded, nz, want, monkeypa
     assert calls == ([n_dev] if want else [])
     assert sol.stats.converged
     assert _host_true_residual(sc, dims, sol.displacements.numpy()) <= TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_masked_slab_apply_is_the_masked_whole_grid_apply(n, dtype):
+    """The slab form with ``free_ext`` on each of n CPU shards, against the
+    whole-grid masked apply: 1e-13 (f64) and 2e-6 (f32) of max|out| (the
+    slabs' plain version sums whole element layers, in another order at a
+    slab's ends); a padding plane comes out as (1 - F) g, here g itself."""
+    dims = (3, 2, 5)
+    nx, ny, nz = dims
+    Z, Y, X = nz + 1, ny + 1, nx + 1
+    rng = np.random.default_rng(21)
+    Zl, Zp = shard_geometry(Z, n, False)
+    g = torch.zeros((Zp + 2, Y, X, 3), dtype=dtype)
+    g[1:] = torch.as_tensor(rng.normal(size=(Zp + 1, Y, X, 3))).to(dtype)  # the padding holds values too
+    F = torch.zeros_like(g)
+    F[1 : Z + 1] = torch.as_tensor((rng.random((Z, Y, X, 3)) < 0.8).astype(np.float64)).to(dtype)
+    w = cuda_stencil.stencil_weights(_ke(dims), dtype, "cpu")
+    got = torch.cat([
+        cuda_stencil.stencil_apply_slab(w, g[i * Zl : i * Zl + Zl + 2], i * Zl, Z, F[i * Zl : i * Zl + Zl + 2])
+        for i in range(n)
+    ])
+    want = cuda_stencil.stencil_apply(w, g[1 : Z + 1].contiguous(), F[1 : Z + 1].contiguous())
+    bound = 1e-13 if dtype == torch.float64 else 2e-6
+    assert float((got[:Z] - want).abs().max()) <= bound * float(want.abs().max())
+    assert torch.equal(got[Z:], g[Z + 1 : Zp + 1])
+
+
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_shard_operator_apply_is_the_masked_operator(n):
+    """``_ShardOperator.apply`` (raw halos, the halo-extended mask built
+    once) gathers to ``StructuredOperator.apply`` of the whole grid, and
+    its mask shards hold their neighbours' edge planes."""
+    dims, lengths = SCENES["2x2x12"]
+    from fea_tpu_torch.ops.structured import structured_scene
+
+    scene, _ = structured_scene(*dims, *lengths, ftt.Material(**MAT), dtype=torch.float64, device="cpu")
+    op = build_structured_operator(scene, dims, dtype=torch.float64)
+    mg = build_multigrid(op.astype(torch.float32), dtype=torch.float32, coarse_dof_limit=100)
+    solver = build_zsharded_solver(op, mg, ["cpu"] * n, shard_levels=1)
+    x = torch.as_tensor(np.random.default_rng(22).normal(size=(op.n_nodes, 3)))
+    got = solver.gather(solver.op.apply(solver.scatter(x)))
+    want = op.apply(x)
+    assert float((got - want).abs().max()) <= 1e-13 * float(want.abs().max())
+    ext = solver.op.free_ext
+    assert all(e.shape[0] == solver.z_local + 2 for e in ext)
+    for i in range(n):
+        assert torch.equal(ext[i][1:-1], solver.op.free[i])
+        assert torch.equal(ext[i][0], solver.op.free[i - 1][-1] if i else torch.zeros_like(ext[i][0]))
+        assert torch.equal(ext[i][-1], solver.op.free[i + 1][0] if i + 1 < n else torch.zeros_like(ext[i][0]))

@@ -88,3 +88,44 @@ def test_vcycle_matches_jax(small_level_dof):
         assert got.dtype == np.float32
         # same math, another summation order: f32 rounding only
         assert np.allclose(got, want, rtol=2e-5, atol=2e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 2e-5)], ids=["f64", "f32"])
+def test_masked_operator_matches_jax(dtype, tol):
+    """``StructuredOperator.apply`` (the stencil wrapper's masked form) on
+    a seeded vector against the JAX operator's: f64 to 1e-12 of max|out|,
+    f32 to 2e-5 (f32 rounding)."""
+    jop, top = _ops()
+    jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
+    x = np.random.default_rng(3).normal(size=(top.n_nodes, 3))
+    want = np.asarray(jop.astype(jdt).apply(jnp.asarray(x, jdt)), np.float64)
+    got = top.astype(dtype).apply(torch.as_tensor(x).to(dtype))
+    assert got.dtype == dtype
+    assert np.abs(got.double().numpy() - want).max() <= tol * np.abs(want).max()
+    # the fixed DOFs pass through
+    fixed = top.free.numpy() == 0
+    assert np.array_equal(got.numpy()[fixed], x.astype(got.numpy().dtype)[fixed])
+
+
+def test_level_apply_is_the_unfused_masked_expression():
+    """Every level of the hierarchy applies F K(F g) + (1 - F) g through
+    the wrapper's masked form: value for value the expression written out
+    around the raw apply, in the level's dtype."""
+    from fea_tpu_torch.ops.cuda_stencil import stencil_apply
+
+    _, top = _ops()
+    mg = build_multigrid(top.astype(torch.float32), degree=3, dtype=torch.float32, coarse_dof_limit=100)
+    assert {lv.dtype for lv in mg.levels} == {torch.float32, torch.float64}
+    rng = np.random.default_rng(4)
+    for lv in mg.levels:
+        g = torch.as_tensor(rng.normal(size=tuple(lv.free.shape))).to(lv.dtype)
+        F = lv.free
+        assert torch.equal(lv.apply(g), F * stencil_apply(lv.weights, F * g) + (1.0 - F) * g)
+
+
+def test_level_rejects_a_mask_that_is_not_zero_or_one():
+    _, top = _ops()
+    levels, inv = _build_hierarchy_host(top.astype(torch.float32), dtype=torch.float32, coarse_dof_limit=100)
+    levels[0] = dict(levels[0], free=levels[0]["free"] * 0.5)
+    with pytest.raises(ValueError, match="0 and 1"):
+        MultigridPreconditioner.from_numpy(levels, inv, degree=3, device="cpu")

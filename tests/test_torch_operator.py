@@ -314,3 +314,35 @@ def test_build_operator_errors_match_jax():
     with pytest.raises(ValueError) as et:
         ftt.build_operator(tsc, dtype=torch.float64)
     assert str(et.value) == str(ej.value)
+
+
+def test_element_apply_checks_reject_what_the_kernels_do_not_take():
+    """The checks that stand before a K6/K7 launch, on CPU tensors (they
+    read only strides and addresses): K7's tile kernel (k = 24) moves rows
+    in 16-byte pieces, so a view that starts off a 16-byte boundary is
+    refused, never copied behind the caller's back; K6, and K7 at any other
+    k, go value by value and take such a view; none takes a tensor that is
+    not contiguous."""
+    rng = np.random.default_rng(31)
+    ke = torch.as_tensor(rng.normal(size=(24, 24)))
+    flat = torch.as_tensor(rng.normal(size=(5 * 24 + 1,)))
+    check = cuda_apply._check_kernel_args
+    u, u_off, out = flat[:-1].view(5, 24), flat[1:].view(5, 24), torch.empty(5, 24, dtype=flat.dtype)
+    check("k", "uniform", ke, u, out)  # passes
+    with pytest.raises(ValueError, match="16-byte"):
+        check("k", "uniform", ke, u_off, out)
+    with pytest.raises(ValueError, match="16-byte"):
+        check("k", "uniform", ke, u, torch.empty(5 * 24 + 1, dtype=flat.dtype)[1:].view(5, 24))
+    # only the tile kernel asks for alignment: K6 at k = 24, and K7 at k = 6 with a Ke view off a boundary
+    check("k", "stored", torch.zeros(5, 24, 24, dtype=flat.dtype), u_off, out)
+    ke6 = torch.zeros(37, dtype=flat.dtype)[1:].view(6, 6)
+    check("k", "uniform", ke6, flat[1:].view(20, 6), torch.empty(20, 6, dtype=flat.dtype))
+    check("k", "uniform", flat[1 : 24 * 4 + 1].view(4, 24)[:, :4].contiguous(), flat[1:81].view(20, 4),
+          torch.empty(20, 4, dtype=flat.dtype))
+    with pytest.raises(ValueError, match="contiguous"):
+        check("k", "uniform", ke, flat[:-1].view(24, 5).T, out)
+    with pytest.raises(ValueError, match="contiguous"):
+        check("k", "uniform", ke.T, u, out)
+    # on the CPU the wrapper takes the plain version whatever the view
+    got = cuda_apply.batched_matvec_uniform(ke, flat[1:].view(5, 24))
+    assert torch.equal(got, cuda_apply.batched_matvec_uniform_plain(ke, flat[1:].view(5, 24)))

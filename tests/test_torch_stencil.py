@@ -133,3 +133,110 @@ def test_wrapper_rejects_bad_input():
         stencil_apply(w64, g.reshape(-1, 3))
     with pytest.raises(ValueError):
         stencil_apply(w64, g[:1])
+
+
+# -- the masked form: F * K(F * g) + (1 - F) * g in the wrapper's one call ----
+
+ODD_DIMS = [(13, 7, 29), (5, 3, 9)]  # element counts odd and unequal on every axis
+
+
+def _mask(dims, seed, dtype=np.float64):
+    nx, ny, nz = dims
+    return (np.random.default_rng(seed).random((nz + 1, ny + 1, nx + 1, 3)) < 0.8).astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("dims", ODD_DIMS + [(300, 2, 3)], ids=["13x7x29", "5x3x9", "300x2x3"])
+def test_masked_apply_is_the_unfused_expression(dims, dtype):
+    ke = _ke(dims)
+    g = torch.as_tensor(_grid(dims, 6)).to(dtype)
+    F = torch.as_tensor(_mask(dims, 7)).to(dtype)
+    w = stencil_weights(ke, dtype, "cpu")
+    got = stencil_apply(w, g, F)
+    assert got.dtype == dtype and got.shape == g.shape
+    assert torch.equal(got, F * stencil_apply(w, F * g) + (1.0 - F) * g)
+    # a fixed DOF passes through, a free one sees only free neighbours
+    assert torch.equal(got[F == 0], g[F == 0])
+    assert torch.equal(stencil_apply_grid(w.ke, g, dims, F), got)
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12), (np.float32, 2e-5)], ids=["f64", "f32"])
+def test_masked_apply_matches_jax_masked_level(dtype, tol):
+    """The JAX package's masked level operator (``transposed._LevelT.apply``
+    through its plain reference, as it runs on the CPU) on the same seeded
+    grid and mask: f64 to 1e-12 of max|out| (another summation order), f32
+    to 2e-5 (f32 rounding of inputs, weights and sums)."""
+    from fea_tpu.ops.transposed import _LevelT
+
+    dims = (5, 3, 9)
+    ke, g, F = _ke(dims).astype(dtype), _grid(dims, 8).astype(dtype), _mask(dims, 9, dtype)
+    level = _LevelT(ke=jnp.asarray(ke), free=t_of_grid(jnp.asarray(F)), inv_diag=t_of_grid(jnp.asarray(F)),
+                    lam_max=jnp.asarray(1.0), use_pallas=False)
+    want = np.asarray(grid_of_t(level.apply(t_of_grid(jnp.asarray(g)))))
+    assert want.dtype == dtype
+    tdt = torch.float64 if dtype == np.float64 else torch.float32
+    got = stencil_apply(stencil_weights(_ke(dims), tdt, "cpu"), torch.as_tensor(g), torch.as_tensor(F)).numpy()
+    assert _rel(got.astype(np.float64), want.astype(np.float64)) < tol
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5])
+def test_masked_chunked_apply_is_the_masked_apply(n):
+    """The chunked form hands each slab its planes of the mask: the same
+    values as the whole-grid masked apply (1e-13: the slabs' plain version
+    sums whole element layers, in another order at a slab's ends)."""
+    dims = (5, 3, 9)
+    w = stencil_weights(_ke(dims), torch.float64, "cpu")
+    g, F = torch.as_tensor(_grid(dims, 10)), torch.as_tensor(_mask(dims, 11))
+    got = cuda_stencil.stencil_apply_chunked(w, g, n, F).numpy()
+    assert _rel(got, stencil_apply(w, g, F).numpy()) < 1e-13
+
+
+def test_free_mask_must_be_zero_or_one():
+    ok = torch.as_tensor(_mask((3, 2, 5), 12))
+    assert cuda_stencil.check_free_mask(ok) is ok
+    assert cuda_stencil.check_free_mask(ok.to(torch.float32)).dtype == torch.float32
+    for bad in (0.5, 2.0, -1.0, float("nan")):
+        t = ok.clone()
+        t[1, 1, 1, 1] = bad
+        with pytest.raises(ValueError):
+            cuda_stencil.check_free_mask(t)
+
+
+def test_wrapper_rejects_a_mask_that_does_not_match():
+    dims = (3, 2, 5)
+    w = stencil_weights(_ke(dims), torch.float64, "cpu")
+    g, F = torch.as_tensor(_grid(dims, 13)), torch.as_tensor(_mask(dims, 14))
+    with pytest.raises(TypeError):
+        stencil_apply(w, g, F.to(torch.float32))
+    with pytest.raises(ValueError):
+        stencil_apply(w, g, F[..., 0])
+    with pytest.raises(ValueError):
+        stencil_apply(w, g, F[:-1])
+    with pytest.raises(ValueError):
+        cuda_stencil.stencil_apply_slab(w, g, 0, 6, F[:-1])
+    with pytest.raises(ValueError):
+        cuda_stencil.stencil_apply_chunked(w, g, 2, F[:, :, :-1])
+
+
+def test_launch_checks_reject_what_the_kernel_does_not_take():
+    """The checks that stand before every launch, on CPU tensors (they read
+    only shapes, strides and addresses): an output that shares memory with
+    an input, a tensor that is not contiguous. A row wider than a block of
+    the kernel passes: the kernel cuts it into segments."""
+    dims = (3, 2, 5)
+    w = stencil_weights(_ke(dims), torch.float64, "cpu")
+    g, F = torch.as_tensor(_grid(dims, 15)), torch.as_tensor(_mask(dims, 16))
+    check = cuda_stencil._check_launch
+    check("k", w.table, g, torch.empty_like(g), F)  # passes
+    with pytest.raises(ValueError, match="alias"):
+        check("k", w.table, g, g, None)
+    with pytest.raises(ValueError, match="alias"):
+        check("k", w.table, g, g[1:], None)  # a view into the input's planes
+    with pytest.raises(ValueError, match="alias"):
+        check("k", w.table, g, F, F)
+    with pytest.raises(ValueError, match="contiguous"):
+        check("k", w.table, g.transpose(1, 2), torch.empty_like(g), None)
+    with pytest.raises(ValueError, match="contiguous"):
+        check("k", w.table, g, torch.empty_like(g), F.transpose(1, 2))
+    wide = torch.zeros((2, 2, 301, 3), dtype=torch.float64)
+    check("k", w.table, wide, torch.empty_like(wide), torch.ones_like(wide))
