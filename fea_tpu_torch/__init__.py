@@ -48,6 +48,7 @@ from .solve import (
     solve_displacements,
     solve_nonlinear,
     solve_operator,
+    solve_operator_fpcg,
 )
 from .solvers.cg import SolveStats, pcg
 from .solvers.dense import dense_solve
@@ -81,5 +82,6 @@ __all__ = [
     "solve_displacements",
     "solve_nonlinear",
     "solve_operator",
+    "solve_operator_fpcg",
     "units",
 ]

@@ -202,8 +202,9 @@ def solve(
         raise _not_ported("debug_nans sanitizer", "15")
     if method == "auto" and operator is None and (scene.n_dof >= _STRUCTURED_MIN_DOF or cfg.sharded):
         if scene.family == "hex8":
-            sol, route = _solve_large_hex8(scene, cfg, tol, max_iters, dtype, check_jacobians)
-            return check(sol, route)
+            found = _solve_large_hex8(scene, cfg, tol, max_iters, dtype, check_jacobians)
+            if found is not None:
+                return check(*found)
     if method == "auto":
         method = "dense" if scene.n_dof < 2000 else "cg"
     if max_iters is None:
@@ -231,10 +232,14 @@ def _device_count(device: torch.device) -> int:
     return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
-def _solve_large_hex8(scene: Scene, cfg: SolverConfig, tol, max_iters, dtype, check_jacobians) -> tuple[Solution, str]:
+def _solve_large_hex8(
+    scene: Scene, cfg: SolverConfig, tol, max_iters, dtype, check_jacobians
+) -> Optional[tuple[Solution, str]]:
     """The auto routes of a large hex8 scene, in the reference's order:
-    (solution, route name), or NotImplementedError for a route not
-    ported."""
+    (solution, route name), NotImplementedError for a route not ported,
+    or None for a scene under ``_STRUCTURED_MIN_DOF`` DOFs (sent here by
+    ``sharded=True``) that no grid route takes: it goes on to the
+    dense/CG tail of :func:`solve`, as in the reference."""
     from ..ops.multigrid import build_multigrid
     from ..ops.structured import build_structured_operator, infer_box_dims
 
@@ -315,6 +320,8 @@ def _solve_large_hex8(scene: Scene, cfg: SolverConfig, tol, max_iters, dtype, ch
                 stats=sol_c.stats,
             )
             return sol, "fpcg-canonicalized-grid"
+    if scene.n_dof < _STRUCTURED_MIN_DOF:
+        return None
     raise _not_ported("embedded (box-subset) or arbitrary-topology", "11 (embedded) or 13 (arbitrary)")
 
 

@@ -137,3 +137,34 @@ def test_cuda_device_without_card_raises():
                          ftt.Material(E=1e7, nu=0.3), dtype=torch.float64, device="cpu")
     with pytest.raises((AssertionError, RuntimeError)):
         ftt.solve(box, device="cuda")
+
+
+def test_small_unrouted_hex8_scene_under_sharded_takes_the_dense_route():
+    """A hex8 scene under 50k DOF that no grid route takes (a box with its
+    last element removed) falls through to the dense/CG tail under
+    ``sharded=True`` too, as in the reference, instead of raising."""
+    nodes, elements = ftt.mesh.box_hex_mesh(3, 3, 4, 0.1, 0.1, 0.4)
+    elements = elements[:-1]
+    fixed = ftt.fix_where(nodes, lambda p: p[:, 2] == 0.0, 3)
+    orphan = np.setdiff1d(np.arange(nodes.shape[0]), elements.ravel())
+    fixed[orphan] = True
+    loads = np.zeros_like(nodes)
+    loads[nodes[:, 2] == 0.4, 1] = 1.0
+    loads[orphan] = 0.0
+    sc = ftt.make_scene(nodes, elements, fixed, loads, ftt.Material(E=1e7, nu=0.3), dtype=torch.float64,
+                        device="cpu")
+    assert sc.n_dof == 240
+    one = ftt.solve(sc)
+    sharded = ftt.solve(sc, config=ftt.SolverConfig(sharded=True))
+    assert one.stats.converged and sharded.stats.converged
+    assert sharded.stats.iterations == one.stats.iterations
+    u = one.displacements.numpy()
+    assert np.max(np.abs(sharded.displacements.numpy() - u)) <= 1e-12 * np.max(np.abs(u))
+
+
+def test_top_level_exports_match_the_reference():
+    assert ftt.solve_operator_fpcg is sys.modules["fea_tpu_torch.solve"].solve_operator_fpcg
+    assert "solve_operator_fpcg" in ftt.__all__
+    assert callable(ftt.solve_many) and "solve_many" in ftt.__all__
+    for name in ("solve_operator_fpcg", "solve_many"):
+        assert hasattr(ft, name)
