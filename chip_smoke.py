@@ -30,7 +30,14 @@ Phases, in order:
      DOF, the yardstick of bench.py) through ``fea_tpu_torch.solve``,
      checked by a true residual recomputed on the host in NumPy f64
      (independent of the kernels), the tip deflection against beam
-     theory, and the launch counters of K1 and K2 over that one solve;
+     theory, and the launch counters of K1 and K2 over that one solve
+     (credited per graph replay); then the FCG stage on one operator and
+     hierarchy by the Python loop beside the staged driver of the routes
+     (``loop_vs_staged``: iterations within 1, both host residuals <= tol,
+     displacements within 10 tol, walls, device ms, busy share, device
+     activities and host launch calls an iteration, replays, capture ms,
+     iterations past convergence <= 2 a pass), and the freeze checks
+     (zero rhs, exact ``max_iters``, k = 1 bit for bit the default);
   5. K4/K5 against their plain version on the card, as in phase 3, with
      random weights and input at small shapes and at every level grid of
      the 811,923-DOF curvilinear hierarchy: K4 within 2e-5, K5 within
@@ -41,14 +48,15 @@ Phases, in order:
      shares no code with the package, the tip deflection, and the launch
      counters (K4/K5 launched, K1/K2 not); before it, the routing
      detectors and the first torch.linalg call timed apart; after it, the
-     stage times, the level grids, the peak memory, and a torch.profiler
-     trace of the FCG stage (device busy share and launches per
-     iteration);
+     stage times, the level grids, the peak memory, ``loop_vs_staged`` as
+     in [4], and a second ``solve()`` of the mesh with new loads, which
+     must take its build from the cache and pass the host check;
   7. canonicalized slice: the 24x24x96 distorted scene of
      tools/canon_bench.py (181,875 DOF) with its nodes renumbered by a
      seeded permutation, through ``fea_tpu_torch.solve``; its solution,
      permuted back, is checked against the host f64 true residual of the
-     original system;
+     original system; ``loop_vs_staged`` on the canonical scene and a
+     cached second solve, as in [6];
   8. K6/K7 against their plain version on the card: random inputs from a
      NumPy seed at E in {1, 700, 1030} and k in {4, 6, 24}, at E in
      {127, 128, 129} (around K7's tile) and k in {1, 4, 6, 24, 32}, at every
@@ -85,7 +93,7 @@ Phases, in order:
      capacity_8m) through ``fea_tpu_torch.solve`` on the one card, K2
      unchunked: the host f64 true residual by ``host_ku``, the tip ratio,
      the iteration count beside the reference's, stage times, peak
-     memory, and no slab launched;
+     memory (<= 2.0 GB), no slab launched, and ``loop_vs_staged``;
  12. z-sharded solve: ``build_zsharded_solver`` over four shards on the
      one card at the flagship and at 8,124,675 DOF, against the unsharded
      solves of [4] and [11]: host f64 true residual, iterations within 1,
@@ -93,7 +101,11 @@ Phases, in order:
      the shards, K1/K2 only on the replicated coarse levels); wall time,
      launches an iteration and busy share (device time over the profiled
      run's wall) of both solves from a torch.profiler trace;
- 13. one JSON line of the kernels, the card's line, then the last line
+ 13. ``solve_many``: tools/many_bench.py's 8 tip-load cases on the
+     flagship grid, each host-checked by ``host_ku``, case 0 against a
+     single ``solve()``, the batch's wall a case beside one warm solve,
+     peak memory;
+ 14. one JSON line of the kernels, the card's line, then the last line
      ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the last line.
@@ -573,10 +585,44 @@ def zero_counts(*counters) -> None:
             c[key] = 0
 
 
+def freeze_checks(op, mg, loads, presc) -> None:
+    """The staged driver's freezing on the card: a zero rhs takes 0
+    iterations and returns u == 0; tol 1e-30 with max_iters 5 takes exactly
+    5 iterations and does not converge; a readback ring of 1
+    (FEA_TPU_STAGED_K=1) and the default give the same iterations and
+    displacements bit for bit."""
+    from fea_tpu_torch.solve import solve_operator_fpcg_staged
+
+    zero = solve_operator_fpcg_staged(op, torch.zeros_like(loads), presc, mg, tol=1e-8)
+    five = solve_operator_fpcg_staged(op, loads, presc, mg, tol=1e-30, max_iters=5)
+    default = solve_operator_fpcg_staged(op, loads, presc, mg, tol=1e-8)
+    was = os.environ.get("FEA_TPU_STAGED_K")
+    os.environ["FEA_TPU_STAGED_K"] = "1"
+    try:
+        k1 = solve_operator_fpcg_staged(op, loads, presc, mg, tol=1e-8)
+    finally:
+        if was is None:
+            del os.environ["FEA_TPU_STAGED_K"]
+        else:
+            os.environ["FEA_TPU_STAGED_K"] = was
+    same = k1.stats.iterations == default.stats.iterations and bool(torch.equal(k1.displacements,
+                                                                                 default.displacements))
+    say(f"  freeze checks: zero rhs {zero.stats.iterations} iterations, max|u| "
+        f"{float(zero.displacements.abs().max()):g}; tol 1e-30 max_iters 5: {five.stats.iterations} iterations, "
+        f"converged {five.stats.converged}; k = 1 vs default: {k1.stats.iterations} / {default.stats.iterations} "
+        f"iterations, bit for bit {same}")
+    require({
+        "zero rhs: 0 iterations": zero.stats.iterations == 0 and zero.stats.converged,
+        "zero rhs: u == 0": float(zero.displacements.abs().max()) == 0.0,
+        "max_iters 5: exactly 5 iterations, not converged": five.stats.iterations == 5 and not five.stats.converged,
+        "k = 1 and the default k bit for bit": same,
+    }, "freeze")
+
+
 def run_slice(ftt, cuda_stencil, cuda_varstencil) -> tuple[dict, dict]:
     from fea_tpu_torch.ops.multigrid import build_multigrid
     from fea_tpu_torch.ops.structured import build_structured_operator, stencil_apply_np
-    from fea_tpu_torch.solve import solve_operator_fpcg
+    from fea_tpu_torch.solve import solve_operator_fpcg_staged
 
     scene, (nodes, elements, fixed, loads, tip, tip_exact) = flagship_scene(ftt)
     say(f"  scene: {FLAGSHIP} voxels, {scene.n_dof} DOF on {scene.device}")
@@ -608,9 +654,9 @@ def run_slice(ftt, cuda_stencil, cuda_varstencil) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     stage["multigrid_build"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    sol2 = solve_operator_fpcg(op_hi, scene.loads, scene.prescribed_or_zero(torch.float64), mg, tol=1e-8)
+    sol2 = solve_operator_fpcg_staged(op_hi, scene.loads, scene.prescribed_or_zero(torch.float64), mg, tol=1e-8)
     torch.cuda.synchronize()
-    stage["solve"] = time.perf_counter() - t0
+    stage["solve (staged, capture included)"] = time.perf_counter() - t0
     say("  stages (second solve): " + ", ".join(f"{k} {v:.3f} s" for k, v in stage.items())
         + f"; {sol2.stats.iterations} iterations, levels "
         + ", ".join(f"{lv.dims}:{str(lv.dtype).replace('torch.', '')}" for lv in mg.levels))
@@ -641,6 +687,14 @@ def run_slice(ftt, cuda_stencil, cuda_varstencil) -> tuple[dict, dict]:
         "K2 launched": launches["f64"] > 0,
     }
     require(checks, "slice")
+
+    def host_rel(v):
+        Kv = stencil_apply_np(ke, v.reshape(Z, Y, X, 3), dims).reshape(-1, 3)
+        return float(np.linalg.norm(F * (loads - Kv)) / np.linalg.norm(F * loads))
+
+    say("  FCG stage with certification, the Python loop beside the staged driver (one operator and hierarchy):")
+    loop_vs_staged(op_hi, mg, scene.loads, scene.prescribed_or_zero(torch.float64), host_rel)
+    freeze_checks(op_hi, mg, scene.loads, scene.prescribed_or_zero(torch.float64))
     return launches, dict(scene=scene, op_hi=op_hi, mg=mg, u=u, iterations=st.iterations, tip=tip,
                           tip_exact=tip_exact, dims=dims, ke=ke)
 
@@ -725,9 +779,15 @@ def host_check(nodes, elements, mat, fixed, loads, u):
     return Ku, float(np.linalg.norm(F * (loads - Ku)) / np.linalg.norm(F * loads))
 
 
+# the runtime calls by which the host puts work on the card
+LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                "cudaMemcpyAsync", "cudaMemsetAsync"}
+
+
 def profile_fcg(solve_fn) -> dict:
-    """torch.profiler over one call of ``solve_fn``: device time and the
-    number of device activities (kernels and copies)."""
+    """torch.profiler over one call of ``solve_fn``: device time, the
+    number of device activities (kernels and copies) and the host's launch
+    calls (``LAUNCH_CALLS``; a graph launch is one)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -736,12 +796,66 @@ def profile_fcg(solve_fn) -> dict:
         sol = solve_fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.events()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
     by_name: dict[str, float] = {}
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    host_launches = sum(1 for e in events if e.device_type == DeviceType.CPU and e.name in LAUNCH_CALLS)
     return dict(sol=sol, wall_s=wall, device_ms=sum(by_name.values()), n_device=len(dev),
-                top=sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
+                host_launches=host_launches, top=sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
+
+
+def loop_vs_staged(op, mg, loads, presc, host_rel, tol: float = 1e-8, check_tol: float = 1e-8) -> dict:
+    """The FCG stage with certification on one operator and hierarchy, by
+    the Python loop (``solve_operator_fpcg``) and by the staged driver
+    (``solve_operator_fpcg_staged``, which the routes of ``solve()`` run),
+    side by side: iterations, the true residual recomputed on the host by
+    ``host_rel(u)``, the displacements' difference, walls (the staged one
+    once with its capture, once warm), and a profiled run of each (device
+    ms, activities and host launch calls an iteration, busy share of the
+    unprofiled warm wall). Fails unless the two agree within 1 iteration
+    and 10 tol, both meet ``check_tol`` on the host, and no pass ran more
+    than 2 iterations past convergence."""
+    from fea_tpu_torch.solve import solve_operator_fpcg, solve_operator_fpcg_staged, staged
+
+    fns = {"loop": lambda: solve_operator_fpcg(op, loads, presc, mg, tol=tol),
+           "staged": lambda: solve_operator_fpcg_staged(op, loads, presc, mg, tol=tol)}
+    runs = {}
+    for name, fn in fns.items():
+        run = {}
+        zero_counts(staged.COUNTS)
+        for key in ("first", "warm"):
+            t0 = time.perf_counter()
+            run["sol"] = fn()
+            torch.cuda.synchronize()
+            run[key] = time.perf_counter() - t0
+        run["counts"] = dict(staged.COUNTS)
+        run["prof"] = profile_fcg(fn)
+        run["rel"] = host_rel(run["sol"].displacements.cpu().numpy())
+        runs[name] = run
+    for name, run in runs.items():
+        st, prof, c = run["sol"].stats, run["prof"], run["counts"]
+        it = max(st.iterations, 1)
+        line = (f"    {name:6s}: {st.iterations} iterations, host true residual {run['rel']:.3e}, wall "
+                f"{run['first']:.4f} s first, {run['warm']:.4f} s warm; profiled: device {prof['device_ms']:.2f} ms in "
+                f"{prof['n_device']} activities ({prof['n_device'] / it:.1f} an iteration), host launch calls "
+                f"{prof['host_launches'] / it:.1f} an iteration, busy share {prof['device_ms'] / 1e3 / run['warm']:.3f} "
+                f"of the warm wall")
+        if name == "staged":
+            line += (f"; replays {c['issued']} for {c['live']} iterations in 2 solves, at most {c['past']} past "
+                     f"convergence a pass, captures {c['captures']} in {c['capture_ms']:.1f} ms")
+        say(line)
+    u_loop = runs["loop"]["sol"].displacements
+    du = float((runs["staged"]["sol"].displacements - u_loop).abs().max() / u_loop.abs().max())
+    say(f"    max|u_staged - u_loop| / max|u| = {du:.3e}")
+    require({
+        "iterations within 1": abs(runs["staged"]["sol"].stats.iterations - runs["loop"]["sol"].stats.iterations) <= 1,
+        f"both host true residuals <= {check_tol:g}": max(runs["loop"]["rel"], runs["staged"]["rel"]) <= check_tol,
+        "displacements within 10 tol": du <= 10 * tol,
+        "<= 2 iterations past convergence a pass": runs["staged"]["counts"]["past"] <= 2,
+    }, "staged vs loop")
+    return runs
 
 
 def time_detectors(scene, renumbered: bool = False) -> list[str]:
@@ -824,14 +938,9 @@ def run_curvilinear(ftt, cuda_stencil, cuda_varstencil) -> dict:
     torch.cuda.synchronize()
     say(f"  of which operator build {time.perf_counter() - t0:.3f} s")
 
-    prof = profile_fcg(lambda: ftt.solve_curvilinear(scene, CURV, tol=1e-8, prebuilt=(op, mg)))
-    it = prof["sol"].stats.iterations
-    say(f"  profiled FCG stage: wall {prof['wall_s']:.3f} s under the profiler, device time "
-        f"{prof['device_ms']:.1f} ms in {prof['n_device']} device activities "
-        f"({prof['n_device'] / max(it, 1):.0f} an iteration over {it} iterations); "
-        f"busy share {prof['device_ms'] / 1e3 / t_fcg:.3f} of the unprofiled FCG stage")
-    for name, ms in prof["top"]:
-        say(f"    {ms:9.2f} ms  {name[:90]}")
+    say("  FCG stage with certification, the Python loop beside the staged driver (one operator and hierarchy):")
+    loop_vs_staged(op, mg, scene.loads, scene.prescribed_or_zero(torch.float64),
+                   lambda v: host_check(nodes, elements, mat, fixed, loads, v)[1])
     del op, mg
 
     u = sol.displacements.cpu().numpy()
@@ -856,7 +965,40 @@ def run_curvilinear(ftt, cuda_stencil, cuda_varstencil) -> dict:
         "K1/K2 not launched": launches["f32"] == 0 and launches["f64"] == 0,
     }
     require(checks, "curvilinear")
+    new_loads = np.zeros_like(loads)
+    new_loads[tip, 0] = -2.0 / tip.sum()
+    new_loads[tip, 2] = 0.5 / tip.sum()
+    cached_second_solve(ftt, scene, new_loads, whole_s,
+                        lambda v: host_check(nodes, elements, mat, fixed, new_loads, v)[1])
     return launches
+
+
+def cached_second_solve(ftt, scene, new_loads, first_wall: float, host_rel, check_tol: float = 1e-8) -> None:
+    """A second ``solve(tol=1e-8)`` of ``scene``'s mesh with ``new_loads``:
+    it must take its build from the cache (no call of ``build_curvilinear``
+    or ``canonicalize_scene``) and pass the host check ``host_rel(u) <=
+    check_tol``."""
+    curv = sys.modules["fea_tpu_torch.solve.curv"]
+    canonical = sys.modules["fea_tpu_torch.ops.canonical"]
+    builders = {"build_curvilinear": curv, "canonicalize_scene": canonical}
+    calls = []
+    originals = {name: getattr(mod, name) for name, mod in builders.items()}
+    for name, mod in builders.items():
+        setattr(mod, name, lambda *a, _fn=originals[name], _name=name, **kw: calls.append(_name) or _fn(*a, **kw))
+    try:
+        second = dataclasses.replace(scene, loads=torch.as_tensor(new_loads, dtype=scene.loads.dtype, device=DEV))
+        t0 = time.perf_counter()
+        sol = ftt.solve(second, tol=1e-8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for name, mod in builders.items():
+            setattr(mod, name, originals[name])
+    rel = host_rel(sol.displacements.cpu().numpy())
+    say(f"  second solve() of the mesh with new loads: {wall:.3f} s (the first {first_wall:.3f} s), builders called "
+        f"{calls or 'none'}; {sol.stats.iterations} iterations, host f64 true relative residual {rel:.3e}")
+    require({"cache hit (no builder call)": not calls, "converged": sol.stats.converged,
+             f"host true residual <= {check_tol:g}": rel <= check_tol}, "cached second solve")
 
 
 def run_canonical(ftt, cuda_stencil, cuda_varstencil) -> None:
@@ -889,7 +1031,8 @@ def run_canonical(ftt, cuda_stencil, cuda_varstencil) -> None:
     from fea_tpu_torch.ops.canonical import canonicalize_scene, infer_renumbered_grid
     from fea_tpu_torch.ops.curvilinear import build_curv_multigrid, build_curv_operator
 
-    canon = canonicalize_scene(scene, *infer_renumbered_grid(scene))
+    cdims, perm = infer_renumbered_grid(scene)
+    canon = canonicalize_scene(scene, cdims, perm)
     stage = {}
     t0 = time.perf_counter()
     op = build_curv_operator(canon, CANON)
@@ -909,6 +1052,10 @@ def run_canonical(ftt, cuda_stencil, cuda_varstencil) -> None:
     # what the multigrid build's dense coarsest inverse costs on the host
     stage[f"np.linalg.inv of a random {n}x{n} matrix"] = time.perf_counter() - t0
     say("  stages (second solve): " + ", ".join(f"{k} {v:.3f} s" for k, v in stage.items()))
+    say("  FCG stage with certification, the Python loop beside the staged driver (one operator and hierarchy):")
+    loop_vs_staged(op, mg, canon.loads, canon.prescribed_or_zero(torch.float64),
+                   lambda v: host_check(nodes, elements, mat, fixed_r[pi], loads_r[pi], v[perm][pi])[1],
+                   check_tol=CANON_TOL)
     del op, mg, canon
 
     u = sol.displacements.cpu().numpy()[pi]  # back to the original numbering
@@ -921,6 +1068,14 @@ def run_canonical(ftt, cuda_stencil, cuda_varstencil) -> None:
         "K5 launched": launches["var_f64"] > 0,
     }
     require(checks, "canonicalized")
+    new_loads_r = np.zeros_like(loads_r)
+    tip_r = np.isclose(nodes_r[:, 2], 1.0)
+    new_loads_r[tip_r, 0] = 1.5 / tip_r.sum()
+    cached_second_solve(ftt, scene, new_loads_r, whole_s,
+                        lambda v: host_check(nodes, elements, mat, fixed_r[pi], new_loads_r[pi], v[pi])[1],
+                        check_tol=CANON_TOL)
+    # the later phases measure peak memory: drop the builds cached here and in [6]
+    sys.modules["fea_tpu_torch.solve.cache"]._BUILD_CACHE.clear()
 
 
 def apply_bound(key: str, E: int, k: int) -> tuple[float, str, int]:
@@ -1414,9 +1569,10 @@ def check_slab_kernels(ftt, cuda_stencil) -> dict:
 def run_capacity(ftt, counters) -> dict:
     """Phase [11]: the 8,124,675-DOF cantilever through fea_tpu_torch.solve
     on one card, unchunked."""
+    from fea_tpu_torch.elements.hex8 import stiffness_matrix_np
     from fea_tpu_torch.ops.multigrid import build_multigrid
-    from fea_tpu_torch.ops.structured import build_structured_operator
-    from fea_tpu_torch.solve import solve_operator_fpcg
+    from fea_tpu_torch.ops.structured import build_structured_operator, stencil_apply_np
+    from fea_tpu_torch.solve import solve_operator_fpcg_staged
 
     t0 = time.perf_counter()
     scene, (nodes, elements, fixed, loads, tip, tip_exact) = flagship_scene(ftt, CAPACITY)
@@ -1424,10 +1580,12 @@ def run_capacity(ftt, counters) -> dict:
         f"{time.perf_counter() - t0:.2f} s)")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
     sol, counts, wall = counted(counters, lambda: ftt.solve(scene, tol=1e-8))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     st = sol.stats
-    say(f"  whole solve (fea_tpu_torch.solve): {wall:.3f} s, peak device memory {peak_gb:.3f} GB")
+    say(f"  whole solve (fea_tpu_torch.solve): {wall:.3f} s, peak device memory {peak_gb:.3f} GB "
+        f"({held_gb:.3f} GB of it held before the solve: the scene and the earlier phases' references)")
     say(f"  iterations {st.iterations} (the JAX package on its TPU: {CAPACITY_REF_ITERS}), reported true "
         f"relative residual {st.relative_residual:.3e}, converged {st.converged}")
     say(f"  launches in that solve: K1 {counts['f32']}, K2 {counts['f64']}, K1-halo {counts['slab_f32']}, "
@@ -1443,9 +1601,9 @@ def run_capacity(ftt, counters) -> dict:
     torch.cuda.synchronize()
     stage["multigrid_build"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    sol2 = solve_operator_fpcg(op_hi, scene.loads, scene.prescribed_or_zero(torch.float64), mg, tol=1e-8)
+    sol2 = solve_operator_fpcg_staged(op_hi, scene.loads, scene.prescribed_or_zero(torch.float64), mg, tol=1e-8)
     torch.cuda.synchronize()
-    stage["solve"] = time.perf_counter() - t0
+    stage["solve (staged, capture included)"] = time.perf_counter() - t0
     say("  stages (second solve): " + ", ".join(f"{k} {v:.3f} s" for k, v in stage.items())
         + f"; {sol2.stats.iterations} iterations, levels "
         + ", ".join(f"{lv.dims}:{str(lv.dtype).replace('torch.', '')}" for lv in mg.levels))
@@ -1465,11 +1623,20 @@ def run_capacity(ftt, counters) -> dict:
         f"tip ratio in {TIP_BAND}": TIP_BAND[0] < tip_ratio < TIP_BAND[1],
         "K2 launched unchunked": counts["f64"] > 0,
         "no slab launched": counts["slab_f64"] == 0 and counts["slab_f32"] == 0,
+        "peak device memory <= 2.0 GB": peak_gb <= 2.0,
     }, "capacity")
-    from fea_tpu_torch.elements.hex8 import stiffness_matrix_np
+    ke = stiffness_matrix_np(nodes[elements[0]], scene.material)
+    Z, Y, X = CAPACITY[2] + 1, CAPACITY[1] + 1, CAPACITY[0] + 1
+    F = 1.0 - fixed.astype(np.float64)
 
+    def host_rel(v):
+        Kv = stencil_apply_np(ke, v.reshape(Z, Y, X, 3), CAPACITY).reshape(-1, 3)
+        return float(np.linalg.norm(F * (loads - Kv)) / np.linalg.norm(F * loads))
+
+    say("  FCG stage with certification, the Python loop beside the staged driver (one operator and hierarchy):")
+    loop_vs_staged(op_hi, mg, scene.loads, scene.prescribed_or_zero(torch.float64), host_rel)
     return dict(scene=scene, op_hi=op_hi, mg=mg, u=u, iterations=st.iterations, tip=tip, tip_exact=tip_exact,
-                dims=CAPACITY, ke=stiffness_matrix_np(nodes[elements[0]], scene.material))
+                dims=CAPACITY, ke=ke)
 
 
 def run_sharded(ftt, counters, refs: dict) -> dict:
@@ -1553,6 +1720,53 @@ def run_sharded(ftt, counters, refs: dict) -> dict:
     return flagship_counts
 
 
+MANY_CASES = 8  # tools/many_bench.py's batch
+
+
+def run_many(ftt, counters) -> dict:
+    """Phase [13]: ``solve_many`` on the flagship grid with
+    tools/many_bench.py's 8 tip-load cases (``default_rng(17)``: y U(0.5, 2),
+    x U(-1, 1), each times 100 / tip nodes). Every case must converge with a
+    host f64 true residual (``host_ku``) <= 1e-8, and case 0 must agree with
+    a single ``solve()`` of it within 10 tol. Returns the batch's launches."""
+    scene, (nodes, elements, fixed, _, tip, _) = flagship_scene(ftt)
+    rng = np.random.default_rng(17)
+    batch = np.zeros((MANY_CASES,) + nodes.shape)
+    for i in range(MANY_CASES):
+        batch[i, tip, 1] = rng.uniform(0.5, 2.0) * 100.0 / tip.sum()
+        batch[i, tip, 0] = rng.uniform(-1.0, 1.0) * 100.0 / tip.sum()
+    one = dataclasses.replace(scene, loads=torch.as_tensor(batch[0], device=DEV))
+    ftt.solve(one, tol=1e-8)  # warm
+    single, _, single_wall = counted(counters, lambda: ftt.solve(one, tol=1e-8))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sol, counts, wall = counted(counters, lambda: ftt.solve_many(scene, batch, tol=1e-8))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    st = sol.stats
+    say(f"  solve_many of {MANY_CASES} cases ({scene.n_dof} DOF): {wall:.3f} s, {wall / MANY_CASES:.3f} s a case "
+        f"against {single_wall:.3f} s for one warm solve() (ratio {wall / MANY_CASES / single_wall:.3f}); peak "
+        f"device memory {peak_gb:.3f} GB")
+    say(f"  iterations per case {st.iterations.tolist()} (single solve {single.stats.iterations}); launches K1 "
+        f"{counts['f32']}, K2 {counts['f64']}")
+    rels = []
+    t0 = time.perf_counter()
+    for i in range(MANY_CASES):
+        _, rel = host_check(nodes, elements, scene.material, fixed, batch[i], sol.displacements[i].cpu().numpy())
+        rels.append(rel)
+    u0 = single.displacements
+    du = float((sol.displacements[0] - u0).abs().max() / u0.abs().max())
+    say(f"  host f64 true relative residuals {', '.join(f'{r:.2e}' for r in rels)} ({time.perf_counter() - t0:.1f} s); "
+        f"case 0 vs the single solve {du:.3e} of max|u|")
+    require({
+        "every case converged": bool(st.converged.all()),
+        "every host true residual <= 1e-8": max(rels) <= 1e-8,
+        "case 0 within 10 tol of a single solve()": du <= 1e-7,
+        "K1 launched": counts["f32"] > 0,
+        "K2 launched": counts["f64"] > 0,
+    }, "solve_many")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -1612,6 +1826,10 @@ def main() -> None:
     phase(f"[12] z-sharded solve: build_zsharded_solver over {SHARDS} shards on the one card")
     sharded = run_sharded(ftt, counters, {"flagship": flagship_ref, "capacity": capacity_ref})
     launches.update({k: sharded[k] for k in SLAB_KEYS})
+    del flagship_ref, capacity_ref
+
+    phase(f"[13] solve_many: {MANY_CASES} load cases on the flagship grid")
+    run_many(ftt, counters)
 
     say(json.dumps({"kernels": [
         dict(name=spec["name"], route="cuda", source=spec["source"], replaces=spec["replaces"],

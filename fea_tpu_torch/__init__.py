@@ -7,6 +7,7 @@ version serves:
 
   * the large hex8 routes: the voxel box (K1/K2), the curvilinear grid
     (K4/K5) and the canonicalized (renumbered) grid;
+  * ``solve_many``: many load cases on one voxel or curvilinear mesh;
   * the voxel box z-sharded over several devices
     (``parallel.build_zsharded_solver``, K3 and K1's halo form), which
     ``solve`` takes under ``SolverConfig(sharded=True)`` when more than
@@ -46,6 +47,7 @@ from .solve import (
     solve,
     solve_curvilinear,
     solve_displacements,
+    solve_many,
     solve_nonlinear,
     solve_operator,
     solve_operator_fpcg,
@@ -80,6 +82,7 @@ __all__ = [
     "solve",
     "solve_curvilinear",
     "solve_displacements",
+    "solve_many",
     "solve_nonlinear",
     "solve_operator",
     "solve_operator_fpcg",

@@ -17,8 +17,10 @@ topology in scrambled ids. This module recovers the grid:
     must reproduce ``_expected_box_elements`` bit for bit.
 
 NumPy on the host, never touching coordinates. Counterpart of
-``fea_tpu/ops/canonical.py`` (``infer_subgrid_embedding`` comes with the
-embedded route).
+``fea_tpu/ops/canonical.py``. ``infer_subgrid_embedding`` recognises a
+mesh whose cells are a subset of a box grid's; the embedded route that
+solves one is not ported yet (ROADMAP item 11), and ``solve_many`` uses the
+detector to name it.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import numpy as np
 from ..scene import Scene, make_scene
 from .structured import _expected_box_elements
 
-__all__ = ["canonicalize_scene", "infer_renumbered_grid"]
+__all__ = ["canonicalize_scene", "infer_renumbered_grid", "infer_subgrid_embedding"]
 
 # corner pairs (a, b) with corner_b = corner_a + unit step along axis,
 # in the _CORNERS order (0,0,0),(0,0,1),(0,1,1),(0,1,0),(1,0,0),(1,0,1),
@@ -133,3 +135,72 @@ def canonicalize_scene(scene: Scene, dims, perm: np.ndarray) -> Scene:
         scene.material, prescribed=idx(scene.prescribed), dtype=scene.nodes.dtype,
         device=scene.device,
     )
+
+
+def infer_subgrid_embedding(scene: Scene):
+    """``(dims, lat, valid)`` if the connectivity embeds into a box grid as a
+    subset of its cells (L-domains, steps, holes), else None: ``dims`` the
+    box's element counts (nx, ny, nz), ``lat`` (N,) each node's flat lattice
+    id in box node order, ``valid`` (nz, ny, nx) the present cells.
+
+    Index arithmetic only, as ``fea_tpu/ops/canonical.py::
+    infer_subgrid_embedding``: each element's corner order pins its base
+    cell from any one known corner, so lattice coordinates spread from
+    element 0 until nothing new is placed. Any disagreement (two elements
+    placing a node differently, two nodes on one site, a disconnected mesh,
+    a repeated cell) returns None.
+    """
+    from .structured import _CORNERS
+
+    if scene.family != "hex8":
+        return None
+    el = scene.host_elements
+    if el.ndim != 2 or el.shape[1] != 8 or el.shape[0] == 0:
+        return None
+    E, N = el.shape[0], scene.n_nodes
+    offs = np.array([(cx, cy, cz) for (cz, cy, cx) in _CORNERS], np.int64)  # (ix, iy, iz) a corner
+    unset = np.iinfo(np.int64).min
+    coords = np.full((N, 3), unset, np.int64)
+    coords[el[0, 0]] = 0
+    n_set = 1
+    rows = np.arange(E)
+    for _ in range(E + 1):
+        c_el = coords[el]  # (E, 8, 3)
+        known = c_el[:, :, 0] != unset
+        has = known.any(axis=1)
+        first = known.argmax(axis=1)
+        base = c_el[rows, first] - offs[first]
+        # every known corner must imply the same base cell
+        bad = known & (c_el - offs[None] != base[:, None]).any(axis=2)
+        if bad[has].any():
+            return None
+        tgt = el[has].reshape(-1)
+        vals = (base[:, None] + offs[None])[has].reshape(-1, 3)
+        cur = coords[tgt]
+        was_set = cur[:, 0] != unset
+        if (cur[was_set] != vals[was_set]).any():
+            return None
+        coords[tgt] = vals
+        n_new = int((coords[:, 0] != unset).sum())
+        if n_new == n_set:
+            if not has.all():
+                return None  # disconnected
+            break
+        n_set = n_new
+    if (coords[:, 0] == unset).any():
+        return None
+    coords -= coords.min(axis=0)
+    X, Y, Z = (int(m) + 1 for m in coords.max(axis=0))
+    if min(X, Y, Z) < 2:
+        return None
+    lat = coords[:, 2] * (X * Y) + coords[:, 1] * X + coords[:, 0]
+    if np.unique(lat).size != N:
+        return None
+    nx, ny, nz = X - 1, Y - 1, Z - 1
+    c0 = coords[el[:, 0]]
+    cell = c0[:, 2] * (ny * nx) + c0[:, 1] * nx + c0[:, 0]
+    if np.unique(cell).size != E:
+        return None
+    valid = np.zeros(nz * ny * nx, bool)
+    valid[cell] = True
+    return (nx, ny, nz), lat, valid.reshape(nz, ny, nx)

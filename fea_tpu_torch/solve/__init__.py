@@ -27,13 +27,16 @@ reference's order:
      over the element-by-element operator above (beams and bars at any
      size).
 
-The large routes run f64 flexible PCG with a multigrid V-cycle; every
-route reports the true residual of the displacements it returns. Every
+The large routes run f64 flexible PCG with a multigrid V-cycle, its loop
+held on the card as replays of a captured iteration (``solve/staged.py``;
+the z-sharded solve keeps the Python loop of ``solve_operator_fpcg``);
+every route reports the true residual of the displacements it returns. Every
 route not ported raises ``NotImplementedError`` naming the route and the
 ROADMAP item that ports it; no scene silently takes another path.
 """
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from typing import Optional
 
@@ -46,9 +49,13 @@ from ..operator import StiffnessOperator, build_operator
 from ..scene import Scene
 from ..solvers.cg import SolveStats, pcg
 from ..solvers.dense import dense_solve
+from . import staged
 from ._types import Solution
+from .cache import _cached_build
 from .curv import build_curvilinear, solve_curvilinear
 from .fpcg import solve_operator_fpcg
+from .many import solve_many
+from .staged import solve_operator_fpcg_staged
 
 __all__ = [
     "Solution",
@@ -56,9 +63,11 @@ __all__ = [
     "solve",
     "solve_curvilinear",
     "solve_displacements",
+    "solve_many",
     "solve_nonlinear",
     "solve_operator",
     "solve_operator_fpcg",
+    "solve_operator_fpcg_staged",
 ]
 
 # auto-routing takes the large-grid routes from this size (tests lower it)
@@ -272,7 +281,7 @@ def _solve_large_hex8(
                 max_iters=max_iters if max_iters is not None else 300,
             )
             return sol, "fpcg-multigrid-zsharded"
-        sol = solve_operator_fpcg(
+        sol = staged.solve_operator_fpcg_staged(
             op_hi,
             scene.loads,
             scene.prescribed_or_zero(torch.float64),
@@ -306,12 +315,20 @@ def _solve_large_hex8(
         det = infer_renumbered_grid(scene)
         if det is not None and curv_coarsenable(det[0]):
             cdims, perm = det
-            # the current call's loads and prescribed values are permuted
-            # in with the mesh, and the solution is permuted back
+            # the canonical scene is cached on this scene's mesh, so that
+            # repeat solves hit the curvilinear build cache too; the current
+            # call's loads and prescribed values are permuted in fresh
+            base = _cached_build("canonical-scene", scene, lambda: canonicalize_scene(scene, cdims, perm))
+            inv = np.empty_like(perm)
+            inv[perm] = np.arange(perm.size)
+            inv = torch.as_tensor(inv, device=scene.device)
+            canon = dataclasses.replace(
+                base, loads=scene.loads[inv].to(base.loads.dtype),
+                prescribed=None if scene.prescribed is None else scene.prescribed[inv].to(base.loads.dtype),
+            )
             sol_c = solve(
-                canonicalize_scene(scene, cdims, perm), config=cfg, method="auto", tol=tol,
-                max_iters=max_iters, dtype=dtype, check_jacobians=check_jacobians,
-                on_nonconverged="ignore",
+                canon, config=cfg, method="auto", tol=tol, max_iters=max_iters, dtype=dtype,
+                check_jacobians=check_jacobians, on_nonconverged="ignore",
             )
             back = torch.as_tensor(perm, device=scene.device)
             sol = Solution(

@@ -4,7 +4,9 @@ its Galerkin-RAP multigrid (``ops/curvilinear.py``).
 
 f64 flexible PCG whose apply is the f64 operator (K5 on the card), with
 the V-cycle as preconditioner (K4 on its f32 levels, K5 on its f64
-ones), certified against the true f64 residual (``solve/certify.py``).
+ones), held on the card by ``solve/staged.py`` and certified against the
+true f64 residual (``solve/certify.py``). Operator and hierarchy are
+built once per mesh (``solve/cache.py``), as in the reference.
 K5 is IEEE f64, so the device residual is a true residual and no host
 certification tier is needed. Counterpart of ``fea_tpu/solve/curv.py``
 without its TPU pipeline.
@@ -16,8 +18,9 @@ import torch
 
 from ..ops.curvilinear import build_curv_multigrid, build_curv_operator, infer_topo_dims
 from ..scene import Scene
+from . import staged
 from ._types import Solution
-from .fpcg import solve_operator_fpcg
+from .cache import _cached_build
 
 __all__ = ["build_curvilinear", "solve_curvilinear"]
 
@@ -51,11 +54,17 @@ def solve_curvilinear(
     check_jacobians: bool = True,
 ) -> Solution:
     """Solve a topologically structured scene (grid connectivity, any
-    node positions) to a true relative residual of ``tol``."""
+    node positions) to a true relative residual of ``tol``. Without
+    ``prebuilt`` the build is cached on the scene's mesh."""
     op, mg = (
         prebuilt if prebuilt is not None
-        else build_curvilinear(scene, detected, degree=degree, check_jacobians=check_jacobians)
+        else _cached_build(
+            # check_jacobians is part of the key: a build that skipped the
+            # check must not serve a caller who asked for it
+            ("curvilinear", degree, bool(check_jacobians)), scene,
+            lambda: build_curvilinear(scene, detected, degree=degree, check_jacobians=check_jacobians),
+        )
     )
-    return solve_operator_fpcg(
+    return staged.solve_operator_fpcg_staged(
         op, scene.loads, scene.prescribed_or_zero(torch.float64), mg, tol=tol, max_iters=max_iters
     )

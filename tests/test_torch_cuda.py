@@ -275,3 +275,46 @@ def test_voxel_solve_with_a_row_wider_than_a_block_on_card():
     assert abs(sols["cuda"].stats.iterations - sols["cpu"].stats.iterations) <= 1
     du = (sols["cuda"].displacements.cpu() - sols["cpu"].displacements).abs().max()
     assert float(du / sols["cpu"].displacements.abs().max()) <= 1e-7
+
+
+@pytest.mark.cuda
+def test_staged_loop_graph_matches_the_eager_loop():
+    """The staged FCG loop on the card (one captured step, replayed)
+    against the same step run eagerly on the CPU: iterations within one
+    (f32 V-cycle sums in another order), displacements within 10 tol; K1
+    and K2 credited on every replay; a second solve on the same operator
+    and hierarchy captures nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the captured step runs K1 and K2")
+    from fea_tpu_torch.mesh import box_hex_mesh
+    from fea_tpu_torch.ops.multigrid import build_multigrid
+    from fea_tpu_torch.ops.structured import build_structured_operator
+    from fea_tpu_torch.scene import fix_where, make_scene
+    from fea_tpu_torch.solve import solve_operator_fpcg_staged, staged
+
+    nodes, elements = box_hex_mesh(8, 8, 64, 0.05, 0.05, 1.0)
+    fixed = fix_where(nodes, lambda p: p[:, 2] == 0.0, 3)
+    loads = np.zeros_like(nodes)
+    loads[nodes[:, 2] == 1.0, 1] = 1.0
+    sols = {}
+    for dev in ("cpu", "cuda"):
+        sc = make_scene(nodes, elements, fixed, loads, Material(E=1e7, nu=0.3), dtype=torch.float64, device=dev)
+        op = build_structured_operator(sc, (8, 8, 64), dtype=torch.float64)
+        mg = build_multigrid(op.astype(torch.float32), dtype=torch.float32, free_np=1.0 - fixed.astype(np.float64),
+                             coarse_dof_limit=300)
+        for c in (staged.COUNTS, cuda_stencil.LAUNCHES):
+            for key in c:
+                c[key] = 0
+        sols[dev] = solve_operator_fpcg_staged(op, sc.loads, None, mg, tol=1e-8)
+        torch.cuda.synchronize()
+        if dev == "cuda":
+            n = dict(staged.COUNTS)
+            assert n["captures"] == 1 and n["past"] <= 1 and n["issued"] >= n["live"]
+            assert cuda_stencil.LAUNCHES["f32"] > n["issued"] and cuda_stencil.LAUNCHES["f64"] > n["issued"]
+            again = solve_operator_fpcg_staged(op, sc.loads, None, mg, tol=1e-8)
+            assert staged.COUNTS["captures"] == 1
+            assert torch.equal(again.displacements, sols[dev].displacements)
+    cpu, card = sols["cpu"], sols["cuda"]
+    assert card.stats.converged and abs(card.stats.iterations - cpu.stats.iterations) <= 1
+    u = cpu.displacements
+    assert float((card.displacements.cpu() - u).abs().max()) <= 1e-7 * float(u.abs().max())

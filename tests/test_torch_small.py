@@ -380,8 +380,8 @@ class Taken(Exception):
 
 @pytest.fixture
 def spy_routes(monkeypatch):
-    """solve_operator and the voxel route's FCG raise Taken naming the
-    route instead of solving."""
+    """solve_operator and the voxel route's FCG (the staged driver) raise
+    Taken naming the route instead of solving."""
     def operator_route(op, loads, prescribed, *, method, **kw):
         raise Taken(f"solve_operator {method} {op.kind}")
 
@@ -389,7 +389,7 @@ def spy_routes(monkeypatch):
         raise Taken("voxel multigrid")
 
     monkeypatch.setattr(SOLVE, "solve_operator", operator_route)
-    monkeypatch.setattr(SOLVE, "solve_operator_fpcg", voxel_route)
+    monkeypatch.setattr(sys.modules["fea_tpu_torch.solve.staged"], "solve_operator_fpcg_staged", voxel_route)
     return monkeypatch
 
 
