@@ -814,7 +814,8 @@ def loop_vs_staged(op, mg, loads, presc, host_rel, tol: float = 1e-8, check_tol:
     ``host_rel(u)``, the displacements' difference, walls (the staged one
     once with its capture, once warm), and a profiled run of each (device
     ms, activities and host launch calls an iteration, busy share of the
-    unprofiled warm wall). Fails unless the two agree within 1 iteration
+    unprofiled warm wall). The staged driver's first run captures its
+    graph afresh. Fails unless the two agree within 1 iteration
     and 10 tol, both meet ``check_tol`` on the host, and no pass ran more
     than 2 iterations past convergence."""
     from fea_tpu_torch.solve import solve_operator_fpcg, solve_operator_fpcg_staged, staged
@@ -824,6 +825,7 @@ def loop_vs_staged(op, mg, loads, presc, host_rel, tol: float = 1e-8, check_tol:
     runs = {}
     for name, fn in fns.items():
         run = {}
+        mg.fcg_graphs.clear()  # the staged driver's first run captures its graph
         zero_counts(staged.COUNTS)
         for key in ("first", "warm"):
             t0 = time.perf_counter()

@@ -17,7 +17,7 @@ import torch
 from ..solvers.cg import SolveStats
 from ._types import Solution
 
-__all__ = ["correction_tol", "refine_true", "true_residual"]
+__all__ = ["true_residual", "refine_true"]
 
 
 def true_residual(op_hi, loads: torch.Tensor, u: torch.Tensor):
@@ -25,13 +25,6 @@ def true_residual(op_hi, loads: torch.Tensor, u: torch.Tensor):
     Au = op_hi.apply_raw(u)
     r = op_hi.free * (loads - Au)
     return Au, r, float(torch.linalg.vector_norm(r))
-
-
-def correction_tol(tol: float, b_norm: float, rn: float) -> float:
-    """Relative tolerance of a correction solve on the residual r (norm
-    ``rn``): it only needs ||r - A d|| <= tol * ||b||, a relative reduction
-    of tol * ||b|| / ||r|| on its own rhs, with a margin of 0.3."""
-    return min(1e-2, max(0.3 * tol * b_norm / rn, tol))
 
 
 def refine_true(
@@ -61,7 +54,10 @@ def refine_true(
     ok = stats.converged
     passes = 0
     while ok and rn > tol * safe_b_norm and passes < max_refine and math.isfinite(rn):
-        d, st = correct(r, correction_tol(tol, safe_b_norm, rn))
+        # the correction only needs ||r - A d|| <= tol * ||b||, a relative
+        # reduction of tol * ||b|| / ||r|| on its own rhs
+        tol_pass = min(1e-2, max(0.3 * tol * safe_b_norm / rn, tol))
+        d, st = correct(r, tol_pass)
         iters += st.iterations
         if not st.converged:
             break

@@ -5,10 +5,11 @@ hierarchy are built once; the cases advance together through the staged
 FCG loop (``solve/staged.py``), one captured step per case on the card,
 each case freezing on its own and the host replaying only the cases it has
 not seen halt, with one readback of the whole batch's status a round.
-Each case is certified against its true f64 residual, with its own
-correction tolerance. Routing follows the reference: a voxel box, then
-extruded (not ported, item 12), then curvilinear, then a box subset (not
-ported, item 11), else arbitrary topology (not ported, item 13).
+Each case is certified against its true f64 residual on its own
+(``certify.refine_true``), with its own correction tolerance. Routing
+follows the reference: a voxel box, then extruded (not ported, item 12),
+then curvilinear, then a box subset (not ported, item 11), else arbitrary
+topology (not ported, item 13).
 """
 from __future__ import annotations
 
@@ -90,15 +91,21 @@ def solve_many(
                              f"got {tuple(prescribed_batch.shape)}")
 
     op_hi, mg = _build(scene)
-    u, Au, iters, rn, safe_b, conv = _solve_cases(
+    sols = _solve_cases(
         op_hi, mg, loads_batch, prescribed_batch, tol=tol, max_iters=max_iters, refine=True, max_refine=3,
         say=lambda s: None,
     )
-    rel = rn / safe_b
+    rel = np.array([s.stats.relative_residual for s in sols])
+    conv = np.array([s.stats.converged for s in sols])
     sol = Solution(
-        displacements=torch.stack(u),
-        reactions=torch.stack(Au),
-        stats=SolveStats(iterations=iters, residual_norm=rn, relative_residual=rel, converged=conv),
+        displacements=torch.stack([s.displacements for s in sols]),
+        reactions=torch.stack([s.reactions for s in sols]),
+        stats=SolveStats(
+            iterations=np.array([s.stats.iterations for s in sols]),
+            residual_norm=np.array([s.stats.residual_norm for s in sols]),
+            relative_residual=rel,
+            converged=conv,
+        ),
     )
     if on_nonconverged != "ignore" and not conv.all():
         bad = np.nonzero(~conv)[0].tolist()

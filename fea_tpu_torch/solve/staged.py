@@ -57,7 +57,7 @@ from ..dtypes import precise_dot
 from ..ops import cuda_apply, cuda_stencil, cuda_varstencil
 from ..solvers.cg import SolveStats
 from ._types import Solution
-from .certify import correction_tol, true_residual
+from .certify import refine_true
 
 __all__ = ["COUNTS", "solve_operator_fpcg_staged", "staged_k"]
 
@@ -282,56 +282,51 @@ def _plan_for(op, mg, n_cases: int) -> _Plan:
         raise TypeError("solve_operator_fpcg_staged: the operator's vectors must be tensors on one device "
                         "(the sharded solve runs solve_operator_fpcg)")
     store = getattr(mg, "fcg_graphs", None)
-    key = (id(op), n_cases, staged_k())
+    k = staged_k()
+    key = (id(op), n_cases, k)
     plan = None if store is None else store.get(key)
     if plan is None:
-        plan = _Plan(op, mg, n_cases, staged_k())
+        plan = _Plan(op, mg, n_cases, k)
         if store is not None:
             store.clear()  # one plan a hierarchy bounds the memory held
             store[key] = plan
     return plan
 
 
+def _stats(row: np.ndarray) -> SolveStats:
+    """A pass's recurrence stats from a case's status row."""
+    rn = math.sqrt(row[0])
+    b_norm = math.sqrt(max(row[4], 0.0))
+    return SolveStats(iterations=int(row[1]), residual_norm=rn, relative_residual=rn / (b_norm if b_norm > 0 else 1.0),
+                      converged=bool(row[2]))
+
+
 def _solve_cases(op, mg, loads: torch.Tensor, prescribed: torch.Tensor, *, tol: float, max_iters: int,
-                 refine: bool, max_refine: int, say: Callable[[str], None]):
-    """FCG for every case of ``loads`` and ``prescribed`` (k, N, 3), then the
-    true-residual certification of each case (``certify.refine_true``'s
-    contract, case by case, the corrections of all cases still above tol
-    run together). Returns per-case lists of displacements and K u, and
-    arrays of iterations, residual norms, ||b|| (1 where it is 0) and
-    convergence."""
-    n = loads.shape[0]
-    plan = _plan_for(op, mg, n)
+                 refine: bool, max_refine: int, say: Callable[[str], None]) -> list[Solution]:
+    """FCG for every case of ``loads`` and ``prescribed`` (k, N, 3), the
+    cases advancing together; then, case by case, the true-residual
+    certification of ``certify.refine_true``, its correction passes
+    replaying the case's graph."""
+    plan = _plan_for(op, mg, loads.shape[0])
     free = op.free
     for i, case in enumerate(plan.cases):
         case.start(free, op.rhs(loads[i], prescribed[i]), (1.0 - free) * prescribed[i], tol, max_iters)
     status = plan.run(plan.cases, mg, max_iters, say)
-    iters = status[:, 1].astype(np.int64)
-    b_norm = np.sqrt(np.maximum(status[:, 4], 0.0))
-    safe_b = np.where(b_norm > 0, b_norm, 1.0)
-    u = [case.x.clone() for case in plan.cases]
-    if not refine:
-        rn = np.sqrt(status[:, 0])
-        return u, [op.apply_raw(ui) for ui in u], iters, rn, safe_b, status[:, 2] > 0
-    Au, r, rn = map(list, zip(*(true_residual(op, loads[i], u[i]) for i in range(n))))
-    rn = np.array(rn)
-    ok = status[:, 2] > 0  # refinement addresses the accuracy floor, not non-convergence
-    for _ in range(max_refine):
-        need = [i for i in range(n) if ok[i] and rn[i] > tol * safe_b[i] and math.isfinite(rn[i])]
-        if not need:
-            break
-        say(f"correction pass: {len(need)} case(s) above tol")
-        for i in need:
-            plan.cases[i].start(free, r[i], None, correction_tol(tol, safe_b[i], rn[i]), max_iters)
-        status = plan.run([plan.cases[i] for i in need], mg, max_iters, say)
-        for i in need:
-            iters[i] += int(status[i, 1])
-            if not status[i, 2]:
-                ok[i] = False  # a correction that does not converge ends the case's refinement
-                continue
-            u[i] = u[i] + plan.cases[i].x
-            Au[i], r[i], rn[i] = true_residual(op, loads[i], u[i])
-    return u, Au, iters, rn, safe_b, rn <= tol * safe_b
+    sols = []
+    for i, case in enumerate(plan.cases):
+        u = case.x.clone()
+        if not refine:
+            sols.append(Solution(displacements=u, reactions=op.apply_raw(u), stats=_stats(status[i])))
+            continue
+
+        def correct(r, tol_pass, case=case):
+            say(f"correction pass of case {case.index}")
+            case.start(free, r, None, tol_pass, max_iters)
+            return case.x.clone(), _stats(plan.run([case], mg, max_iters, say)[case.index])
+
+        sols.append(refine_true(op, loads[i], math.sqrt(max(status[i, 4], 0.0)), u, _stats(status[i]), correct,
+                                tol=tol, max_refine=max_refine))
+    return sols
 
 
 def solve_operator_fpcg_staged(
@@ -361,12 +356,8 @@ def solve_operator_fpcg_staged(
     hi = torch.float64
     loads = loads.to(hi)
     prescribed = torch.zeros_like(loads) if prescribed is None else prescribed.to(hi)
-    u, Au, iters, rn, safe_b, conv = _solve_cases(
+    (sol,) = _solve_cases(
         op_hi, mg, loads[None], prescribed[None], tol=tol, max_iters=max_iters, refine=refine_true,
         max_refine=max_refine, say=say,
     )
-    stats = SolveStats(
-        iterations=int(iters[0]), residual_norm=float(rn[0]), relative_residual=float(rn[0] / safe_b[0]),
-        converged=bool(conv[0]),
-    )
-    return Solution(displacements=u[0], reactions=Au[0], stats=stats)
+    return sol
