@@ -32,7 +32,7 @@ Phases, in order:
      (independent of the kernels), the tip deflection against beam
      theory, and the launch counters of K1 and K2 over that one solve
      (credited per graph replay); then the FCG stage on one operator and
-     hierarchy by the Python loop beside the staged driver of the routes
+     hierarchy by the Python loop beside the staged loop of the routes
      (``loop_vs_staged``: iterations within 1, both host residuals <= tol,
      displacements within 10 tol, walls, device ms, busy share, device
      activities and host launch calls an iteration, replays, capture ms,
@@ -586,7 +586,7 @@ def zero_counts(*counters) -> None:
 
 
 def freeze_checks(op, mg, loads, presc) -> None:
-    """The staged driver's freezing on the card: a zero rhs takes 0
+    """The staged loop's freezing on the card: a zero rhs takes 0
     iterations and returns u == 0; tol 1e-30 with max_iters 5 takes exactly
     5 iterations and does not converge; a readback ring of 1
     (FEA_TPU_STAGED_K=1) and the default give the same iterations and
@@ -692,7 +692,7 @@ def run_slice(ftt, cuda_stencil, cuda_varstencil) -> tuple[dict, dict]:
         Kv = stencil_apply_np(ke, v.reshape(Z, Y, X, 3), dims).reshape(-1, 3)
         return float(np.linalg.norm(F * (loads - Kv)) / np.linalg.norm(F * loads))
 
-    say("  FCG stage with certification, the Python loop beside the staged driver (one operator and hierarchy):")
+    say("  FCG stage with certification, the Python loop beside the staged loop (one operator and hierarchy):")
     loop_vs_staged(op_hi, mg, scene.loads, scene.prescribed_or_zero(torch.float64), host_rel)
     freeze_checks(op_hi, mg, scene.loads, scene.prescribed_or_zero(torch.float64))
     return launches, dict(scene=scene, op_hi=op_hi, mg=mg, u=u, iterations=st.iterations, tip=tip,
@@ -808,13 +808,13 @@ def profile_fcg(solve_fn) -> dict:
 
 def loop_vs_staged(op, mg, loads, presc, host_rel, tol: float = 1e-8, check_tol: float = 1e-8) -> dict:
     """The FCG stage with certification on one operator and hierarchy, by
-    the Python loop (``solve_operator_fpcg``) and by the staged driver
+    the Python loop (``solve_operator_fpcg``) and by the staged loop
     (``solve_operator_fpcg_staged``, which the routes of ``solve()`` run),
     side by side: iterations, the true residual recomputed on the host by
     ``host_rel(u)``, the displacements' difference, walls (the staged one
     once with its capture, once warm), and a profiled run of each (device
     ms, activities and host launch calls an iteration, busy share of the
-    unprofiled warm wall). The staged driver's first run captures its
+    unprofiled warm wall). The staged loop's first run captures its
     graph afresh. Fails unless the two agree within 1 iteration
     and 10 tol, both meet ``check_tol`` on the host, and no pass ran more
     than 2 iterations past convergence."""
@@ -825,7 +825,7 @@ def loop_vs_staged(op, mg, loads, presc, host_rel, tol: float = 1e-8, check_tol:
     runs = {}
     for name, fn in fns.items():
         run = {}
-        mg.fcg_graphs.clear()  # the staged driver's first run captures its graph
+        mg.fcg_graphs.clear()  # the staged loop's first run captures its graph
         zero_counts(staged.COUNTS)
         for key in ("first", "warm"):
             t0 = time.perf_counter()
@@ -845,7 +845,7 @@ def loop_vs_staged(op, mg, loads, presc, host_rel, tol: float = 1e-8, check_tol:
                 f"{prof['host_launches'] / it:.1f} an iteration, busy share {prof['device_ms'] / 1e3 / run['warm']:.3f} "
                 f"of the warm wall")
         if name == "staged":
-            line += (f"; replays {c['issued']} for {c['live']} iterations in 2 solves, at most {c['past']} past "
+            line += (f"; replays {c['steps']} for {c['live']} iterations in 2 solves, at most {c['past']} past "
                      f"convergence a pass, captures {c['captures']} in {c['capture_ms']:.1f} ms")
         say(line)
     u_loop = runs["loop"]["sol"].displacements
@@ -940,7 +940,7 @@ def run_curvilinear(ftt, cuda_stencil, cuda_varstencil) -> dict:
     torch.cuda.synchronize()
     say(f"  of which operator build {time.perf_counter() - t0:.3f} s")
 
-    say("  FCG stage with certification, the Python loop beside the staged driver (one operator and hierarchy):")
+    say("  FCG stage with certification, the Python loop beside the staged loop (one operator and hierarchy):")
     loop_vs_staged(op, mg, scene.loads, scene.prescribed_or_zero(torch.float64),
                    lambda v: host_check(nodes, elements, mat, fixed, loads, v)[1])
     del op, mg
@@ -982,10 +982,10 @@ def cached_second_solve(ftt, scene, new_loads, first_wall: float, host_rel, chec
     check_tol``."""
     curv = sys.modules["fea_tpu_torch.solve.curv"]
     canonical = sys.modules["fea_tpu_torch.ops.canonical"]
-    builders = {"build_curvilinear": curv, "canonicalize_scene": canonical}
+    build_fns = {"build_curvilinear": curv, "canonicalize_scene": canonical}
     calls = []
-    originals = {name: getattr(mod, name) for name, mod in builders.items()}
-    for name, mod in builders.items():
+    originals = {name: getattr(mod, name) for name, mod in build_fns.items()}
+    for name, mod in build_fns.items():
         setattr(mod, name, lambda *a, _fn=originals[name], _name=name, **kw: calls.append(_name) or _fn(*a, **kw))
     try:
         second = dataclasses.replace(scene, loads=torch.as_tensor(new_loads, dtype=scene.loads.dtype, device=DEV))
@@ -994,12 +994,12 @@ def cached_second_solve(ftt, scene, new_loads, first_wall: float, host_rel, chec
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        for name, mod in builders.items():
+        for name, mod in build_fns.items():
             setattr(mod, name, originals[name])
     rel = host_rel(sol.displacements.cpu().numpy())
-    say(f"  second solve() of the mesh with new loads: {wall:.3f} s (the first {first_wall:.3f} s), builders called "
+    say(f"  second solve() of the mesh with new loads: {wall:.3f} s (the first {first_wall:.3f} s), build functions called "
         f"{calls or 'none'}; {sol.stats.iterations} iterations, host f64 true relative residual {rel:.3e}")
-    require({"cache hit (no builder call)": not calls, "converged": sol.stats.converged,
+    require({"cache hit (no build call)": not calls, "converged": sol.stats.converged,
              f"host true residual <= {check_tol:g}": rel <= check_tol}, "cached second solve")
 
 
@@ -1054,7 +1054,7 @@ def run_canonical(ftt, cuda_stencil, cuda_varstencil) -> None:
     # what the multigrid build's dense coarsest inverse costs on the host
     stage[f"np.linalg.inv of a random {n}x{n} matrix"] = time.perf_counter() - t0
     say("  stages (second solve): " + ", ".join(f"{k} {v:.3f} s" for k, v in stage.items()))
-    say("  FCG stage with certification, the Python loop beside the staged driver (one operator and hierarchy):")
+    say("  FCG stage with certification, the Python loop beside the staged loop (one operator and hierarchy):")
     loop_vs_staged(op, mg, canon.loads, canon.prescribed_or_zero(torch.float64),
                    lambda v: host_check(nodes, elements, mat, fixed_r[pi], loads_r[pi], v[perm][pi])[1],
                    check_tol=CANON_TOL)
@@ -1635,7 +1635,7 @@ def run_capacity(ftt, counters) -> dict:
         Kv = stencil_apply_np(ke, v.reshape(Z, Y, X, 3), CAPACITY).reshape(-1, 3)
         return float(np.linalg.norm(F * (loads - Kv)) / np.linalg.norm(F * loads))
 
-    say("  FCG stage with certification, the Python loop beside the staged driver (one operator and hierarchy):")
+    say("  FCG stage with certification, the Python loop beside the staged loop (one operator and hierarchy):")
     loop_vs_staged(op_hi, mg, scene.loads, scene.prescribed_or_zero(torch.float64), host_rel)
     return dict(scene=scene, op_hi=op_hi, mg=mg, u=u, iterations=st.iterations, tip=tip, tip_exact=tip_exact,
                 dims=CAPACITY, ke=ke)

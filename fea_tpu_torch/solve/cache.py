@@ -17,8 +17,8 @@ _BUILD_CACHE: dict = {}
 _BUILD_CACHE_MAX = 2
 
 
-def _cached_build(kind, scene: Scene, builder):
-    """``builder()``'s value for ``scene``'s mesh under ``kind``, built at
+def _cached_build(kind, scene: Scene, build):
+    """``build()``'s value for ``scene``'s mesh under ``kind``, built at
     the first call and kept for later ones."""
     key_tensors = (scene.nodes, scene.elements, scene.fixed)
     material = (float(scene.material.E), float(scene.material.nu))
@@ -27,7 +27,7 @@ def _cached_build(kind, scene: Scene, builder):
         if all(a is b for a, b in zip(entry[0], key_tensors)) and entry[1] == material:
             bucket.append(bucket.pop(i))  # most recently used last
             return entry[2]
-    value = builder()
+    value = build()
     bucket.append((key_tensors, material, value))
     if len(bucket) > _BUILD_CACHE_MAX:
         bucket.pop(0)

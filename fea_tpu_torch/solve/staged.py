@@ -62,11 +62,11 @@ from .certify import refine_true
 __all__ = ["COUNTS", "solve_operator_fpcg_staged", "staged_k"]
 
 # What the staged loops did, kept like the kernels' LAUNCHES (zero them
-# before a solve, read them after): steps issued (graph replays on the card,
-# eager steps on the CPU), live steps (iterations), the most steps issued
-# past a case's halt in one pass, status readbacks, graphs captured and the
-# host ms of warm-up and capture.
-COUNTS = {"issued": 0, "live": 0, "past": 0, "readbacks": 0, "captures": 0, "capture_ms": 0.0}
+# before a solve, read them after): steps run (graph replays on the card,
+# eager steps on the CPU), live steps (iterations), the most steps run past
+# a case's halt in one pass, status readbacks, graphs captured and the host
+# ms of warm-up and capture.
+COUNTS = {"steps": 0, "live": 0, "past": 0, "readbacks": 0, "captures": 0, "capture_ms": 0.0}
 
 _COUNTERS = (cuda_stencil.LAUNCHES, cuda_varstencil.LAUNCHES, cuda_apply.LAUNCHES)
 _STATUS = 5  # a case's status row: rr, iterations, done, blown, ||b||^2
@@ -99,7 +99,7 @@ class _Case:
         self.status = status
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.credits: list[tuple[dict, str, int]] = []  # (counter, key, launches a replay)
-        self.issued = 0
+        self.steps = 0
 
     def start(self, free: torch.Tensor, b: torch.Tensor, x0: Optional[torch.Tensor], tol: float, limit: int) -> None:
         """Set the state for a pass on ``b`` from ``x0`` (None: zero) whose
@@ -123,7 +123,7 @@ class _Case:
         torch.ne(self.rr, self.rr, out=self.blown)
         self.it.zero_()
         self.limit.fill_(limit)
-        self.issued = 0
+        self.steps = 0
         self._publish()
         self.status[4].copy_(self.b2)
 
@@ -217,13 +217,13 @@ class _Plan:
         COUNTS["captures"] += len(self.cases)
         COUNTS["capture_ms"] += (time.perf_counter() - t0) * 1e3
 
-    def _issue(self, case: _Case, mg) -> None:
+    def _run_step(self, case: _Case, mg) -> None:
         if self.cuda:
             case.replay()
         else:
             case.step(self.op.apply, mg)
-        case.issued += 1
-        COUNTS["issued"] += 1
+        case.steps += 1
+        COUNTS["steps"] += 1
 
     def _readback(self):
         """Queue a copy of every case's status; returns what :meth:`_read`
@@ -234,7 +234,7 @@ class _Plan:
         slot = self.slot
         self.slot = (slot + 1) % self.ring.shape[0]
         self.ring[slot].copy_(self.status, non_blocking=True)
-        self.events[slot].record()
+        self.events[slot].record(torch.cuda.current_stream(self.status.device))  # the copy's stream
         return slot
 
     def _read(self, token) -> np.ndarray:
@@ -244,7 +244,7 @@ class _Plan:
         return self.ring[token].numpy().copy()
 
     def run(self, cases: list[_Case], mg, limit: int, say: Callable[[str], None]) -> np.ndarray:
-        """Issue steps of ``cases`` (started by :meth:`_Case.start`) until
+        """Run steps of ``cases`` (started by :meth:`_Case.start`) until
         each has halted or used ``limit``; the final status of every case."""
         lag = 1 if self.cuda else 0  # rounds the host reads behind the card
         last = self._readback()
@@ -259,18 +259,18 @@ class _Plan:
                 if reads % self.k == 0 and live:
                     worst = max(status[c.index, 0] / max(status[c.index, 4], 1e-300) for c in live)
                     say(f"iteration {reads}: {len(live)} case(s) live, worst rel_res {math.sqrt(worst):.3e}")
-            live = [c for c in live if c.issued < limit]
+            live = [c for c in live if c.steps < limit]
             if not live:
                 break
             for case in live:
-                self._issue(case, mg)
+                self._run_step(case, mg)
             last = self._readback()
             pending.append(last)
-        status = self._read(last)  # the stream orders it after every step issued
+        status = self._read(last)  # the stream orders it after every step run
         for case in cases:
             n = int(status[case.index, 1])
             COUNTS["live"] += n
-            COUNTS["past"] = max(COUNTS["past"], case.issued - n)
+            COUNTS["past"] = max(COUNTS["past"], case.steps - n)
         return status
 
 
@@ -278,9 +278,6 @@ def _plan_for(op, mg, n_cases: int) -> _Plan:
     """The plan of (op, mg) for ``n_cases`` cases, kept on the hierarchy
     (``mg.fcg_graphs``) so that a solve captures at most once, and later
     solves and correction passes on the same pair capture nothing."""
-    if not isinstance(op.free, torch.Tensor):
-        raise TypeError("solve_operator_fpcg_staged: the operator's vectors must be tensors on one device "
-                        "(the sharded solve runs solve_operator_fpcg)")
     store = getattr(mg, "fcg_graphs", None)
     k = staged_k()
     key = (id(op), n_cases, k)
@@ -352,6 +349,9 @@ def solve_operator_fpcg_staged(
     the same graph; False reports the recurrence. ``progress``: a callable
     given a line of text at the host's readbacks and passes.
     """
+    if not isinstance(op_hi.free, torch.Tensor):
+        raise TypeError("solve_operator_fpcg_staged: the operator's vectors must be tensors on one device; "
+                        "the sharded solve runs solve_operator_fpcg")
     say = progress if progress is not None else (lambda s: None)
     hi = torch.float64
     loads = loads.to(hi)

@@ -380,7 +380,7 @@ class Taken(Exception):
 
 @pytest.fixture
 def spy_routes(monkeypatch):
-    """solve_operator and the voxel route's FCG (the staged driver) raise
+    """solve_operator and the voxel route's FCG (the staged loop) raise
     Taken naming the route instead of solving."""
     def operator_route(op, loads, prescribed, *, method, **kw):
         raise Taken(f"solve_operator {method} {op.kind}")

@@ -113,7 +113,7 @@ def test_history_length_changes_nothing_and_matches_the_python_loop(slender, mon
         counts = _counts_zeroed()
         runs[k] = solve_operator_fpcg_staged(op, sc.loads, presc, mg, tol=1e-8)
         # the CPU reads every round at once: no step runs past a halt
-        assert counts["past"] == 0 and counts["issued"] == counts["live"] == runs[k].stats.iterations
+        assert counts["past"] == 0 and counts["steps"] == counts["live"] == runs[k].stats.iterations
     a, b = runs["1"], runs["16"]
     assert a.stats == b.stats
     assert torch.equal(a.displacements, b.displacements) and torch.equal(a.reactions, b.reactions)
@@ -148,13 +148,24 @@ def test_max_iters_is_exact_whatever_the_history_length(slender, monkeypatch):
     assert counts["live"] == 5
 
 
+def test_sharded_vectors_are_refused(slender):
+    """The sharded solve keeps the Python loop: a capture of its shard
+    vectors is never attempted."""
+    from fea_tpu_torch.parallel import build_zsharded_solver
+
+    sc, op, mg = slender
+    solver = build_zsharded_solver(op, mg, ["cpu"] * 2)
+    with pytest.raises(TypeError, match="sharded solve runs solve_operator_fpcg"):
+        solve_operator_fpcg_staged(solver.op, solver.scatter(sc.loads), None, solver.precondition)
+
+
 @pytest.fixture
 def large_routes_for_small_scenes(monkeypatch):
     monkeypatch.setattr(sys.modules["fea_tpu_torch.solve"], "_STRUCTURED_MIN_DOF", 0)
 
 
 @pytest.mark.parametrize("route", ["voxel", "curvilinear"])
-def test_solve_runs_the_staged_driver(route, large_routes_for_small_scenes, monkeypatch):
+def test_solve_runs_the_staged_loop(route, large_routes_for_small_scenes, monkeypatch):
     nodes, elements = ftt.mesh.box_hex_mesh(4, 4, 16, 0.1, 0.1, 0.4)
     if route == "curvilinear":
         interior = (nodes[:, 2] > 0) & (nodes[:, 2] < 0.4)
@@ -164,8 +175,9 @@ def test_solve_runs_the_staged_driver(route, large_routes_for_small_scenes, monk
     loads[np.isclose(nodes[:, 2], 0.4), 1] = 1.0
     sc = ftt.make_scene(nodes, elements, fixed, loads, ftt.Material(**MAT), dtype=torch.float64, device="cpu")
     calls = []
-    driver = STAGED.solve_operator_fpcg_staged
-    monkeypatch.setattr(STAGED, "solve_operator_fpcg_staged", lambda *a, **kw: calls.append(1) or driver(*a, **kw))
+    staged_solve = STAGED.solve_operator_fpcg_staged
+    monkeypatch.setattr(STAGED, "solve_operator_fpcg_staged",
+                        lambda *a, **kw: calls.append(1) or staged_solve(*a, **kw))
     monkeypatch.setattr(sys.modules["fea_tpu_torch.solve"], "solve_operator_fpcg",
                         lambda *a, **kw: pytest.fail("the Python loop was taken"))
     sol = ftt.solve(sc, tol=1e-8)
