@@ -3,6 +3,7 @@
 checkouts of this package, side by side on one CUDA card.
 
     python3 chip_pair.py DIR [DIR ...]     # e.g.  _parent . . _parent
+    python3 chip_pair.py --solves DIR [DIR ...]
 
 Each DIR is the root of a checkout that holds ``fea_tpu_torch`` ("." is
 this one). They are measured one after the other, each in a process of its
@@ -19,6 +20,18 @@ version twice to see the spread. For each checkout and each dtype:
     ``stencil_apply_slab`` launches): the same two times;
   * the host's cost of one ``stencil_apply`` call: the wall time of 1,000
     calls on the 9x9x81 level issued without a synchronise, over 1,000.
+
+With ``--solves``, each checkout's process instead times whole
+``fea_tpu_torch.solve`` calls on the flagship cantilever, as a user's
+process meets them: the first solve of the process and two more on the
+same scene, each split into the route's detector, operator build,
+hierarchy build and FCG stage (each part ended by a synchronise), and, for
+a checkout with the staged loop, the FCG stage's warm-up step and graph
+captures. A DIR given as ``DIR:prewarm`` first times one small f64 matmul
+and one capture and replay of a one-kernel CUDA graph on a side stream,
+the process's first of each, before its solves; ``DIR:profile`` runs the
+first solve under torch.profiler and prints the host calls that took most
+of it (self time, calls, and the slowest single call).
 
 Prints one line a measurement, then the card's name and power limit.
 """
@@ -101,21 +114,141 @@ def measure(root: Path) -> None:
         emit(what="host cost of a stencil_apply call, 9x9x81 nodes", dtype=name, host_us=host_us)
 
 
+def profiled(fn, emit, top: int = 14):
+    """``fn()`` under torch.profiler; emits its host events with the most
+    self time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+    rows: dict = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        n, total, worst = rows.get(e.name, (0, 0.0, 0.0))
+        rows[e.name] = (n + 1, total + e.self_cpu_time_total / 1e3, max(worst, e.self_cpu_time_total / 1e3))
+    for name, (n, total, worst) in sorted(rows.items(), key=lambda kv: -kv[1][1])[:top]:
+        emit(what=f"profile of solve 1: {name[:60]}", calls=n, self_ms=total, slowest_ms=worst)
+    return out
+
+
+def measure_solves(root: Path, option: str) -> None:
+    """Whole ``solve()`` walls of the checkout at ``root``, in parts."""
+    t_start = time.perf_counter()
+    sys.path.insert(0, str(root))
+    import torch
+
+    import fea_tpu_torch as ftt
+    from fea_tpu_torch.ops import cuda_apply, cuda_stencil, cuda_varstencil, multigrid, structured
+
+    if Path(ftt.__file__).resolve().parents[1] != root:
+        raise SystemExit(f"imported {ftt.__file__}, not the package under {root}")
+    spec = importlib.util.spec_from_file_location("chip_smoke_here", HERE / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    def emit(**row):
+        print(json.dumps(row), flush=True)
+
+    def timed(what, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        emit(what=what, s=time.perf_counter() - t0)
+        return out
+
+    emit(what="imports", s=time.perf_counter() - t_start)
+    timed("CUDA context and a first allocation", lambda: torch.zeros(1, device="cuda"))
+    timed("kernel builds (cached .so loaded, or nvcc)", lambda: [m.build() for m in (cuda_stencil, cuda_varstencil,
+                                                                                      cuda_apply)])
+    if option == "prewarm":
+        a = torch.ones((64, 64), dtype=torch.float64, device="cuda")
+        timed("prewarm: first f64 matmul", lambda: a @ a)
+        side = torch.cuda.Stream()
+
+        def capture():
+            x = torch.zeros(1, device="cuda")
+            side.wait_stream(torch.cuda.current_stream())
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(side):
+                x.add_(1)
+                graph.capture_begin()
+                x.add_(1)
+                graph.capture_end()
+            torch.cuda.current_stream().wait_stream(side)
+            graph.replay()
+
+        timed("prewarm: first graph capture and replay on a side stream", capture)
+    scene, _ = timed("flagship scene on the card", lambda: smoke.flagship_scene(ftt))
+
+    # the parts of a solve, each ended by a synchronise
+    parts: dict = {}
+
+    def wrap(owner, name, label):
+        fn = getattr(owner, name, None)
+        if fn is None:
+            return
+
+        def inner(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            parts[label] = parts.get(label, 0.0) + time.perf_counter() - t0
+            return out
+
+        setattr(owner, name, inner)
+
+    solve_mod = sys.modules["fea_tpu_torch.solve"]
+    staged = sys.modules.get("fea_tpu_torch.solve.staged")
+    wrap(structured, "infer_box_dims", "detector")
+    wrap(structured, "build_structured_operator", "operator")
+    wrap(multigrid, "build_multigrid", "hierarchy")
+    if staged is not None:
+        wrap(staged, "solve_operator_fpcg_staged", "fcg")
+        wrap(staged._Plan, "_capture", "fcg: warm-up and captures")
+        wrap(staged._Case, "capture", "fcg: captures")
+    else:
+        wrap(solve_mod, "solve_operator_fpcg", "fcg")
+    for i in range(3):
+        parts.clear()
+        if i == 0 and option == "profile":
+            sol = timed("solve 1 (profiled)", lambda: profiled(lambda: ftt.solve(scene, tol=1e-8), emit))
+        else:
+            sol = timed(f"solve {i + 1}", lambda: ftt.solve(scene, tol=1e-8))
+        emit(what=f"solve {i + 1} parts", iterations=int(sol.stats.iterations), **parts)
+
+
 def main() -> None:
     if len(sys.argv) >= 3 and sys.argv[1] == "--measure":
         measure(Path(sys.argv[2]).resolve())
         return
-    roots = [Path(a).resolve() for a in sys.argv[1:]]
-    if not roots:
+    if len(sys.argv) >= 3 and sys.argv[1] == "--measure-solves":
+        measure_solves(Path(sys.argv[2]).resolve(), sys.argv[3] if len(sys.argv) > 3 else "")
+        return
+    solves = sys.argv[1:2] == ["--solves"]
+    args = sys.argv[2:] if solves else sys.argv[1:]
+    if not args:
         raise SystemExit(__doc__)
-    for i, root in enumerate(roots):
-        print(f"== run {i + 1}: {root}", flush=True)
-        proc = subprocess.run([sys.executable, str(HERE / "chip_pair.py"), "--measure", str(root)], cwd=root,
-                              text=True, stdout=subprocess.PIPE, timeout=900)
+    for i, arg in enumerate(args):
+        path, _, option = arg.partition(":")
+        root = Path(path).resolve()
+        print(f"== run {i + 1}: {root} {option}", flush=True)
+        cmd = [sys.executable, str(HERE / "chip_pair.py"), "--measure-solves" if solves else "--measure", str(root)]
+        proc = subprocess.run(cmd + ([option] if option else []), cwd=root, text=True, stdout=subprocess.PIPE,
+                              timeout=900)
         if proc.returncode != 0:
             raise SystemExit(f"measuring {root} failed with exit code {proc.returncode}")
         for line in proc.stdout.splitlines():
             row = json.loads(line)
+            if solves:
+                what = row.pop("what")
+                unit = "ms" if "self_ms" in row else "s"
+                print(f"  run {i + 1} {what}: " + ", ".join(
+                    f"{k} {v:.4f} {unit}" if isinstance(v, float) else f"{k} {v}" for k, v in row.items()))
+                continue
             head = f"  run {i + 1} {row['dtype']} {row['what']}"
             if "host_us" in row:
                 print(f"{head}: {row['host_us']:.2f} us")

@@ -44,6 +44,7 @@ from .scene import FAMILIES, ElementFamily, Scene, fix_where, make_scene, scene_
 from .solve import (
     Solution,
     build_curvilinear,
+    clear_build_cache,
     solve,
     solve_curvilinear,
     solve_displacements,
@@ -71,6 +72,7 @@ __all__ = [
     "assembly",
     "build_curvilinear",
     "build_operator",
+    "clear_build_cache",
     "dense_solve",
     "fix_where",
     "make_scene",

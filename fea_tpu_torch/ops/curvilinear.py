@@ -456,9 +456,6 @@ class CurvMultigrid:
     coarsen_axes: tuple[tuple[int, ...], ...]  # axes coarsened below level i
     degree: int = 2
     lam_min_frac: float = 1.0 / 6.0
-    # the FCG steps captured over this hierarchy (solve/staged.py), which
-    # live as long as it does
-    fcg_graphs: dict = dataclasses.field(default_factory=dict, init=False, repr=False, compare=False)
 
     @classmethod
     def from_numpy(cls, levels, coarse_inv, coarsen_axes, degree: int = 2, *, device) -> "CurvMultigrid":

@@ -137,9 +137,6 @@ class MultigridPreconditioner:
     # safety factor; 1/6 (vs the textbook 1/4) re-covers the low end the
     # over-estimate would otherwise leave to the coarse grid.
     lam_min_frac: float = 1.0 / 6.0
-    # the FCG steps captured over this hierarchy (solve/staged.py), which
-    # live as long as it does
-    fcg_graphs: dict = dataclasses.field(default_factory=dict, init=False, repr=False, compare=False)
 
     @classmethod
     def from_numpy(cls, levels, coarse_inv, degree: int = 4, *, device) -> "MultigridPreconditioner":

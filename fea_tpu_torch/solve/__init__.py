@@ -51,7 +51,7 @@ from ..solvers.cg import SolveStats, pcg
 from ..solvers.dense import dense_solve
 from . import staged
 from ._types import Solution
-from .cache import _cached_build
+from .cache import _cached_build, clear_build_cache
 from .curv import build_curvilinear, solve_curvilinear
 from .fpcg import solve_operator_fpcg
 from .many import solve_many
@@ -60,6 +60,7 @@ from .staged import solve_operator_fpcg_staged
 __all__ = [
     "Solution",
     "build_curvilinear",
+    "clear_build_cache",
     "solve",
     "solve_curvilinear",
     "solve_displacements",
@@ -241,6 +242,41 @@ def _device_count(device: torch.device) -> int:
     return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
+def _grid_route(scene: Scene):
+    """The grid route of a hex8 scene, the detectors run in the
+    reference's order: ``("voxel", box dims)``, ``("curvilinear", grid
+    dims)``, ``("grid", dims)`` for box-grid connectivity too small to
+    coarsen, or ``(None, None)``. An extruded mesh raises (item 12)."""
+    from ..ops.curvilinear import curv_coarsenable, infer_topo_dims
+    from ..ops.extruded import extruded_mg_coarsenable, infer_extruded
+    from ..ops.structured import infer_box_dims
+
+    dims = infer_box_dims(scene)
+    if dims is not None:
+        return "voxel", dims
+    # a box-connectivity mesh extruded along z is also curvilinear; the
+    # reference sends it to the extruded route, so it is tested first
+    ext = infer_extruded(scene)
+    if ext is not None and extruded_mg_coarsenable(ext[2] - 1):
+        raise _not_ported("extruded", "12")
+    tdims = infer_topo_dims(scene)
+    if tdims is None:
+        return None, None
+    return ("curvilinear" if curv_coarsenable(tdims) else "grid"), tdims
+
+
+def _voxel_build(scene: Scene, dims, coarse_dof_limit: int = 3000):
+    """The voxel route's f64 stencil operator and f32 V-cycle over it."""
+    from ..ops.multigrid import build_multigrid
+    from ..ops.structured import build_structured_operator
+
+    op_hi = build_structured_operator(scene, dims, dtype=torch.float64)
+    free_np = 1.0 - scene.fixed.cpu().numpy().astype(np.float64)
+    mg = build_multigrid(op_hi.astype(torch.float32), dtype=torch.float32, free_np=free_np,
+                         coarse_dof_limit=coarse_dof_limit)
+    return op_hi, mg
+
+
 def _solve_large_hex8(
     scene: Scene, cfg: SolverConfig, tol, max_iters, dtype, check_jacobians
 ) -> Optional[tuple[Solution, str]]:
@@ -249,13 +285,8 @@ def _solve_large_hex8(
     or None for a scene under ``_STRUCTURED_MIN_DOF`` DOFs (sent here by
     ``sharded=True``) that no grid route takes: it goes on to the
     dense/CG tail of :func:`solve`, as in the reference."""
-    from ..ops.multigrid import build_multigrid
-    from ..ops.structured import build_structured_operator, infer_box_dims
-
-    dims = infer_box_dims(scene)
-    if dims is not None:
-        op_hi = build_structured_operator(scene, dims, dtype=torch.float64)
-        free_np = 1.0 - scene.fixed.cpu().numpy().astype(np.float64)
+    route, dims = _grid_route(scene)
+    if route == "voxel":
         # the z-sharded solve only when asked for (``sharded=True``) and more
         # than one device is visible; a scene it does not take falls through
         # to the one-device route
@@ -264,8 +295,7 @@ def _solve_large_hex8(
         # a small sharded scene still needs a >= 2-level hierarchy; where
         # this limit leaves one level, the default one leaves the same
         limit = min(3000, max(300, scene.n_dof // 8)) if shard else 3000
-        mg = build_multigrid(op_hi.astype(torch.float32), dtype=torch.float32, free_np=free_np,
-                             coarse_dof_limit=limit)
+        op_hi, mg = _voxel_build(scene, dims, limit)
         if shard and len(mg.levels) >= 2:
             from ..parallel.halo import build_zsharded_solver
 
@@ -290,27 +320,16 @@ def _solve_large_hex8(
             max_iters=max_iters if max_iters is not None else 300,
         )
         return sol, "fpcg-multigrid"
-
-    from ..ops.extruded import extruded_mg_coarsenable, infer_extruded
-
-    # a box-connectivity mesh extruded along z is also curvilinear; the
-    # reference sends it to the extruded route, so it is tested first
-    ext = infer_extruded(scene)
-    if ext is not None and extruded_mg_coarsenable(ext[2] - 1):
-        raise _not_ported("extruded", "12")
-
-    from ..ops.curvilinear import curv_coarsenable, infer_topo_dims
-
-    tdims = infer_topo_dims(scene)
-    if tdims is not None and curv_coarsenable(tdims):
+    if route == "curvilinear":
         sol = solve_curvilinear(
-            scene, tdims, tol=tol,
+            scene, dims, tol=tol,
             max_iters=max_iters if max_iters is not None else 300,
             check_jacobians=check_jacobians,
         )
         return sol, "fpcg-curvilinear-multigrid"
-    if tdims is None:
+    if route is None:
         from ..ops.canonical import canonicalize_scene, infer_renumbered_grid
+        from ..ops.curvilinear import curv_coarsenable
 
         det = infer_renumbered_grid(scene)
         if det is not None and curv_coarsenable(det[0]):

@@ -7,7 +7,9 @@ strong references to those tensors, so an id cannot be reused while its
 entry lives and an ``is`` match is sound. Loads and prescribed values are
 never part of a key: a route that caches takes the current call's loads
 fresh. Two entries per kind, the least recently used out first, bound the
-device memory held.
+device memory held; :func:`clear_build_cache` gives it all back. An entry
+holds its operator and hierarchy, and with the hierarchy the FCG graphs
+captured over it (``solve/staged.py``), all dropped with the entry.
 """
 from __future__ import annotations
 
@@ -15,6 +17,14 @@ from ..scene import Scene
 
 _BUILD_CACHE: dict = {}
 _BUILD_CACHE_MAX = 2
+
+__all__ = ["clear_build_cache"]
+
+
+def clear_build_cache() -> None:
+    """Drop every cached build (and the graphs captured over it); its
+    device memory returns to torch's allocator for the next solve."""
+    _BUILD_CACHE.clear()
 
 
 def _cached_build(kind, scene: Scene, build):

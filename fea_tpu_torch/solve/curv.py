@@ -43,6 +43,17 @@ def build_curvilinear(scene: Scene, detected=None, *, degree: int = 2, check_jac
     return op, mg
 
 
+def _cached_curvilinear(scene: Scene, detected=None, *, degree: int = 2, check_jacobians: bool = True):
+    """:func:`build_curvilinear`'s ``(op, mg)`` for ``scene``'s mesh through
+    the build cache: ``solve()`` and ``solve_many`` on one mesh build once."""
+    return _cached_build(
+        # check_jacobians is part of the key: a build that skipped the
+        # check must not serve a caller who asked for it
+        ("curvilinear", degree, bool(check_jacobians)), scene,
+        lambda: build_curvilinear(scene, detected, degree=degree, check_jacobians=check_jacobians),
+    )
+
+
 def solve_curvilinear(
     scene: Scene,
     detected=None,
@@ -58,12 +69,7 @@ def solve_curvilinear(
     ``prebuilt`` the build is cached on the scene's mesh."""
     op, mg = (
         prebuilt if prebuilt is not None
-        else _cached_build(
-            # check_jacobians is part of the key: a build that skipped the
-            # check must not serve a caller who asked for it
-            ("curvilinear", degree, bool(check_jacobians)), scene,
-            lambda: build_curvilinear(scene, detected, degree=degree, check_jacobians=check_jacobians),
-        )
+        else _cached_curvilinear(scene, detected, degree=degree, check_jacobians=check_jacobians)
     )
     return staged.solve_operator_fpcg_staged(
         op, scene.loads, scene.prescribed_or_zero(torch.float64), mg, tol=tol, max_iters=max_iters

@@ -9,7 +9,9 @@ Each case is certified against its true f64 residual on its own
 (``certify.refine_true``), with its own correction tolerance. Routing
 follows the reference: a voxel box, then extruded (not ported, item 12),
 then curvilinear, then a box subset (not ported, item 11), else arbitrary
-topology (not ported, item 13).
+topology (not ported, item 13); the first three are ``solve()``'s own
+detectors and builds, and a curvilinear mesh shares ``solve()``'s build
+cache.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import torch
 from ..scene import Scene
 from ..solvers.cg import SolveStats
 from ._types import Solution
-from .curv import build_curvilinear
+from .curv import _cached_curvilinear
 from .staged import _solve_cases
 
 __all__ = ["solve_many"]
@@ -35,26 +37,18 @@ def _batch(name: str, value, scene: Scene) -> torch.Tensor:
 
 
 def _build(scene: Scene):
-    """(f64 operator, f32 V-cycle) of ``scene``'s route, or
+    """(f64 operator, f32 V-cycle) of ``scene``'s route, built as
+    ``solve()`` builds it (the curvilinear build from the same cache), or
     NotImplementedError naming the route's ROADMAP item."""
-    from . import _not_ported
+    from . import _grid_route, _not_ported, _voxel_build
     from ..ops.canonical import infer_subgrid_embedding
-    from ..ops.curvilinear import curv_coarsenable, infer_topo_dims
-    from ..ops.extruded import extruded_mg_coarsenable, infer_extruded
-    from ..ops.multigrid import build_multigrid
-    from ..ops.structured import build_structured_operator, infer_box_dims
+    from ..ops.curvilinear import curv_coarsenable
 
-    dims = infer_box_dims(scene)
-    if dims is not None:
-        op_hi = build_structured_operator(scene, dims, dtype=torch.float64)
-        free_np = 1.0 - scene.fixed.cpu().numpy().astype(np.float64)
-        return op_hi, build_multigrid(op_hi.astype(torch.float32), dtype=torch.float32, free_np=free_np)
-    ext = infer_extruded(scene)
-    if ext is not None and extruded_mg_coarsenable(ext[2] - 1):
-        raise _not_ported("solve_many extruded", "12")
-    tdims = infer_topo_dims(scene)
-    if tdims is not None and curv_coarsenable(tdims):
-        return build_curvilinear(scene, tdims)
+    route, dims = _grid_route(scene)
+    if route == "voxel":
+        return _voxel_build(scene, dims)
+    if route == "curvilinear":
+        return _cached_curvilinear(scene, dims)
     det = infer_subgrid_embedding(scene)
     if det is not None and not det[2].all() and curv_coarsenable(det[0]):
         raise _not_ported("solve_many embedded (box-subset)", "11")

@@ -24,17 +24,22 @@ H100's form:
   * **On a CUDA tensor** the step of each case is captured once as a CUDA
     graph, after one eager warm-up step on the capture stream (frozen by a
     zero budget) that builds the kernels and sets their shared-memory
-    attributes. The host replays the graph once an iteration. After each
-    round of replays it copies every case's status (rr, iterations, done,
-    blown, ``||b||^2``) into a ring of pinned buffers and records an
-    event; it then waits for the event of the round before, so the card
-    always has a round queued while the host reads, and it stops replaying
-    a case once it has seen it halt: at most one replay a pass runs past
-    convergence, and it is frozen. k (``FEA_TPU_STAGED_K``, default 16,
-    the reference's variable) is the length of the ring: it changes when
-    the host reads, never what the card computes.
+    attributes. One capture stream a device serves every capture, so the
+    stream's own first-use costs are paid once. The host replays the graph
+    once an iteration. After each round of replays it copies every case's
+    status row (rr, iterations, done, blown, ``||b||^2``) into one of two
+    pinned buffers and records an event; it then waits for the event of
+    the round before, so the card always has a round queued while the host
+    reads, and it stops replaying a case once it has seen it halt: at most
+    one replay a pass runs past convergence, and it is frozen.
   * **On a CPU tensor** the same step runs eagerly and the host reads each
     round at once. That is the plain version, which the tests drive.
+
+A replay is one step, so the reference's ``FEA_TPU_STAGED_K`` (steps a
+dispatch) has no counterpart here. The captured state of a hierarchy (its
+:class:`_Plan`) is kept in this module, keyed on the hierarchy and dropped
+with it, so that a later solve or correction pass on the same
+``(op, mg)`` captures nothing.
 
 A failed capture or replay raises; nothing falls back to the eager loop on
 the card. The kernels' wrappers bump their launch counters, so a capture
@@ -45,8 +50,8 @@ from __future__ import annotations
 
 import functools
 import math
-import os
 import time
+import weakref
 from collections import deque
 from typing import Callable, Optional
 
@@ -59,7 +64,7 @@ from ..solvers.cg import SolveStats
 from ._types import Solution
 from .certify import refine_true
 
-__all__ = ["COUNTS", "solve_operator_fpcg_staged", "staged_k"]
+__all__ = ["COUNTS", "solve_operator_fpcg_staged"]
 
 # What the staged loops did, kept like the kernels' LAUNCHES (zero them
 # before a solve, read them after): steps run (graph replays on the card,
@@ -70,17 +75,21 @@ COUNTS = {"steps": 0, "live": 0, "past": 0, "readbacks": 0, "captures": 0, "capt
 
 _COUNTERS = (cuda_stencil.LAUNCHES, cuda_varstencil.LAUNCHES, cuda_apply.LAUNCHES)
 _STATUS = 5  # a case's status row: rr, iterations, done, blown, ||b||^2
-
-
-def staged_k() -> int:
-    """Length of the host's readback ring: ``FEA_TPU_STAGED_K``, else 16."""
-    v = os.environ.get("FEA_TPU_STAGED_K")
-    return max(1, int(v)) if v else 16
+_PLANS: dict = {}  # id(hierarchy) -> its _Plan, dropped with the hierarchy
+_STREAMS: dict = {}  # device -> the stream every capture on it runs on
 
 
 class _Case:
     """One right-hand side's FCG state in static tensors, and its captured
-    step. ``status`` is this case's row of the plan's status tensor."""
+    step. ``status`` is this case's row of the plan's status tensor: rr, the
+    iteration count, done, blown (flags as 0.0 / 1.0) and ``||b||^2`` live
+    there, so the host reads the state itself.
+
+    The step is written in the few kernel families the Python loop and the
+    V-cycle already use (arithmetic, compares, ``where``, ``addcmul``): a
+    process loads each family's module at its first launch and pays for it
+    in its first solve (up to ~30 ms a module on an H100, by
+    ``chip_pair.py --solves DIR:profile``)."""
 
     def __init__(self, index: int, shape, device: torch.device, status: torch.Tensor):
         f64 = torch.float64
@@ -89,14 +98,12 @@ class _Case:
         def vec():
             return torch.zeros(shape, dtype=f64, device=device)
 
-        def scalar(v, dtype=f64):
-            return torch.full((), v, dtype=dtype, device=device)
+        def scalar(v):
+            return torch.full((), v, dtype=f64, device=device)
 
         self.x, self.r, self.r_old, self.p = vec(), vec(), vec(), vec()
-        self.rz, self.rr, self.b2, self.thresh2, self.blowup = (scalar(v) for v in (1.0, 0.0, 0.0, 0.0, 0.0))
-        self.done, self.blown = scalar(False, torch.bool), scalar(False, torch.bool)
-        self.it, self.limit = scalar(0, torch.int64), scalar(0, torch.int64)
-        self.status = status
+        self.rz, self.thresh2, self.blowup, self.limit = (scalar(v) for v in (1.0, 0.0, 0.0, 0.0))
+        self.rr, self.it, self.done, self.blown, self.b2 = status.unbind(0)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.credits: list[tuple[dict, str, int]] = []  # (counter, key, launches a replay)
         self.steps = 0
@@ -118,25 +125,24 @@ class _Case:
         safe = torch.where(self.b2 > 0, self.b2, 1.0)
         torch.mul(safe, tol * tol, out=self.thresh2)
         # a residual 1e12x above its start (or NaN) can only get worse
-        torch.mul(torch.maximum(self.rr, safe), 1e12, out=self.blowup)
-        torch.le(self.rr, self.thresh2, out=self.done)
-        torch.ne(self.rr, self.rr, out=self.blown)
+        torch.mul(torch.where(self.rr > safe, self.rr, safe), 1e12, out=self.blowup)
+        self.done.copy_(self.rr <= self.thresh2)
+        self.blown.copy_(self.rr != self.rr)
         self.it.zero_()
         self.limit.fill_(limit)
         self.steps = 0
-        self._publish()
-        self.status[4].copy_(self.b2)
 
     def step(self, apply: Callable, precond: Callable) -> None:
         """One FCG iteration on the static state, frozen unless live."""
         f64 = torch.float64
-        live = ~(self.done | self.blown) & (self.it < self.limit)
+        live_f = (1.0 - self.done) * (1.0 - self.blown) * (self.it < self.limit)  # 1.0 or 0.0
+        live = live_f > 0
         z = precond(self.r.to(torch.float32)).to(f64)
         rz_new = precise_dot(self.r, z)
         beta = (rz_new - precise_dot(self.r_old, z)) / torch.where(self.rz != 0, self.rz, 1.0)
         torch.where(live, self.r, self.r_old, out=self.r_old)
         # p = z + beta p when live; frozen, p * 1 + 0 * z leaves p as it was
-        self.p.mul_(torch.where(live, beta, 1.0)).addcmul_(live.to(f64), z)
+        self.p.mul_(torch.where(live, beta, 1.0)).addcmul_(live_f, z)
         Ap = apply(self.p)
         pAp = precise_dot(self.p, Ap)
         alpha = torch.where(live, rz_new / torch.where(pAp > 0, pAp, 1.0), 0.0)
@@ -145,17 +151,9 @@ class _Case:
         rr_new = precise_dot(self.r, self.r)
         torch.where(live, rr_new, self.rr, out=self.rr)
         torch.where(live, rz_new, self.rz, out=self.rz)
-        self.done.logical_or_(live & (rr_new <= self.thresh2))
-        self.blown.logical_or_(live & ~(rr_new < self.blowup))
-        self.it.add_(live)
-        self._publish()
-
-    def _publish(self) -> None:
-        s = self.status
-        s[0].copy_(self.rr)
-        s[1].copy_(self.it)
-        s[2].copy_(self.done)
-        s[3].copy_(self.blown)
+        self.done.add_(live_f * (rr_new <= self.thresh2))
+        self.blown.add_(live_f).sub_(live_f * (rr_new < self.blowup))  # NaN compares false: blown
+        self.it.add_(live_f)
 
     def capture(self, step: Callable[[], None], stream: torch.cuda.Stream, pool) -> None:
         """Capture ``step`` into this case's graph on ``stream``; the launch
@@ -183,28 +181,31 @@ class _Case:
 
 class _Plan:
     """The cases of one (operator, hierarchy) pair: their static state, their
-    captured steps on the card, one status tensor and the readback ring.
+    captured steps on the card, one status tensor and two pinned buffers
+    the host reads it through.
 
     Holds the operator (its tensors feed the graphs) but not the hierarchy,
-    which holds the plan (``fcg_graphs``): no reference cycle keeps a
-    hierarchy's memory alive after its last user drops it."""
+    which keys it in ``_PLANS``: nothing here keeps a hierarchy alive, and
+    the plan goes with it."""
 
-    def __init__(self, op, mg, n_cases: int, k: int):
+    def __init__(self, op, mg, n_cases: int):
         self.op = op
         device = op.free.device
         self.cuda = device.type == "cuda"
         self.status = torch.zeros((n_cases, _STATUS), dtype=torch.float64, device=device)
         self.cases = [_Case(i, op.free.shape, device, self.status[i]) for i in range(n_cases)]
-        self.k = k
         self.slot = 0
         if self.cuda:
-            self.ring = torch.zeros((max(k, 2), n_cases, _STATUS), dtype=torch.float64, pin_memory=True)
-            self.events = [torch.cuda.Event() for _ in range(self.ring.shape[0])]
+            # the host reads one round behind the card: two buffers suffice
+            self.ring = torch.zeros((2, n_cases, _STATUS), dtype=torch.float64, pin_memory=True)
+            self.events = [torch.cuda.Event(), torch.cuda.Event()]
             self._capture(mg, device)
 
     def _capture(self, mg, device: torch.device) -> None:
         t0 = time.perf_counter()
-        stream = torch.cuda.Stream(device)
+        stream = _STREAMS.get(device)
+        if stream is None:
+            stream = _STREAMS[device] = torch.cuda.Stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):
             # warm-up: a fresh case has a zero budget, so the step is frozen
@@ -213,7 +214,6 @@ class _Plan:
         for case in self.cases:
             case.capture(functools.partial(case.step, self.op.apply, mg), stream, pool)
         torch.cuda.current_stream(device).wait_stream(stream)
-        torch.cuda.synchronize(device)
         COUNTS["captures"] += len(self.cases)
         COUNTS["capture_ms"] += (time.perf_counter() - t0) * 1e3
 
@@ -232,7 +232,7 @@ class _Plan:
         if not self.cuda:
             return self.status.numpy().copy()
         slot = self.slot
-        self.slot = (slot + 1) % self.ring.shape[0]
+        self.slot = 1 - slot
         self.ring[slot].copy_(self.status, non_blocking=True)
         self.events[slot].record(torch.cuda.current_stream(self.status.device))  # the copy's stream
         return slot
@@ -256,9 +256,9 @@ class _Plan:
                 status = self._read(pending.popleft())
                 live = [c for c in live if not (status[c.index, 2] or status[c.index, 3])]
                 reads += 1
-                if reads % self.k == 0 and live:
+                if live:
                     worst = max(status[c.index, 0] / max(status[c.index, 4], 1e-300) for c in live)
-                    say(f"iteration {reads}: {len(live)} case(s) live, worst rel_res {math.sqrt(worst):.3e}")
+                    say(f"round {reads}: {len(live)} case(s) live, worst rel_res {math.sqrt(worst):.3e}")
             live = [c for c in live if c.steps < limit]
             if not live:
                 break
@@ -275,18 +275,21 @@ class _Plan:
 
 
 def _plan_for(op, mg, n_cases: int) -> _Plan:
-    """The plan of (op, mg) for ``n_cases`` cases, kept on the hierarchy
-    (``mg.fcg_graphs``) so that a solve captures at most once, and later
-    solves and correction passes on the same pair capture nothing."""
-    store = getattr(mg, "fcg_graphs", None)
-    k = staged_k()
-    key = (id(op), n_cases, k)
-    plan = None if store is None else store.get(key)
+    """The plan of (op, mg) for ``n_cases`` cases: one a hierarchy, kept
+    until the hierarchy goes, so that a solve captures at most once and
+    later solves and correction passes on the same pair capture nothing."""
+    key = id(mg)
+    plan = _PLANS.get(key)
+    if plan is not None and plan.op is op and len(plan.cases) == n_cases:
+        return plan
     if plan is None:
-        plan = _Plan(op, mg, n_cases, k)
-        if store is not None:
-            store.clear()  # one plan a hierarchy bounds the memory held
-            store[key] = plan
+        try:
+            weakref.finalize(mg, _PLANS.pop, key, None)
+        except TypeError:  # a preconditioner that takes no weak reference keeps no plan
+            return _Plan(op, mg, n_cases)
+    else:
+        del _PLANS[key], plan  # free the old plan's memory before the new one takes its own
+    plan = _PLANS[key] = _Plan(op, mg, n_cases)
     return plan
 
 

@@ -7,6 +7,7 @@ true residual, so they agree to 1e-7 of the displacements' scale at tol
 1e-10; against the JAX batch, 10 tol of scale.
 """
 import dataclasses
+import gc
 import sys
 
 import jax.numpy as jnp
@@ -205,3 +206,33 @@ def test_renumbered_scene_takes_its_own_loads_each_time(counted_builds):
         u = sol.displacements.numpy()[pi]
         assert np.allclose(u, ref.displacements.numpy(), rtol=0, atol=1e-12 * np.abs(u).max())
     assert len(counted_builds) == 1 + 2
+
+
+def test_solve_many_takes_the_build_of_solve(counted_builds):
+    """``solve_many`` on a mesh ``solve()`` has built takes the cached
+    build, and its cases agree with single solves."""
+    nodes, elements, fixed, loads = distorted(4, 4, 16, seed=6)
+    scene = _scene(nodes, elements, fixed, loads)
+    single = ftt.solve(scene, tol=1e-8)
+    batch = np.stack([loads, -2.0 * loads])
+    sol = ftt.solve_many(scene, batch, tol=1e-8)
+    assert len(counted_builds) == 1
+    assert _close(sol.displacements[0], single.displacements, 1e-7)
+    assert _close(sol.displacements[1], -2.0 * single.displacements.numpy(), 1e-7)
+
+
+def test_clear_build_cache_drops_the_builds_and_their_plans(counted_builds):
+    staged = sys.modules["fea_tpu_torch.solve.staged"]
+    nodes, elements, fixed, loads = distorted(4, 4, 16, seed=7)
+    scene = _scene(nodes, elements, fixed, loads)
+    ftt.solve(scene, tol=1e-8)
+    (kind,) = CACHE._BUILD_CACHE
+    (entry,) = CACHE._BUILD_CACHE[kind]
+    key = id(entry[2][1])  # the cached hierarchy keys its captured plan
+    del entry
+    assert key in staged._PLANS
+    ftt.clear_build_cache()
+    gc.collect()
+    assert key not in staged._PLANS and not any(CACHE._BUILD_CACHE.values())
+    ftt.solve(scene, tol=1e-8)
+    assert len(counted_builds) == 2

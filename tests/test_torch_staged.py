@@ -9,6 +9,9 @@ hierarchy has a second level), and the port's own Python loop
 reference (the rotated start may move the last step at the edge of tol),
 displacements and reactions within 10 tol of their scale.
 """
+import copy
+import dataclasses
+import gc
 import sys
 
 import jax.numpy as jnp
@@ -104,17 +107,21 @@ def _counts_zeroed():
     return STAGED.COUNTS
 
 
-def test_history_length_changes_nothing_and_matches_the_python_loop(slender, monkeypatch):
+def test_a_second_solve_replays_the_plan_and_matches_the_python_loop(slender):
+    """A second solve on one (op, mg) takes the first one's plan, restarts
+    every static buffer, and gives the same bits; both agree with the
+    Python loop."""
     sc, op, mg = slender
     presc = sc.prescribed_or_zero(torch.float64)
-    runs = {}
-    for k in ("1", "16"):
-        monkeypatch.setenv("FEA_TPU_STAGED_K", k)
+    runs, plans = [], []
+    for _ in range(2):
         counts = _counts_zeroed()
-        runs[k] = solve_operator_fpcg_staged(op, sc.loads, presc, mg, tol=1e-8)
+        runs.append(solve_operator_fpcg_staged(op, sc.loads, presc, mg, tol=1e-8))
+        plans.append(STAGED._PLANS[id(mg)])
         # the CPU reads every round at once: no step runs past a halt
-        assert counts["past"] == 0 and counts["steps"] == counts["live"] == runs[k].stats.iterations
-    a, b = runs["1"], runs["16"]
+        assert counts["past"] == 0 and counts["steps"] == counts["live"] == runs[-1].stats.iterations
+    a, b = runs
+    assert plans[0] is plans[1]
     assert a.stats == b.stats
     assert torch.equal(a.displacements, b.displacements) and torch.equal(a.reactions, b.reactions)
     loop = solve_operator_fpcg(op, sc.loads, presc, mg, tol=1e-8)
@@ -122,6 +129,21 @@ def test_history_length_changes_nothing_and_matches_the_python_loop(slender, mon
     u = loop.displacements
     assert float((a.displacements - u).abs().max()) <= 10 * 1e-8 * float(u.abs().max())
     assert a.stats.converged and a.stats.relative_residual <= 1e-8
+
+
+def test_a_hierarchy_keeps_one_plan_and_drops_it_when_it_goes(slender):
+    sc, op, mg = slender
+    mine = copy.copy(mg)  # a hierarchy of its own, over the same levels
+    key = id(mine)
+    solve_operator_fpcg_staged(op, sc.loads, None, mine, tol=1e-6)
+    first = STAGED._PLANS[key]
+    assert first.op is op and len(first.cases) == 1
+    other = dataclasses.replace(op)  # another operator object: the plan is made anew
+    solve_operator_fpcg_staged(other, sc.loads, None, mine, tol=1e-6)
+    assert STAGED._PLANS[key] is not first and STAGED._PLANS[key].op is other
+    del mine
+    gc.collect()
+    assert key not in STAGED._PLANS
 
 
 def test_impossible_tol_is_reported_not_converged(slender):
@@ -139,9 +161,8 @@ def test_zero_rhs_takes_no_iteration(slender):
     assert float(got.displacements.abs().max()) == 0.0
 
 
-def test_max_iters_is_exact_whatever_the_history_length(slender, monkeypatch):
+def test_max_iters_is_exact(slender):
     sc, op, mg = slender
-    monkeypatch.setenv("FEA_TPU_STAGED_K", "4")
     counts = _counts_zeroed()
     got = solve_operator_fpcg_staged(op, sc.loads, None, mg, tol=1e-30, max_iters=5)
     assert got.stats.iterations == 5 and not got.stats.converged
