@@ -110,8 +110,29 @@ Phases, in order:
      flagship grid, each host-checked by ``host_ku``, case 0 against a
      single ``solve()``, the batch's wall a case beside one warm solve,
      peak memory;
- 14. one JSON line of the kernels, the card's line, then the last line
-     ``{"ok": true, "device": {...}}``.
+ 14. embedded slice: bench.py's ``arbitrary`` cell (tools/arbitrary_bench.py:
+     the 40x40x144 L-domain, 554,115 DOF in a 243,745-node box, interior
+     nodes moved by 0.2 h U(-1, 1), seed 7) through ``fea_tpu_torch.solve``:
+     K4/K5 against their plain version on the void-masked fine field (void
+     rows exactly zero), timed beside their bound, the plain version and a
+     CSR SpMV; the solve (K4/K5 launched, K1/K2 not, the AMG route never
+     called), host-checked by ``host_ku`` on the real mesh, its iterations
+     beside the reference's, the set-up stages, the FCG stage, the peak
+     memory, a second ``solve()`` from the cache, ``loop_vs_staged``, and
+     ``solve_many`` of 8 tip loads, each host-checked;
+ 15. AMG slice: the same scene with ``FEA_TPU_NO_EMBED`` set (restored
+     after), through ``solve()``: the AMG route (the embedded one never
+     called), its set-up by stage, iterations beside the reference's, the
+     host check, the BCSR apply in f64 and f32 timed on the card beside its
+     byte bound and cuSPARSE (CSR; BSR where torch takes it), and
+     ``loop_vs_staged``;
+ 16. two-level slice: the 20x20x72 L-domain (73,899 DOF, the tool's default
+     size) with ``FEA_TPU_NO_EMBED`` and ``FEA_TPU_NO_AMG`` set: the
+     two-level route, its builds, iterations and host check, the
+     element-by-element (``hex8_matfree``) apply timed as in [15], and the
+     block-Jacobi fallback, forced once by a failing two-level build;
+ 17. one JSON line of the kernels, one of the compute with no TPU kernel,
+     the card's line, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the last line.
 """
@@ -126,8 +147,10 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -179,6 +202,17 @@ SLAB_SMALL = [((2, 2, 12), 8), ((2, 2, 12), 3), ((3, 2, 5), 8), ((3, 2, 5), 2), 
               ((300, 2, 6), 2)]  # rows of 301 nodes, cut into segments
 SLAB_FLAGSHIP_SHARDS = (2, 3, 4, 8)
 SHARDS = 4  # [12]: four shards, all on the one card
+ARBITRARY = (40, 40, 144)  # bench.py's arbitrary cell: the L-domain of 554,115 DOF in a 243,745-node box
+TWO_LEVEL_L = (20, 20, 72)  # tools/arbitrary_bench.py's default size: 73,899 DOF
+# iteration counts of the JAX package on its TPU, not times: BENCH_r05's
+# arbitrary (embedded), docs/PERF.md:916-926 (AMG on the same scene) and
+# docs/PERF.md:913-915 (the two-level scheme at 74k, "57+")
+EMBED_REF_ITERS = 72
+AMG_REF_ITERS = 56
+TWO_LEVEL_REF_ITERS = 57
+# fea_tpu.solve(tol=1e-8) of the TWO_LEVEL_L scene with FEA_TPU_NO_EMBED and
+# FEA_TPU_NO_AMG set, JAX on the CPU in f64: 28 iterations, residual 1.15e-9
+TWO_LEVEL_JAX_ITERS = 28
 CUBEBEAM_ANCHOR = 3.0504e-4  # max|u| of the cubebeam demo (tests/test_integration.py)
 # NVIDIA H100 SXM data sheet: 3.35 TB/s of HBM3; 67 TFLOP/s f32 and
 # 34 TFLOP/s f64 outside the tensor cores, at the full 700 W
@@ -987,25 +1021,17 @@ def run_curvilinear(ftt, cuda_stencil, cuda_varstencil) -> dict:
 
 def cached_second_solve(ftt, scene, new_loads, first_wall: float, host_rel, check_tol: float = 1e-8) -> None:
     """A second ``solve(tol=1e-8)`` of ``scene``'s mesh with ``new_loads``:
-    it must take its build from the cache (no call of ``build_curvilinear``
-    or ``canonicalize_scene``) and pass the host check ``host_rel(u) <=
-    check_tol``."""
+    it must take its build from the cache (no call of ``build_curvilinear``,
+    ``canonicalize_scene`` or ``build_subgrid_embedded``) and pass the host
+    check ``host_rel(u) <= check_tol``."""
     curv = sys.modules["fea_tpu_torch.solve.curv"]
     canonical = sys.modules["fea_tpu_torch.ops.canonical"]
-    build_fns = {"build_curvilinear": curv, "canonicalize_scene": canonical}
+    embed = sys.modules["fea_tpu_torch.solve.embed"]
+    build_fns = {"build_curvilinear": curv, "canonicalize_scene": canonical, "build_subgrid_embedded": embed}
     calls = []
-    originals = {name: getattr(mod, name) for name, mod in build_fns.items()}
-    for name, mod in build_fns.items():
-        setattr(mod, name, lambda *a, _fn=originals[name], _name=name, **kw: calls.append(_name) or _fn(*a, **kw))
-    try:
+    with patched({(mod, name): spy(calls, name, getattr(mod, name)) for name, mod in build_fns.items()}):
         second = dataclasses.replace(scene, loads=torch.as_tensor(new_loads, dtype=scene.loads.dtype, device=DEV))
-        t0 = time.perf_counter()
-        sol = ftt.solve(second, tol=1e-8)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        for name, mod in build_fns.items():
-            setattr(mod, name, originals[name])
+        sol, wall = timed(lambda: ftt.solve(second, tol=1e-8))
     rel = host_rel(sol.displacements.cpu().numpy())
     say(f"  second solve() of the mesh with new loads: {wall:.3f} s (the first {first_wall:.3f} s), build functions called "
         f"{calls or 'none'}; {sol.stats.iterations} iterations, host f64 true relative residual {rel:.3e}")
@@ -1789,6 +1815,407 @@ def run_many(ftt, counters) -> dict:
     return counts
 
 
+def arbitrary_scene(ftt, dims):
+    """tools/arbitrary_bench.py's scene at ``dims``: the L-domain
+    ``l_hex_mesh(nx, ny, nz, 0.1, 0.1, 0.1 nz / nx)``, interior nodes moved
+    by 0.2 h U(-1, 1) (seed 7, h = 0.1 / nx), z = 0 fixed, a +y load of
+    1 / n_tip on the tip face, E = 10e6 psi, nu = 0.3; on the card."""
+    nx, ny, nz = dims
+    lz = 0.1 * nz / nx
+    nodes, elements = ftt.mesh.l_hex_mesh(nx, ny, nz, 0.1, 0.1, lz)
+    rng = np.random.default_rng(7)
+    interior = (nodes[:, 2] > 1e-12) & (nodes[:, 2] < lz - 1e-12)
+    nodes = nodes + 0.2 * (0.1 / nx) * rng.uniform(-1, 1, nodes.shape) * interior[:, None]
+    fixed = ftt.fix_where(nodes, lambda q: np.isclose(q[:, 2], 0.0), 3)
+    loads = np.zeros_like(nodes)
+    tip = np.isclose(nodes[:, 2], lz)
+    loads[tip, 1] = 1.0 / tip.sum()
+    mat = ftt.Material(E=10_000_000 * ftt.units.psi, nu=0.3)
+    scene = ftt.make_scene(nodes, elements, fixed, loads, mat, dtype=torch.float64, device=DEV)
+    return scene, dict(nodes=nodes, elements=elements, fixed=fixed, loads=loads, tip=tip, mat=mat)
+
+
+def timed(fn):
+    """(fn(), host seconds ending in a synchronize)."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+class patched:
+    """Attributes of modules replaced for the length of a ``with`` block,
+    and environment variables set: ``patched({(module, name): value},
+    env={name: value})``."""
+
+    def __init__(self, attrs: dict, env: Optional[dict] = None):
+        self.attrs, self.env = attrs, env or {}
+
+    def __enter__(self):
+        self.saved = {key: getattr(*key) for key in self.attrs}
+        self.saved_env = {k: os.environ.get(k) for k in self.env}
+        for (mod, name), value in self.attrs.items():
+            setattr(mod, name, value)
+        os.environ.update(self.env)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), value in self.saved.items():
+            setattr(mod, name, value)
+        for k, v in self.saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return False
+
+
+def must_not_run(route: str):
+    def fail(*args, **kwargs):
+        raise AssertionError(f"the {route} route was taken")
+
+    return fail
+
+
+def spy(calls: list, label: str, fn):
+    return lambda *a, **kw: calls.append(label) or fn(*a, **kw)
+
+
+def check_embedded_field(cuda_varstencil, op) -> dict:
+    """K4/K5 against their plain version (f64) on the embedded operator's
+    fine weight field, whose void cells carry zero weights: within the
+    tolerances of [5], and exactly zero on every void node's row; timed
+    beside the plain version, a CSR SpMV of the field and the bound (the
+    nonzero weight blocks, each read once, and the grid in and out)."""
+    from fea_tpu_torch.ops.curvilinear import _OFFSETS, curv_apply_grid
+
+    w64 = op.w
+    Z, Y, X = op.grid_shape
+    g64 = torch.as_tensor(np.random.default_rng(20261018).standard_normal((Z, Y, X, 3)), device=DEV)
+    want = curv_apply_grid(w64, g64)
+    scale = float(want.abs().max())
+    void = (w64.abs().sum(dim=(0, 1, 2)) == 0)  # nodes no cell of the mesh touches
+    nnz_blocks = int((w64.abs().sum(dim=(1, 2)) != 0).sum())
+    report = {}
+    for key in VAR_KEYS:
+        spec = KERNELS[key]
+        w = w64.to(spec["dtype"]).contiguous()
+        g = g64.to(spec["dtype"]).contiguous()
+        got = cuda_varstencil.var_apply(w, g)
+        torch.cuda.synchronize()
+        err = float((got.double() - want).abs().max())
+        rel = err / scale
+        void_zero = bool((got[void] == 0).all())
+        ms = graph_ms(lambda: cuda_varstencil.var_apply(w, g))
+        host_ms = event_ms(lambda: cuda_varstencil.var_apply(w, g))
+        plain_ms = event_ms(lambda: curv_apply_grid(w, g))
+        lib_ms = library_ms(w, g, want)
+        nbytes = (9 * nnz_blocks + 2 * g.numel()) * g.element_size()
+        bound_ms, bound_by = bound(spec["dtype"], nbytes, 2 * 9 * nnz_blocks)
+        say(f"  {spec['name']} on the void-masked {(X - 1, Y - 1, Z - 1)} field ({int(void.sum())} void nodes of "
+            f"{Z * Y * X}, {nnz_blocks} nonzero blocks of {27 * Z * Y * X}): max abs err {err:.3e}, rel {rel:.3e} "
+            f"(tol {spec['tol']:g}), void rows exactly 0: {void_zero}; card {ms:.4f} ms, host pace {host_ms:.4f} ms, "
+            f"plain version {plain_ms:.4f} ms, CSR SpMV {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        require({f"{spec['name']} within {spec['tol']:g}": rel <= spec["tol"], "void rows exactly 0": void_zero},
+                "K4/K5 on the void-masked field")
+        report[key] = dict(max_abs_err=err, ms=ms, host_ms=host_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=bound_ms, bound_by=bound_by)
+        del w, g, got
+    return report
+
+
+def run_embedded(ftt, counters) -> dict:
+    """Phase [14]: the arbitrary cell through the embedded route. Returns
+    the K4/K5 report on its field and the solve's launches."""
+    from fea_tpu_torch.ops import cuda_varstencil
+    from fea_tpu_torch.ops.canonical import infer_subgrid_embedding
+    from fea_tpu_torch.ops.curvilinear import assemble_curv_weights, build_curv_multigrid
+    from fea_tpu_torch.solve import embed, staged
+
+    solve_mod = sys.modules["fea_tpu_torch.solve"]
+    scene, a = arbitrary_scene(ftt, ARBITRARY)
+    nodes, elements, fixed, mat = a["nodes"], a["elements"], a["fixed"], a["mat"]
+    say(f"  scene: {ARBITRARY} L-domain, {scene.n_dof} DOF, {scene.n_elements} elements on {scene.device}")
+    ftt.clear_build_cache()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    taken = []
+    with patched({(solve_mod, "_solve_unstructured_amg"): must_not_run("AMG"),
+                  (solve_mod, "solve_subgrid_embedded"): spy(taken, "embedded", solve_mod.solve_subgrid_embedded)}):
+        zero_counts(staged.COUNTS)
+        sol, launches, whole_s = counted(counters, lambda: ftt.solve(scene, tol=1e-8))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    st = sol.stats
+    say(f"  whole solve (fea_tpu_torch.solve, detection and build included): {whole_s:.3f} s, peak device memory "
+        f"{peak_gb:.3f} GB; {st.iterations} iterations (the reference on its TPU: {EMBED_REF_ITERS}), reported "
+        f"{st.relative_residual:.3e}, converged {st.converged}; replays {staged.COUNTS['steps']}")
+    say(f"  launches in that solve: K1 {launches['f32']}, K2 {launches['f64']}, K4 {launches['var_f32']}, "
+        f"K5 {launches['var_f64']}")
+    u = sol.displacements.cpu().numpy()
+    (Ku, rel_host), host_s = timed(lambda: host_check(nodes, elements, mat, fixed, a["loads"], u))
+    reac_err = float(np.abs(sol.reactions.cpu().numpy() - Ku).max() / np.abs(Ku).max())
+    say(f"  host f64 true relative residual {rel_host:.3e} ({host_s:.1f} s); reactions vs host K u {reac_err:.3e}")
+    require({
+        "the embedded route ran": taken == ["embedded"],
+        "converged": st.converged,
+        "host true residual <= 1e-8": rel_host <= 1e-8,
+        "reactions = K u (1e-10)": reac_err <= 1e-10,
+        "K4 launched": launches["var_f32"] > 0,
+        "K5 launched": launches["var_f64"] > 0,
+        "K1/K2 not launched": launches["f32"] == 0 and launches["f64"] == 0,
+    }, "embedded")
+
+    # the set-up by stage, on the same scene afresh
+    det, t_detect = timed(lambda: infer_subgrid_embedding(scene))
+    dims, lat, valid = det
+    carrier, op, mg, _ = embed._cached_embedding(scene)
+    emb_nodes = carrier.nodes
+    (w, _), t_w = timed(lambda: assemble_curv_weights(emb_nodes, dims, mat, valid=valid))
+    free_np = 1.0 - carrier.fixed.cpu().numpy().astype(np.float64)
+    _, t_mg = timed(lambda: build_curv_multigrid(w, dims, free_np))
+    del w
+    built = embed._cached_embedding(scene)
+    _, t_fcg = timed(lambda: embed.solve_subgrid_embedded(scene, built, tol=1e-8))
+    say(f"  stages: detector (infer_subgrid_embedding) {t_detect:.3f} s, weights on the void-masked box {t_w:.3f} s, "
+        f"multigrid {t_mg:.3f} s, FCG with certification (warm, from the cached build) {t_fcg:.3f} s; box {dims}, "
+        f"{int(valid.sum())} of {valid.size} cells, levels "
+        + ", ".join(f"{lv.dims}:{str(lv.dtype).replace('torch.', '')}" for lv in mg.levels))
+
+    report = check_embedded_field(cuda_varstencil, op)
+
+    new_loads = np.zeros_like(a["loads"])
+    new_loads[a["tip"], 0] = -2.0 / a["tip"].sum()
+    new_loads[a["tip"], 2] = 0.5 / a["tip"].sum()
+    cached_second_solve(ftt, scene, new_loads, whole_s,
+                        lambda v: host_check(nodes, elements, mat, fixed, new_loads, v)[1])
+
+    say("  FCG stage with certification, the Python loop beside the staged loop (one operator and hierarchy):")
+    idx = torch.as_tensor(lat, device=DEV)
+    loads_lat = torch.zeros((carrier.n_nodes, 3), dtype=torch.float64, device=DEV)
+    loads_lat[idx] = scene.loads
+    loop_vs_staged(op, mg, loads_lat, torch.zeros_like(loads_lat),
+                   lambda v: host_check(nodes, elements, mat, fixed, a["loads"], v[lat])[1])
+
+    rng = np.random.default_rng(17)
+    batch = np.zeros((MANY_CASES,) + nodes.shape)
+    for i in range(MANY_CASES):
+        batch[i, a["tip"], 1] = rng.uniform(0.5, 2.0) / a["tip"].sum()
+        batch[i, a["tip"], 0] = rng.uniform(-1.0, 1.0) / a["tip"].sum()
+    many, counts, wall = counted(counters, lambda: ftt.solve_many(scene, batch, tol=1e-8))
+    rels = [host_check(nodes, elements, mat, fixed, batch[i], many.displacements[i].cpu().numpy())[1]
+            for i in range(MANY_CASES)]
+    say(f"  solve_many of {MANY_CASES} tip loads: {wall:.3f} s ({wall / MANY_CASES:.3f} s a case, against "
+        f"{t_fcg:.3f} s for one warm FCG stage); iterations {many.stats.iterations.tolist()}; host f64 true "
+        f"residuals {', '.join(f'{r:.2e}' for r in rels)}; launches K4 {counts['var_f32']}, K5 {counts['var_f64']}")
+    require({"every case converged": bool(many.stats.converged.all()),
+             "every host true residual <= 1e-8": max(rels) <= 1e-8,
+             "K4/K5 launched": counts["var_f32"] > 0 and counts["var_f64"] > 0,
+             "K1/K2 not launched": counts["f32"] == 0 and counts["f64"] == 0}, "embedded solve_many")
+    ftt.clear_build_cache()
+    return dict(report=report, launches={k: launches[k] for k in VAR_KEYS}, iterations=st.iterations)
+
+
+def bcsr_csr(op) -> torch.Tensor:
+    """The (3N, 3N) CSR matrix of a BCSR operator's raw blocks (the zero
+    padding dropped), on its device, int32 indices, rows in order."""
+    N, b, V, _ = op.Wt.shape
+    keep = op.Wt.abs().sum(dim=(1, 3)) != 0  # (N, V) nonzero blocks
+    vals = op.Wt  # (N, i, V, j): row 3n + i, column 3 nbr[n, v] + j
+    cols = (op.nbr[:, None, :, None] * b + torch.arange(b, device=op.nbr.device)).expand(N, b, V, b)
+    mask = keep[:, None, :, None].expand(N, b, V, b)
+    per_row = (b * keep.sum(dim=1)).repeat_interleave(b)
+    crow = torch.zeros(N * b + 1, dtype=torch.int64, device=op.nbr.device)
+    crow[1:] = torch.cumsum(per_row, 0)
+    return torch.sparse_csr_tensor(crow.to(torch.int32), cols[mask].to(torch.int32), vals[mask],
+                                   size=(N * b, N * b), check_invariants=False)
+
+
+def no_kernel_timing(label: str, apply_fn, u: torch.Tensor, want: torch.Tensor, nbytes: int, flops: int,
+                     csr: torch.Tensor) -> dict:
+    """Card and host-pace times of ``apply_fn(u)``, checked against
+    ``want`` (``host_ku``'s K u, which shares no code with the apply), its
+    bound, and one cuSPARSE CSR SpMV of the same product."""
+    got = apply_fn(u)
+    torch.cuda.synchronize()
+    rel = float((got.double() - want).abs().max() / want.abs().max())
+    tol = 1e-12 if u.dtype == torch.float64 else 2e-5
+    x = u.reshape(-1)
+    y = torch.mv(csr, x).reshape(want.shape)
+    lib_rel = float((y.double() - want).abs().max() / want.abs().max())
+    ms = graph_ms(lambda: apply_fn(u))
+    host_ms = event_ms(lambda: apply_fn(u))
+    lib_ms = event_ms(lambda: torch.mv(csr, x))
+    bound_ms, bound_by = bound(u.dtype, nbytes, flops)
+    say(f"  {label}: rel err {rel:.3e} (tol {tol:g}); card {ms:.4f} ms, host pace {host_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), CSR SpMV {lib_ms:.4f} ms (rel {lib_rel:.1e})")
+    require({f"{label} within {tol:g}": rel <= tol, "CSR agrees (1e-5)": lib_rel <= 1e-5}, label)
+    return dict(ms=ms, host_ms=host_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms, max_rel_err=rel)
+
+
+def run_amg(ftt, counters) -> dict:
+    """Phase [15]: the arbitrary cell through the AMG route; the BCSR apply
+    timed. Returns the apply times."""
+    from fea_tpu_torch.solve import cache, staged
+
+    solve_mod = sys.modules["fea_tpu_torch.solve"]
+    scene, a = arbitrary_scene(ftt, ARBITRARY)
+    nodes, elements, fixed, mat = a["nodes"], a["elements"], a["fixed"], a["mat"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_start = [time.perf_counter()]
+
+    def stamp(msg):
+        now = time.perf_counter()
+        torch.cuda.synchronize()
+        say(f"    set-up +{now - t_start[0]:.3f} s: {msg}")
+
+    real_setup = solve_mod.build_amg_setup
+    taken = []
+
+    def staged_setup(sc, **kw):
+        t_start[0] = time.perf_counter()
+        return real_setup(sc, progress=stamp, **kw)
+
+    with patched({(solve_mod, "solve_subgrid_embedded"): must_not_run("embedded"),
+                  (solve_mod, "build_amg_setup"): staged_setup,
+                  (solve_mod, "_solve_unstructured_amg"): spy(taken, "amg", solve_mod._solve_unstructured_amg)},
+                 env={"FEA_TPU_NO_EMBED": "1"}):
+        zero_counts(staged.COUNTS)
+        sol, launches, whole_s = counted(counters, lambda: ftt.solve(scene, tol=1e-8))
+        steps = staged.COUNTS["steps"]
+    if "FEA_TPU_NO_EMBED" in os.environ:
+        raise AssertionError("FEA_TPU_NO_EMBED was not restored")
+    setup = cache._cached_build(("amg", True), scene, must_not_run("a second AMG build"))
+    _, t_fcg = timed(lambda: solve_mod._solve_unstructured_amg(scene, setup, tol=1e-8, max_iters=1000))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    st = sol.stats
+    op, amg = setup
+    say(f"  whole solve (fea_tpu_torch.solve, build included): {whole_s:.3f} s, peak device memory {peak_gb:.3f} GB; "
+        f"{st.iterations} iterations (the reference on its TPU: {AMG_REF_ITERS}), reported {st.relative_residual:.3e}, "
+        f"converged {st.converged}; replays {steps}; FCG with certification alone (warm) {t_fcg:.3f} s; levels "
+        + ", ".join(f"{lv.op.n_nodes}x{lv.op.dofs_per_node} V={lv.op.nbr.shape[1]}" for lv in amg.levels)
+        + f", coarsest inverse {amg.coarse_inv.shape[0]}^2")
+    u = sol.displacements.cpu().numpy()
+    (Ku, rel_host), host_s = timed(lambda: host_check(nodes, elements, mat, fixed, a["loads"], u))
+    reac_err = float(np.abs(sol.reactions.cpu().numpy() - Ku).max() / np.abs(Ku).max())
+    say(f"  host f64 true relative residual {rel_host:.3e} ({host_s:.1f} s); reactions vs host K u {reac_err:.3e}")
+    require({"the AMG route ran": taken == ["amg"], "converged": st.converged,
+             "host true residual <= 1e-8": rel_host <= 1e-8, "reactions = K u (1e-10)": reac_err <= 1e-10,
+             "no kernel launched": not any(launches.values())}, "AMG")
+
+    # the BCSR apply, f64 (the FCG apply) and f32 (the V-cycle's level 0)
+    N, b, V, _ = op.Wt.shape
+    nnz = int((op.Wt.abs().sum(dim=(1, 3)) != 0).sum())
+    csr = bcsr_csr(op)
+    u_np = np.random.default_rng(20261019).standard_normal((N, 3))
+    u64 = torch.as_tensor(u_np, device=DEV)
+    want = torch.as_tensor(host_ku(nodes, elements, float(mat.E), float(mat.nu), u_np), device=DEV)
+    out = {}
+    for key, o in (("bcsr_f64", op), ("bcsr_f32", amg.levels[0].op)):
+        uu = u64.to(o.dtype)
+        esize = uu.element_size()
+        nbytes = nnz * (9 * esize + 4) + 2 * uu.numel() * esize
+        out[key] = no_kernel_timing(f"BCSR apply {str(o.dtype).replace('torch.', '')} ({N} nodes, {nnz} blocks)",
+                                    o.apply_raw, uu, want, nbytes, 18 * nnz, csr if o is op else csr.to(o.dtype))
+    keep = op.Wt.abs().sum(dim=(1, 3)) != 0  # (N, V) nonzero blocks, columns in order within a row
+    try:
+        crow = torch.cat([torch.zeros(1, dtype=torch.int64, device=DEV), torch.cumsum(keep.sum(dim=1), 0)])
+        bsr = torch.sparse_bsr_tensor(crow.to(torch.int32), op.nbr[keep].to(torch.int32),
+                                      op.Wt.permute(0, 2, 1, 3)[keep], size=(3 * N, 3 * N))
+        y = (bsr @ u64.reshape(-1, 1)).reshape(N, 3)
+        bsr_rel = float((y - want).abs().max() / want.abs().max())
+        bsr_ms = event_ms(lambda: bsr @ u64.reshape(-1, 1))
+        say(f"  torch.sparse BSR (3x3 blocks) product f64: {bsr_ms:.4f} ms (rel {bsr_rel:.1e})")
+        out["bcsr_f64"]["bsr_ms"] = bsr_ms
+        del bsr
+    except (RuntimeError, NotImplementedError) as exc:  # a library comparison, not a path of the port
+        say(f"  torch.sparse BSR product f64: not taken by this torch ({type(exc).__name__}: {str(exc)[:120]})")
+    out["bcsr_f64"]["applies"] = f"{steps} replays x 1 + certification"
+    out["bcsr_f32"]["applies"] = f"{steps} replays x {2 * amg.degree + 1} (level 0)"
+    del csr
+
+    say("  FCG stage with certification, the Python loop beside the staged loop (one operator and hierarchy):")
+    loop_vs_staged(op, amg, scene.loads, scene.prescribed_or_zero(torch.float64),
+                   lambda v: host_check(nodes, elements, mat, fixed, a["loads"], v)[1])
+    del setup, op, amg
+    ftt.clear_build_cache()
+    return out
+
+
+def run_two_level(ftt, counters) -> dict:
+    """Phase [16]: the 73,899-DOF L-domain through the two-level route, the
+    element-by-element apply timed, and the block-Jacobi fallback forced
+    once. Returns the apply times."""
+    from fea_tpu_torch.assembly import assemble_bcoo
+    from fea_tpu_torch.ops import twolevel
+    from fea_tpu_torch.solve import staged
+
+    solve_mod = sys.modules["fea_tpu_torch.solve"]
+    scene, a = arbitrary_scene(ftt, TWO_LEVEL_L)
+    nodes, elements, fixed, mat = a["nodes"], a["elements"], a["fixed"], a["mat"]
+    say(f"  scene: {TWO_LEVEL_L} L-domain, {scene.n_dof} DOF, {scene.n_elements} elements")
+    ftt.clear_build_cache()
+    off = {"FEA_TPU_NO_EMBED": "1", "FEA_TPU_NO_AMG": "1"}
+    taken = []
+    with patched({(solve_mod, "_solve_unstructured_two_level"):
+                  spy(taken, "two-level", solve_mod._solve_unstructured_two_level)}, env=off):
+        op64, t_op = timed(lambda: solve_mod._operator_f64(scene, True))
+        tl, t_tl = timed(lambda: solve_mod._two_level(scene, op64))
+        zero_counts(staged.COUNTS)
+        sol, launches, t_solve = counted(counters, lambda: ftt.solve(scene, tol=1e-8))
+        steps = staged.COUNTS["steps"]
+    st = sol.stats
+    say(f"  stages: f64 operator {t_op:.3f} s, two-level build ({tl.n_aggs} aggregates, coarse "
+        f"{tl.ac_inv.shape[0]}^2 inverted on the card) {t_tl:.3f} s, solve() from those builds {t_solve:.3f} s; "
+        f"{st.iterations} iterations (the reference on its TPU: {TWO_LEVEL_REF_ITERS}+), reported "
+        f"{st.relative_residual:.3e}, replays {steps}; launches K6 {launches['stored_f64']}, K7 {launches['uniform_f64']}")
+    u = sol.displacements.cpu().numpy()
+    _, rel_host = host_check(nodes, elements, mat, fixed, a["loads"], u)
+    say(f"  host f64 true relative residual {rel_host:.3e} (the JAX package on the CPU: {TWO_LEVEL_JAX_ITERS} "
+        f"iterations)")
+    require({"the two-level route ran": taken == ["two-level"], "converged": st.converged,
+             "host true residual <= 1e-8": rel_host <= 1e-8, "fixed rows exactly 0": not u[fixed].any(),
+             f"iterations <= {TWO_LEVEL_JAX_ITERS} + 3": st.iterations <= TWO_LEVEL_JAX_ITERS + 3}, "two-level")
+
+    # the element-by-element (hex8_matfree) apply, f64 (the FCG apply) and f32 (the smoother's)
+    E = elements.shape[0]
+    csr = assemble_bcoo(op64.element_matrices(), op64.elements, 3, scene.n_dof).to_sparse_csr()
+    u_np = np.random.default_rng(20261020).standard_normal(nodes.shape)
+    u64 = torch.as_tensor(u_np, device=DEV)
+    want = torch.as_tensor(host_ku(nodes, elements, float(mat.E), float(mat.nu), u_np), device=DEV)
+    out = {}
+    for key, o in (("matfree_f64", op64), ("matfree_f32", tl.op32)):
+        uu = u64.to(o.dtype)
+        esize = uu.element_size()
+        # gradients (E, 8, 3, 8) and weights (E, 8), the connectivity (int64)
+        # and the incidence plan (positions int64 + mask), u in, K u out
+        plan = o.plan.positions.numel() * (8 + esize)
+        nbytes = E * (8 * 24 + 8) * esize + E * 8 * 8 + plan + 2 * uu.numel() * esize
+        flops = E * 8 * (2 * 3 * 8 * 3 * 2 + 30)  # H = G u and G^T sigma, 144 flops each, and the stress
+        out[key] = no_kernel_timing(f"hex8_matfree apply {str(o.dtype).replace('torch.', '')} ({E} elements)",
+                                    o.apply_raw, uu, want, nbytes, flops, csr if o is op64 else csr.to(o.dtype))
+    out["matfree_f64"]["applies"] = f"{steps} replays x 1 + certification"
+    out["matfree_f32"]["applies"] = f"{steps} replays x {2 * tl.degree + 1}"
+    del csr, op64, tl
+
+    # the block-Jacobi fallback, forced by a two-level build that fails
+    def boom(*args, **kwargs):
+        raise RuntimeError("forced two-level build failure")
+
+    ftt.clear_build_cache()
+    with patched({(twolevel, "build_two_level_cheb"): boom}, env=off), warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        sol_b, _, t_b = counted(counters, lambda: ftt.solve(scene, tol=1e-8))
+    msgs = [str(w.message) for w in seen if issubclass(w.category, RuntimeWarning)]
+    _, rel_b = host_check(nodes, elements, mat, fixed, a["loads"], sol_b.displacements.cpu().numpy())
+    say(f"  block-Jacobi fallback: warned {msgs[:1]}; {sol_b.stats.iterations} iterations in {t_b:.3f} s, host f64 "
+        f"true relative residual {rel_b:.3e}")
+    require({"warned": any("two-level preconditioner build failed" in m for m in msgs),
+             "converged": sol_b.stats.converged, "host true residual <= 1e-8": rel_b <= 1e-8}, "block-Jacobi fallback")
+    ftt.clear_build_cache()
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -1853,11 +2280,26 @@ def main() -> None:
     phase(f"[13] solve_many: {MANY_CASES} load cases on the flagship grid")
     run_many(ftt, counters)
 
+    phase(f"[14] embedded slice: the {ARBITRARY} L-domain (554,115 DOF) through fea_tpu_torch.solve")
+    embedded = run_embedded(ftt, counters)
+    for key in VAR_KEYS:  # the K4/K5 entries carry the embedded route beside the curvilinear one
+        got = embedded["report"][key]
+        report[key]["max_abs_err"] = max(report[key]["max_abs_err"], got["max_abs_err"])
+        report[key].update({f"embedded_{k}": v for k, v in got.items() if k != "max_abs_err"})
+        report[key]["embedded_launches"] = embedded["launches"][key]
+
+    phase("[15] AMG slice: the same L-domain with FEA_TPU_NO_EMBED set")
+    no_kernel = run_amg(ftt, counters)
+
+    phase(f"[16] two-level slice: the {TWO_LEVEL_L} L-domain with FEA_TPU_NO_EMBED and FEA_TPU_NO_AMG set")
+    no_kernel.update(run_two_level(ftt, counters))
+
     say(json.dumps({"kernels": [
         dict(name=spec["name"], route="cuda", source=spec["source"], replaces=spec["replaces"],
              launches=launches[key], **report[key])
         for key, spec in KERNELS.items()
     ]}))
+    say(json.dumps({"no_tpu_kernel": no_kernel}))
     say(smi)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

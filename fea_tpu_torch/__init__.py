@@ -6,8 +6,13 @@ gives the same solution out. It imports torch and NumPy, never JAX. This
 version serves:
 
   * the large hex8 routes: the voxel box (K1/K2), the curvilinear grid
-    (K4/K5) and the canonicalized (renumbered) grid;
-  * ``solve_many``: many load cases on one voxel or curvilinear mesh;
+    (K4/K5), the canonicalized (renumbered) grid, a box subset embedded
+    in its box (K4/K5), and any other topology by block-CSR
+    smoothed-aggregation AMG, else the two-level preconditioner
+    (``build_two_level``, ``build_two_level_cheb``); only an extruded mesh
+    still raises;
+  * ``solve_many``: many load cases on one mesh of any of those routes
+    but AMG (the arbitrary branch takes the two-level preconditioner);
   * the voxel box z-sharded over several devices
     (``parallel.build_zsharded_solver``, K3 and K1's halo form), which
     ``solve`` takes under ``SolverConfig(sharded=True)`` when more than
@@ -40,6 +45,7 @@ from . import assembly, mesh, post
 from .config import DEFAULT_CONFIG, SolverConfig
 from .materials import Material, units
 from .operator import StiffnessOperator, build_operator
+from .ops.twolevel import TwoLevelChebPrecond, TwoLevelPrecond, build_two_level, build_two_level_cheb
 from .scene import FAMILIES, ElementFamily, Scene, fix_where, make_scene, scene_from_numpy
 from .solve import (
     Solution,
@@ -69,9 +75,13 @@ __all__ = [
     "SolveStats",
     "SolverConfig",
     "StiffnessOperator",
+    "TwoLevelChebPrecond",
+    "TwoLevelPrecond",
     "assembly",
     "build_curvilinear",
     "build_operator",
+    "build_two_level",
+    "build_two_level_cheb",
     "clear_build_cache",
     "dense_solve",
     "fix_where",

@@ -126,38 +126,24 @@ def _b_matrices(G: torch.Tensor) -> torch.Tensor:
     return B.reshape(G.shape[:-2] + (6, 24))
 
 
-def _c_matrix_np(material: Material) -> np.ndarray:
-    lam, mu = lame_parameters(material)
-    C = np.zeros((6, 6))
-    C[:3, :3] = lam
-    C[np.arange(3), np.arange(3)] += 2.0 * mu
-    C[np.arange(3, 6), np.arange(3, 6)] = mu
-    return C
-
-
 def batched_ke(xe: torch.Tensor, material: Material) -> tuple[torch.Tensor, torch.Tensor]:
     """Stiffness of a chunk of elements on xe's device, in xe's dtype.
 
     ``xe`` (E, 8, 3) corner coordinates in the element's node order.
-    Returns the (E, 24, 24) Ke batch, sum_q detJ B^T C B, and the minimum
-    detJ over the chunk's quadrature points as a 0-d tensor (the caller
-    checks it once per assembly). Counterpart of
+    Returns the (E, 24, 24) Ke batch, sum_q detJ B^T C B, and each
+    element's minimum detJ over its quadrature points, (E,) (the caller
+    checks the least once per assembly). The Jacobians are inverted in
+    closed form, so a degenerate element gives inf or NaN entries rather
+    than an error. Counterpart of
     ``fea_tpu/elements/hex8.py::precompute_geometry`` followed by
     ``stiffness_from_geometry``.
     """
-    D = torch.as_tensor(_D_QP, dtype=xe.dtype, device=xe.device)  # (Q, 3, 8)
-    J = torch.einsum("qda,ean->eqdn", D, xe)  # (E, Q, 3, 3)
-    detj = torch.linalg.det(J)
-    G = torch.linalg.solve(J, D.expand(J.shape[:2] + D.shape[1:]))  # (E, Q, 3, 8)
-    B = _b_matrices(G)
-    C = torch.as_tensor(_c_matrix_np(material), dtype=xe.dtype, device=xe.device)
-    CB = torch.matmul(C, B) * detj[..., None, None]  # (E, Q, 6, 24)
-    ke = torch.einsum("eqia,eqib->eab", B, CB)
-    return ke, detj.min()
+    G, detj = _gradients(xe, _D_QP)
+    return stiffness_from_geometry(Hex8Geometry(grads=G, wdetj=detj, min_detj=detj.min()), material), detj.amin(dim=1)
 
 
-# The geometry path inverts its Jacobians in closed form: the first batched
-# torch.linalg call of a process costs about a second on the card.
+# Jacobians are inverted in closed form: the first batched torch.linalg
+# call of a process costs about a second on the card.
 def _det3(J: torch.Tensor) -> torch.Tensor:
     """Determinant of (..., 3, 3) by cofactor expansion."""
     return (

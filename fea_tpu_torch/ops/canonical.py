@@ -18,9 +18,8 @@ topology in scrambled ids. This module recovers the grid:
 
 NumPy on the host, never touching coordinates. Counterpart of
 ``fea_tpu/ops/canonical.py``. ``infer_subgrid_embedding`` recognises a
-mesh whose cells are a subset of a box grid's; the embedded route that
-solves one is not ported yet (ROADMAP item 11), and ``solve_many`` uses the
-detector to name it.
+mesh whose cells are a subset of a box grid's, which the embedded route
+(``solve/embed.py``) solves on the box.
 """
 from __future__ import annotations
 
@@ -143,12 +142,15 @@ def infer_subgrid_embedding(scene: Scene):
     box's element counts (nx, ny, nz), ``lat`` (N,) each node's flat lattice
     id in box node order, ``valid`` (nz, ny, nx) the present cells.
 
-    Index arithmetic only, as ``fea_tpu/ops/canonical.py::
+    Index arithmetic only, with the result of ``fea_tpu/ops/canonical.py::
     infer_subgrid_embedding``: each element's corner order pins its base
     cell from any one known corner, so lattice coordinates spread from
-    element 0 until nothing new is placed. Any disagreement (two elements
-    placing a node differently, two nodes on one site, a disconnected mesh,
-    a repeated cell) returns None.
+    element 0. The reference sweeps every element once a lattice step (230
+    sweeps of 172,800 elements, 29 s on the host, for bench.py's arbitrary
+    scene); here each sweep places only the elements that touch the nodes
+    placed by the one before. Any disagreement (two elements placing a node
+    differently, two nodes on one site, a disconnected mesh, a repeated
+    cell) returns None.
     """
     from .structured import _CORNERS
 
@@ -160,34 +162,46 @@ def infer_subgrid_embedding(scene: Scene):
     E, N = el.shape[0], scene.n_nodes
     offs = np.array([(cx, cy, cz) for (cz, cy, cx) in _CORNERS], np.int64)  # (ix, iy, iz) a corner
     unset = np.iinfo(np.int64).min
+    # the elements of each node: slots order[start[n]:start[n + 1]] of el.ravel()
+    flat = el.reshape(-1)
+    order = np.argsort(flat, kind="stable")
+    start = np.zeros(N + 1, np.int64)
+    np.cumsum(np.bincount(flat, minlength=N), out=start[1:])
     coords = np.full((N, 3), unset, np.int64)
+    placed = np.zeros(E, bool)
     coords[el[0, 0]] = 0
-    n_set = 1
-    rows = np.arange(E)
-    for _ in range(E + 1):
-        c_el = coords[el]  # (E, 8, 3)
+    frontier = el[:1, 0]
+    while frontier.size:
+        counts = start[frontier + 1] - start[frontier]
+        slots = np.repeat(start[frontier] - np.cumsum(counts) + counts, counts) + np.arange(counts.sum())
+        cand = np.unique(order[slots] // 8)
+        cand = cand[~placed[cand]]
+        if not cand.size:
+            break
+        c_el = coords[el[cand]]  # (C, 8, 3), at least one corner known
         known = c_el[:, :, 0] != unset
-        has = known.any(axis=1)
         first = known.argmax(axis=1)
-        base = c_el[rows, first] - offs[first]
+        base = c_el[np.arange(cand.size), first] - offs[first]
         # every known corner must imply the same base cell
-        bad = known & (c_el - offs[None] != base[:, None]).any(axis=2)
-        if bad[has].any():
+        if (known & (c_el - offs[None] != base[:, None]).any(axis=2)).any():
             return None
-        tgt = el[has].reshape(-1)
-        vals = (base[:, None] + offs[None])[has].reshape(-1, 3)
-        cur = coords[tgt]
-        was_set = cur[:, 0] != unset
-        if (cur[was_set] != vals[was_set]).any():
+        tgt = el[cand].reshape(-1)
+        vals = (base[:, None] + offs[None]).reshape(-1, 3)
+        new = ~known.reshape(-1)
+        tgt, vals = tgt[new], vals[new]
+        # two elements of this sweep placing one node must agree
+        o = np.argsort(tgt, kind="stable")
+        tgt, vals = tgt[o], vals[o]
+        same = tgt[1:] == tgt[:-1]
+        if (vals[1:][same] != vals[:-1][same]).any():
             return None
         coords[tgt] = vals
-        n_new = int((coords[:, 0] != unset).sum())
-        if n_new == n_set:
-            if not has.all():
-                return None  # disconnected
-            break
-        n_set = n_new
-    if (coords[:, 0] == unset).any():
+        placed[cand] = True
+        frontier = np.unique(tgt)
+    if not placed.all() or (coords[:, 0] == unset).any():
+        return None  # disconnected, or a node of no element
+    c_el = coords[el]
+    if (c_el - offs[None] != (c_el[:, 0] - offs[0])[:, None]).any():
         return None
     coords -= coords.min(axis=0)
     X, Y, Z = (int(m) + 1 for m in coords.max(axis=0))

@@ -156,6 +156,7 @@ def assemble_curv_weights(
     *,
     dtype: torch.dtype = torch.float64,
     chunk_elems: int = 8192,
+    valid=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Weight field (27, 3, 3, Zn, Yn, Xn) in ``dtype`` on the nodes'
     device, and the minimum detJ as a 0-d tensor.
@@ -164,6 +165,12 @@ def assemble_curv_weights(
     ``chunk_elems`` elements at a time: corner coordinates by slicing the
     node grid, one batched Ke, 64 slice-adds; no (E, 24, 24) batch of the
     whole mesh is ever held.
+
+    ``valid``: an optional (nz, ny, nx) 0/1 host mask of the cells that
+    exist (the embedded route, ``solve/embed.py``). A void cell adds
+    exactly zero weights, its Ke selected away by ``where`` so that a
+    degenerate synthetic cell cannot carry an inf or a NaN into the
+    field, and its detJ is left out of the minimum.
     """
     nx, ny, nz = dims
     Zn, Yn, Xn = nz + 1, ny + 1, nx + 1
@@ -171,6 +178,7 @@ def assemble_curv_weights(
     grid = nodes.to(dtype).reshape(Zn, Yn, Xn, 3)
     w = torch.zeros((27, 3, 3, Zn, Yn, Xn), dtype=dtype, device=nodes.device)
     wg = grid_view(w)
+    cells = None if valid is None else torch.as_tensor(np.asarray(valid) != 0, device=nodes.device).reshape(nz, -1)
     min_detj = None
     for z0 in range(0, nz, cz):
         czi = min(cz, nz - z0)
@@ -178,8 +186,13 @@ def assemble_curv_weights(
             [grid[z0 + az : z0 + az + czi, ay : ay + ny, ax : ax + nx] for az, ay, ax in _CORNERS],
             dim=3,
         )  # (czi, ny, nx, 8, 3)
-        ke, mdj = batched_ke(xe.reshape(-1, 8, 3), material)
+        ke, detj = batched_ke(xe.reshape(-1, 8, 3), material)
+        if cells is not None:
+            live = cells[z0 : z0 + czi].reshape(-1)
+            ke = torch.where(live[:, None, None], ke, ke.new_zeros(()))
+            detj = torch.where(live, detj, torch.inf)
         _scatter_blocks(wg, ke.reshape(czi, ny, nx, 8, 3, 8, 3), z0, dims)
+        mdj = detj.min()
         min_detj = mdj if min_detj is None else torch.minimum(min_detj, mdj)
     return w, min_detj
 

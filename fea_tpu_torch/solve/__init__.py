@@ -22,21 +22,36 @@ reference's order:
         route (``solve/curv.py``, K4/K5);
      d. a box grid under node renumbering: canonicalized, solved through
         this function, and permuted back;
-     e. anything else raises (items 11 and 13);
-  3. any other scene, auto-routed: ``dense`` below 2,000 DOF, Jacobi PCG
+     e. anything else goes on to 3;
+  3. any other hex8 scene of 2,000 DOF and ``_BLOCK_PRECOND_MIN_DOF`` or
+     more (8 nodes an element), auto-routed, in this order:
+     a. its cells a proper subset of a box grid's (an L, a step, a hole):
+        embedded in the box, void cells at zero weight and void DOFs
+        fixed, and solved by the curvilinear route (``solve/embed.py``,
+        K4/K5); ``FEA_TPU_NO_EMBED`` set opts out;
+     b. the stiffness assembled into block-CSR with a smoothed-aggregation
+        V-cycle (``ops/amg.py``, ``solve/unstructured.py``);
+        ``FEA_TPU_NO_AMG`` set opts out, and a failed build warns and
+        goes on to c;
+     c. the element-by-element f64 operator with the Chebyshev two-level
+        preconditioner (``ops/twolevel.py``); a failed build warns and
+        takes block-Jacobi CG;
+  4. any other scene, auto-routed: ``dense`` below 2,000 DOF, Jacobi PCG
      over the element-by-element operator above (beams and bars at any
      size).
 
-The large routes run f64 flexible PCG with a multigrid V-cycle, its loop
-held on the card as replays of a captured iteration (``solve/staged.py``;
-the z-sharded solve keeps the Python loop of ``solve_operator_fpcg``);
-every route reports the true residual of the displacements it returns. Every
-route not ported raises ``NotImplementedError`` naming the route and the
-ROADMAP item that ports it; no scene silently takes another path.
+The large routes run f64 flexible PCG with a multigrid or two-level
+preconditioner, its loop held on the card as replays of a captured
+iteration (``solve/staged.py``; the z-sharded solve keeps the Python loop
+of ``solve_operator_fpcg``); every route reports the true residual of the
+displacements it returns. Among hex8 scenes only an extruded mesh raises
+``NotImplementedError`` (ROADMAP item 12), naming the route; no scene
+silently takes another path.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import warnings
 from typing import Optional
 
@@ -53,9 +68,11 @@ from . import staged
 from ._types import Solution
 from .cache import _cached_build, clear_build_cache
 from .curv import build_curvilinear, solve_curvilinear
+from .embed import _cached_embedding, solve_subgrid_embedded
 from .fpcg import solve_operator_fpcg
 from .many import solve_many
 from .staged import solve_operator_fpcg_staged
+from .unstructured import _solve_unstructured_amg, _solve_unstructured_two_level, build_amg_setup
 
 __all__ = [
     "Solution",
@@ -73,6 +90,8 @@ __all__ = [
 
 # auto-routing takes the large-grid routes from this size (tests lower it)
 _STRUCTURED_MIN_DOF = 50_000
+# ... and the embedded, AMG and two-level routes from this one (tests lower it)
+_BLOCK_PRECOND_MIN_DOF = 50_000
 
 
 def _not_ported(route: str, item: str) -> NotImplementedError:
@@ -215,10 +234,14 @@ def solve(
             found = _solve_large_hex8(scene, cfg, tol, max_iters, dtype, check_jacobians)
             if found is not None:
                 return check(*found)
-    if method == "auto":
+    auto = method == "auto"
+    if auto:
         method = "dense" if scene.n_dof < 2000 else "cg"
     if max_iters is None:
         max_iters = min(max(1000, 10 * scene.n_dof), 100_000) if method == "cg" else 1
+    if (auto and method == "cg" and operator is None and scene.n_dof >= _BLOCK_PRECOND_MIN_DOF
+            and scene.family == "hex8" and scene.elements.shape[1] == 8):
+        return check(*_solve_unstructured_hex8(scene, tol, max_iters, check_jacobians))
 
     if operator is None:
         operator = build_operator(scene, dtype=scene.nodes.dtype if dtype is None else torch_dtype(dtype))
@@ -280,11 +303,11 @@ def _voxel_build(scene: Scene, dims, coarse_dof_limit: int = 3000):
 def _solve_large_hex8(
     scene: Scene, cfg: SolverConfig, tol, max_iters, dtype, check_jacobians
 ) -> Optional[tuple[Solution, str]]:
-    """The auto routes of a large hex8 scene, in the reference's order:
-    (solution, route name), NotImplementedError for a route not ported,
-    or None for a scene under ``_STRUCTURED_MIN_DOF`` DOFs (sent here by
-    ``sharded=True``) that no grid route takes: it goes on to the
-    dense/CG tail of :func:`solve`, as in the reference."""
+    """The grid routes of a large hex8 scene, in the reference's order:
+    (solution, route name), NotImplementedError for an extruded mesh
+    (item 12), or None for a scene no grid route takes: it goes on to the
+    routes of :func:`solve`'s tail (embedded, AMG, two-level, or dense/CG
+    for a scene under ``_BLOCK_PRECOND_MIN_DOF``), as in the reference."""
     route, dims = _grid_route(scene)
     if route == "voxel":
         # the z-sharded solve only when asked for (``sharded=True``) and more
@@ -356,9 +379,59 @@ def _solve_large_hex8(
                 stats=sol_c.stats,
             )
             return sol, "fpcg-canonicalized-grid"
-    if scene.n_dof < _STRUCTURED_MIN_DOF:
-        return None
-    raise _not_ported("embedded (box-subset) or arbitrary-topology", "11 (embedded) or 13 (arbitrary)")
+    return None
+
+
+def _operator_f64(scene: Scene, check_jacobians: bool) -> StiffnessOperator:
+    """The two-level route's f64 element-by-element operator, through the
+    build cache (``solve()`` and ``solve_many`` share it); a non-positive
+    detJ raises ValueError."""
+    op64 = _cached_build("operator-f64", scene, lambda: build_operator(scene, dtype=torch.float64))
+    if check_jacobians and op64.geom is not None:
+        min_detj = float(op64.geom.min_detj)
+        if min_detj <= 0.0:
+            raise ValueError(
+                f"Non-positive Jacobian determinant (min detJ = {min_detj:g}); "
+                "check element shapes / node ordering."
+            )
+    return op64
+
+
+def _two_level(scene: Scene, op64: StiffnessOperator):
+    """The Chebyshev two-level preconditioner over ``op64``, through the
+    build cache."""
+    from ..ops.twolevel import build_two_level_cheb
+
+    return _cached_build("twolevel", scene, lambda: build_two_level_cheb(op64, scene.host_nodes))
+
+
+def _solve_unstructured_hex8(scene: Scene, tol, max_iters, check_jacobians) -> tuple[Solution, str]:
+    """The routes of a hex8 scene that no grid route took, in the
+    reference's order: embedded, AMG, two-level, block-Jacobi (the module's
+    note, route 3). Each build is cached on the scene's mesh."""
+    if not os.environ.get("FEA_TPU_NO_EMBED"):
+        built = _cached_embedding(scene, check_jacobians)
+        if built is not None:
+            return solve_subgrid_embedded(scene, built, tol=tol, max_iters=max_iters), "fpcg-subgrid-embedded"
+    if not os.environ.get("FEA_TPU_NO_AMG"):
+        try:
+            setup = _cached_build(("amg", bool(check_jacobians)), scene,
+                                  lambda: build_amg_setup(scene, check_jacobians=check_jacobians))
+        except Exception as exc:  # noqa: BLE001 - any build failure takes the next route, with a warning
+            warnings.warn(f"AMG setup failed ({exc}); falling back to the two-level route", RuntimeWarning,
+                          stacklevel=3)
+        else:
+            return _solve_unstructured_amg(scene, setup, tol=tol, max_iters=max_iters), "fpcg-amg-bcsr"
+    op64 = _operator_f64(scene, check_jacobians)
+    try:
+        tl = _two_level(scene, op64)
+    except Exception as exc:  # noqa: BLE001 - geometry and aggregation corner cases
+        warnings.warn(f"two-level preconditioner build failed ({exc}); falling back to block-Jacobi",
+                      RuntimeWarning, stacklevel=3)
+        sol = solve_operator(op64, scene.loads, scene.prescribed_or_zero(torch.float64), method="cg", tol=tol,
+                             max_iters=max_iters, precondition="block")
+        return sol, "cg-block"
+    return _solve_unstructured_two_level(scene, op64, tl, tol=tol, max_iters=max_iters), "fpcg-two-level-cheb"
 
 
 def solve_nonlinear(scene: Scene, *, tol: float = 1e-10, max_newton_iters: int = 50):

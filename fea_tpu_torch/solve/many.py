@@ -1,20 +1,21 @@
 """Many load cases on one mesh: ``solve_many``.
 
 Counterpart of ``fea_tpu/solve/many.py::solve_many``. Operator and
-hierarchy are built once; the cases advance together through the staged
-FCG loop (``solve/staged.py``), one captured step per case on the card,
-each case freezing on its own and the host replaying only the cases it has
-not seen halt, with one readback of the whole batch's status a round.
-Each case is certified against its true f64 residual on its own
+preconditioner are built once; the cases advance together through the
+staged FCG loop (``solve/staged.py``), one captured step per case on the
+card, each case freezing on its own and the host replaying only the cases
+it has not seen halt, with one readback of the whole batch's status a
+round. Each case is certified against its true f64 residual on its own
 (``certify.refine_true``), with its own correction tolerance. Routing
 follows the reference: a voxel box, then extruded (not ported, item 12),
-then curvilinear, then a box subset (not ported, item 11), else arbitrary
-topology (not ported, item 13); the first three are ``solve()``'s own
-detectors and builds, and a curvilinear mesh shares ``solve()``'s build
-cache.
+then curvilinear, then a box subset (embedded: the batch scattered into
+the lattice and gathered back), else arbitrary topology (the two-level
+preconditioner over the element-by-element f64 operator). Every build but
+the voxel one comes from the cache ``solve()`` uses.
 """
 from __future__ import annotations
 
+import os
 import warnings
 
 import numpy as np
@@ -24,6 +25,7 @@ from ..scene import Scene
 from ..solvers.cg import SolveStats
 from ._types import Solution
 from .curv import _cached_curvilinear
+from .embed import _cached_embedding, _to_lattice
 from .staged import _solve_cases
 
 __all__ = ["solve_many"]
@@ -37,22 +39,24 @@ def _batch(name: str, value, scene: Scene) -> torch.Tensor:
 
 
 def _build(scene: Scene):
-    """(f64 operator, f32 V-cycle) of ``scene``'s route, built as
-    ``solve()`` builds it (the curvilinear build from the same cache), or
-    NotImplementedError naming the route's ROADMAP item."""
-    from . import _grid_route, _not_ported, _voxel_build
-    from ..ops.canonical import infer_subgrid_embedding
-    from ..ops.curvilinear import curv_coarsenable
+    """``((f64 operator, preconditioner), lat)`` of ``scene``'s route,
+    built as ``solve()`` builds it (from the same cache where ``solve()``
+    caches); ``lat`` is the lattice map of the embedded route, else None.
+    An extruded mesh raises NotImplementedError (item 12)."""
+    from . import _grid_route, _operator_f64, _two_level, _voxel_build
 
     route, dims = _grid_route(scene)
     if route == "voxel":
-        return _voxel_build(scene, dims)
+        return _voxel_build(scene, dims), None
     if route == "curvilinear":
-        return _cached_curvilinear(scene, dims)
-    det = infer_subgrid_embedding(scene)
-    if det is not None and not det[2].all() and curv_coarsenable(det[0]):
-        raise _not_ported("solve_many embedded (box-subset)", "11")
-    raise _not_ported("solve_many arbitrary-topology", "13")
+        return _cached_curvilinear(scene, dims), None
+    if not os.environ.get("FEA_TPU_NO_EMBED"):
+        built = _cached_embedding(scene)
+        if built is not None:
+            _, op, mg, lat = built
+            return (op, mg), torch.as_tensor(lat, device=scene.device)
+    op64 = _operator_f64(scene, True)
+    return (op64, _two_level(scene, op64)), None
 
 
 def solve_many(
@@ -84,11 +88,17 @@ def solve_many(
             raise ValueError(f"prescribed_batch must have loads_batch's shape {tuple(loads_batch.shape)}, "
                              f"got {tuple(prescribed_batch.shape)}")
 
-    op_hi, mg = _build(scene)
+    (op_hi, mg), lat = _build(scene)
+    if lat is not None:  # into the lattice of the embedded route, and back below
+        loads_batch = _to_lattice(loads_batch, lat, op_hi.n_nodes)
+        prescribed_batch = _to_lattice(prescribed_batch, lat, op_hi.n_nodes)
     sols = _solve_cases(
         op_hi, mg, loads_batch, prescribed_batch, tol=tol, max_iters=max_iters, refine=True, max_refine=3,
         say=lambda s: None,
     )
+    if lat is not None:
+        sols = [Solution(displacements=s.displacements[lat], reactions=s.reactions[lat], stats=s.stats)
+                for s in sols]
     rel = np.array([s.stats.relative_residual for s in sols])
     conv = np.array([s.stats.converged for s in sols])
     sol = Solution(

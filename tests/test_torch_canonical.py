@@ -84,12 +84,34 @@ def test_z_extruded_box_mesh_raises_item_12(large_routes_for_small_scenes, monke
         ftt.solve(scene)
 
 
-def test_l_shaped_subset_raises_item_11(large_routes_for_small_scenes):
-    nodes, elements = ftt.mesh.l_hex_mesh(6, 4, 12, 0.1, 0.1, 0.4)
-    scene = _scene(nodes, elements, ftt.fix_where(nodes, lambda q: q[:, 2] == 0.0, 3), np.ones_like(nodes))
+def test_l_shaped_subset_takes_the_embedded_route(large_routes_for_small_scenes, monkeypatch):
+    """No grid detector claims an L-domain; above both thresholds solve()
+    embeds it in its box (never the AMG route) and meets tol in the true
+    residual."""
+    solve_mod = sys.modules["fea_tpu_torch.solve"]
+    monkeypatch.setattr(solve_mod, "_BLOCK_PRECOND_MIN_DOF", 0)
+    monkeypatch.setattr(sys.modules["fea_tpu_torch.solve.cache"], "_BUILD_CACHE", {})
+    nodes, elements = ftt.mesh.l_hex_mesh(6, 6, 18, 0.1, 0.1, 0.4)
+    fixed = ftt.fix_where(nodes, lambda q: q[:, 2] == 0.0, 3)
+    scene = _scene(nodes, elements, fixed, np.ones_like(nodes))
     assert infer_topo_dims(scene) is None and infer_renumbered_grid(scene) is None
-    with pytest.raises(NotImplementedError, match="embedded.*item 11"):
-        ftt.solve(scene)
+    taken = []
+    real = solve_mod.solve_subgrid_embedded
+
+    def spy(*args, **kwargs):
+        taken.append("embedded")
+        return real(*args, **kwargs)
+
+    def must_not_run(*args, **kwargs):
+        raise AssertionError("the AMG route was taken")
+
+    monkeypatch.setattr(solve_mod, "solve_subgrid_embedded", spy)
+    monkeypatch.setattr(solve_mod, "_solve_unstructured_amg", must_not_run)
+    sol = ftt.solve(scene, tol=TOL)
+    assert taken == ["embedded"] and sol.stats.converged
+    op = ftt.build_operator(scene, dtype=torch.float64)
+    r = op.free * (scene.loads - op.apply_raw(sol.displacements))
+    assert float(r.norm() / (op.free * scene.loads).norm()) <= TOL
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu():

@@ -318,3 +318,68 @@ def test_staged_loop_graph_matches_the_eager_loop():
     assert card.stats.converged and abs(card.stats.iterations - cpu.stats.iterations) <= 1
     u = cpu.displacements
     assert float((card.displacements.cpu() - u).abs().max()) <= 1e-7 * float(u.abs().max())
+
+
+def _l_domain(nx, nz, device):
+    """An L-domain with interior nodes moved by 0.2 h U(-1, 1) (seed 7),
+    z = 0 fixed, a +y load on the tip face, on ``device``."""
+    from fea_tpu_torch.mesh import l_hex_mesh
+    from fea_tpu_torch.scene import fix_where, make_scene
+
+    lz = 0.1 * nz / nx
+    nodes, elements = l_hex_mesh(nx, nx, nz, 0.1, 0.1, lz)
+    interior = (nodes[:, 2] > 1e-12) & (nodes[:, 2] < lz - 1e-12)
+    nodes = nodes + 0.2 * (0.1 / nx) * np.random.default_rng(7).uniform(-1, 1, nodes.shape) * interior[:, None]
+    fixed = fix_where(nodes, lambda q: np.isclose(q[:, 2], 0.0), 3)
+    loads = np.zeros_like(nodes)
+    tip = np.isclose(nodes[:, 2], lz)
+    loads[tip, 1] = 1.0 / tip.sum()
+    return make_scene(nodes, elements, fixed, loads, Material(E=1e7, nu=0.3), dtype=torch.float64, device=device)
+
+
+@pytest.mark.cuda
+def test_bcsr_apply_on_card_matches_cpu():
+    """The block-CSR assembly and apply (f64 and f32) on the card against
+    the same on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from fea_tpu_torch.ops.amg import BCSROperator, assemble_bcsr
+
+    u = np.random.default_rng(8).standard_normal((_l_domain(8, 24, "cpu").n_nodes, 3))
+    got = {}
+    for dev in ("cpu", "cuda"):
+        sc = _l_domain(8, 24, dev)
+        h = assemble_bcsr(sc.nodes, sc.elements, sc.material, sc.fixed)
+        op = BCSROperator.from_blocks(h.nbr, h.W, h.free, torch.float64)
+        x = torch.as_tensor(u, device=dev)
+        got[dev] = (op.apply(x).cpu(), op.astype(torch.float32).apply(x.float()).cpu())
+    scale = float(got["cpu"][0].abs().max())
+    assert float((got["cuda"][0] - got["cpu"][0]).abs().max()) <= 1e-13 * scale
+    assert float((got["cuda"][1].double() - got["cpu"][0]).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_embedded_solve_on_card_matches_cpu(monkeypatch):
+    """The embedded route of the small L-domain on the card (K4/K5 on the
+    void-masked field, no K1/K2) against the same solve on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the embedded route runs K4 and K5")
+    import sys
+
+    import fea_tpu_torch as ftt
+    from fea_tpu_torch.ops import cuda_varstencil
+
+    monkeypatch.setattr(sys.modules["fea_tpu_torch.solve"], "_BLOCK_PRECOND_MIN_DOF", 100)
+    sols = {}
+    for dev in ("cpu", "cuda"):
+        for c in (cuda_stencil.LAUNCHES, cuda_varstencil.LAUNCHES):
+            for key in c:
+                c[key] = 0
+        sols[dev] = ftt.solve(_l_domain(8, 24, dev), tol=1e-8)
+        torch.cuda.synchronize()
+    assert cuda_varstencil.LAUNCHES["var_f64"] > 0
+    assert cuda_stencil.LAUNCHES["f32"] == 0 and cuda_stencil.LAUNCHES["f64"] == 0
+    cpu, card = sols["cpu"], sols["cuda"]
+    assert card.stats.converged and abs(card.stats.iterations - cpu.stats.iterations) <= 1
+    u = cpu.displacements
+    assert float((card.displacements.cpu() - u).abs().max()) <= 1e-7 * float(u.abs().max())

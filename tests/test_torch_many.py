@@ -142,15 +142,38 @@ def _broken_box():
     return nodes, elements
 
 
-@pytest.mark.parametrize("mesh, item", [(_tube, "extruded.*item 12"), (_l_shape, "embedded.*item 11"),
-                                        (_broken_box, "arbitrary.*item 13")],
-                         ids=["extruded", "box-subset", "broken-connectivity"])
-def test_routes_not_ported_raise_with_their_item(mesh, item):
+def test_extruded_mesh_raises_item_12():
+    nodes, elements = _tube()
+    fixed = ftt.fix_where(nodes, lambda q: q[:, 2] == 0.0, 3)
+    scene = _scene(nodes, elements, fixed, np.zeros_like(nodes))
+    with pytest.raises(NotImplementedError, match="extruded.*item 12"):
+        ftt.solve_many(scene, _batch_loads(nodes, 2))
+
+
+@pytest.mark.parametrize("mesh, build_fn", [(_l_shape, "fea_tpu_torch.solve.embed:build_subgrid_embedded"),
+                                           (_broken_box, "fea_tpu_torch.ops.twolevel:build_two_level_cheb")],
+                         ids=["box-subset", "broken-connectivity"])
+def test_box_subset_and_broken_connectivity_take_their_routes(mesh, build_fn, monkeypatch):
+    """solve_many embeds a box subset in its box and sends a mesh of no
+    grid and no box subset to the two-level preconditioner, as the
+    reference does; every case meets tol in the true residual and agrees
+    with a dense solve of it."""
+    monkeypatch.setattr(CACHE, "_BUILD_CACHE", {})
+    module, name = build_fn.split(":")
+    built = []
+    real = getattr(sys.modules[module], name)
+    monkeypatch.setattr(sys.modules[module], name, lambda *a, **kw: built.append(name) or real(*a, **kw))
     nodes, elements = mesh()
     fixed = ftt.fix_where(nodes, lambda q: q[:, 2] == 0.0, 3)
     scene = _scene(nodes, elements, fixed, np.zeros_like(nodes))
-    with pytest.raises(NotImplementedError, match=item):
-        ftt.solve_many(scene, _batch_loads(nodes, 2))
+    loads = _batch_loads(nodes, 2)
+    sol = ftt.solve_many(scene, loads, tol=TOL)
+    assert built == [name] and sol.stats.converged.all() and (sol.stats.relative_residual <= TOL).all()
+    op = ftt.build_operator(scene, dtype=torch.float64)
+    zero = torch.zeros_like(scene.loads)
+    for i in range(2):
+        dense = ftt.solve_operator(op, torch.as_tensor(loads[i]), zero, method="dense").displacements
+        assert _close(sol.displacements[i].numpy(), dense.numpy(), 10 * TOL)
 
 
 @pytest.fixture

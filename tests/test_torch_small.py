@@ -432,15 +432,36 @@ def test_explicit_method_and_operator_bypass_the_large_routes(spy_routes):
         ftt.solve(scene, method="gmres")
 
 
-def test_unmatched_large_hex8_scene_raises_items_11_and_13(monkeypatch):
-    monkeypatch.setattr(SOLVE, "_STRUCTURED_MIN_DOF", 0)
-    nodes, elements = ftt.mesh.l_hex_mesh(4, 4, 6, 0.1, 0.1, 0.3)
-    fixed = ftt.fix_where(nodes, lambda q: q[:, 2] == 0.0, 3)
-    scene = ftt.make_scene(nodes, elements, fixed, np.ones_like(nodes), ftt.Material(1e7, 0.3),
-                           dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 11 \(embedded\) or 13 \(arbitrary\)"):
-        ftt.solve(scene)
-    assert ftt.solve(scene, method="cg", tol=1e-10).stats.converged
+def test_unmatched_large_hex8_scene_takes_the_unstructured_chain_from_its_threshold(spy_routes):
+    """A hex8 scene no grid route takes goes on to solve()'s tail, as in the
+    reference: dense/CG under 2,000 DOF or under _BLOCK_PRECOND_MIN_DOF,
+    the embedded / AMG / two-level chain above both; an explicit method
+    bypasses the chain."""
+    def chain(*args, **kw):
+        raise Taken("unstructured chain")
+
+    spy_routes.setattr(SOLVE, "_solve_unstructured_hex8", chain)
+    spy_routes.setattr(SOLVE, "_STRUCTURED_MIN_DOF", 0)
+
+    def l_scene(nx, nz):
+        nodes, elements = ftt.mesh.l_hex_mesh(nx, nx, nz, 0.1, 0.1, 0.3)
+        fixed = ftt.fix_where(nodes, lambda q: q[:, 2] == 0.0, 3)
+        return ftt.make_scene(nodes, elements, fixed, np.ones_like(nodes), ftt.Material(1e7, 0.3),
+                              dtype=torch.float64, device="cpu")
+
+    small, large = l_scene(4, 6), l_scene(6, 18)
+    assert small.n_dof < 2000 <= large.n_dof < SOLVE._BLOCK_PRECOND_MIN_DOF
+    with pytest.raises(Taken, match="dense uniform"):
+        ftt.solve(small)
+    with pytest.raises(Taken, match="cg uniform"):
+        ftt.solve(large)
+    spy_routes.setattr(SOLVE, "_BLOCK_PRECOND_MIN_DOF", 0)
+    with pytest.raises(Taken, match="dense uniform"):
+        ftt.solve(small)
+    with pytest.raises(Taken, match="unstructured chain"):
+        ftt.solve(large)
+    with pytest.raises(Taken, match="cg uniform"):
+        ftt.solve(large, method="cg")
 
 
 def test_smoke_yardstick_of_the_voxel_box_matches_jax():
