@@ -131,7 +131,21 @@ Phases, in order:
      two-level route, its builds, iterations and host check, the
      element-by-element (``hex8_matfree``) apply timed as in [15], and the
      block-Jacobi fallback, forced once by a failing two-level build;
- 17. one JSON line of the kernels, one of the compute with no TPU kernel,
+ 17. extruded slice: tools/tube_bench.py's tube (a 256-segment annulus of
+     4 in / 3.9 in radii, 2 ft long, 384 element layers: 591,360 DOF, z = 0
+     fixed, a cosine 1000 lbf tip load) through ``fea_tpu_torch.solve``: the
+     route ``fpcg-extruded-multigrid`` (the curvilinear one never called),
+     converged, the host f64 true residual by ``host_ku`` <= 1e-8, the y-sum
+     of the reactions over the fixed ring balancing the load within 1e-6,
+     no kernel launched, iterations beside the reference's 26; the set-up by
+     stage (detector, operator, hierarchy, section coarse, FCG), peak
+     memory, a second ``solve()`` from the cache, ``loop_vs_staged``,
+     ``solve_many`` of 4 loads from ``default_rng(17)`` each host-checked;
+     the card times of the f64 and f32 applies (beside cuSPARSE CSR of the
+     assembled matrix), the level-0 block-Jacobi, the z-coarse Thomas solve,
+     the section coarse solve, the whole preconditioner and one FCG step,
+     each beside its bound;
+ 18. one JSON line of the kernels, one of the compute with no TPU kernel,
      the card's line, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the last line.
@@ -1022,12 +1036,14 @@ def run_curvilinear(ftt, cuda_stencil, cuda_varstencil) -> dict:
 def cached_second_solve(ftt, scene, new_loads, first_wall: float, host_rel, check_tol: float = 1e-8) -> None:
     """A second ``solve(tol=1e-8)`` of ``scene``'s mesh with ``new_loads``:
     it must take its build from the cache (no call of ``build_curvilinear``,
-    ``canonicalize_scene`` or ``build_subgrid_embedded``) and pass the host
-    check ``host_rel(u) <= check_tol``."""
+    ``canonicalize_scene``, ``build_subgrid_embedded`` or ``build_extruded``)
+    and pass the host check ``host_rel(u) <= check_tol``."""
     curv = sys.modules["fea_tpu_torch.solve.curv"]
     canonical = sys.modules["fea_tpu_torch.ops.canonical"]
     embed = sys.modules["fea_tpu_torch.solve.embed"]
-    build_fns = {"build_curvilinear": curv, "canonicalize_scene": canonical, "build_subgrid_embedded": embed}
+    extruded = sys.modules["fea_tpu_torch.solve.extruded"]
+    build_fns = {"build_curvilinear": curv, "canonicalize_scene": canonical, "build_subgrid_embedded": embed,
+                 "build_extruded": extruded}
     calls = []
     with patched({(mod, name): spy(calls, name, getattr(mod, name)) for name, mod in build_fns.items()}):
         second = dataclasses.replace(scene, loads=torch.as_tensor(new_loads, dtype=scene.loads.dtype, device=DEV))
@@ -2216,6 +2232,273 @@ def run_two_level(ftt, counters) -> dict:
     return out
 
 
+TUBE = (256, 384)  # tools/tube_bench.py's defaults: 591,360 DOF, 512 nodes and 256 quads a layer
+# iterations of the JAX package on its TPU on that scene (As = 64, degree 3), a
+# count, not a time: docs/PERF.md:617-630, 889
+TUBE_REF_ITERS = 26
+TUBE_LOAD = 1000.0  # lbf, tools/tube_bench.py's cosine tip load
+TUBE_CASES = 4
+
+
+def tube_scene(ftt):
+    """tools/tube_bench.py's scene on the card: a 256-segment annulus of 4 in
+    and 3.9 in radii, 2 ft long, 384 element layers, z = 0 fixed, E = 10e6
+    psi, nu = 0.3, a cosine-weighted 1000 lbf downward load on the lower
+    outer tip ring. Returns the scene and its host arrays (``w``: the load's
+    weights, summing to 1)."""
+    units = ftt.units
+    r_out, r_in, length = 4 * units.inch, 3.9 * units.inch, 2 * units.ft
+    nodes2d, quads = ftt.mesh.annulus_section(TUBE[0], r_in, r_out)
+    nodes, elements = ftt.mesh.extrude_quads(nodes2d, quads, np.linspace(0.0, length, TUBE[1] + 1))
+    fixed = ftt.fix_where(nodes, lambda p: p[:, 2] == 0.0, 3)
+    tip = nodes[:, 2] == nodes[:, 2].max()
+    sel = tip & (np.abs(np.hypot(nodes[:, 0], nodes[:, 1]) - r_out) < 1e-9) & (nodes[:, 1] < 0)
+    w = np.zeros(nodes.shape[0])
+    w[sel] = np.cos(0.5 * np.pi * nodes[sel, 0] / r_out)
+    w /= w.sum()
+    loads = np.zeros_like(nodes)
+    loads[:, 1] = -TUBE_LOAD * w
+    mat = ftt.Material(E=10_000_000 * units.psi, nu=0.3)
+    scene = ftt.make_scene(nodes, elements, fixed, loads, mat, dtype=torch.float64, device=DEV)
+    return scene, dict(nodes=nodes, elements=elements, fixed=fixed, loads=loads, w=w, mat=mat)
+
+
+def tensor_bytes(*objs) -> int:
+    """Bytes of every tensor held by ``objs`` (dataclasses, tuples of them),
+    each counted once: what a function that reads all of them reads."""
+    seen, total = set(), 0
+    stack = list(objs)
+    while stack:
+        o = stack.pop()
+        if isinstance(o, torch.Tensor):
+            if o.data_ptr() not in seen:
+                seen.add(o.data_ptr())
+                total += o.numel() * o.element_size()
+        elif dataclasses.is_dataclass(o):
+            stack.extend(getattr(o, f.name) for f in dataclasses.fields(o))
+        elif isinstance(o, (tuple, list)):
+            stack.extend(o)
+    return total
+
+
+def extruded_flops(pc) -> dict:
+    """Operations of one application of each piece of the composed
+    preconditioner ``pc`` (multiply and add counted apart), from its shapes;
+    ``apply_f32`` is also the count of any apply of the fine operator."""
+    mgz, sc = pc.mg, pc.sc
+
+    def apply_flops(op):  # the batched Ke product and the incidence sums
+        return 2 * 576 * (op.n_layers - 1) * op.kes.shape[0] + 2 * 24 * (op.n_layers - 1) * op.kes.shape[0]
+
+    def thomas_flops(uinv):
+        L, b, _ = uinv.shape
+        return 2 * (3 * L - 2) * b * b
+
+    out = {"z_thomas": thomas_flops(mgz.thomas_uinv), "section": thomas_flops(sc.thomas_uinv)}
+    levels = 0
+    for i, lv in enumerate(mgz.levels):
+        L, b = lv.op.n_layers, 3 * lv.op.n2
+        jacobi = 2 * L * b * b
+        if i == 0:
+            out["block_jacobi"], out["apply_f32"] = jacobi, apply_flops(lv.op)
+        # two smoothings of `degree` block solves and applies, one residual apply
+        levels += 2 * mgz.degree * (jacobi + apply_flops(lv.op)) + apply_flops(lv.op)
+    # f32 work, and the f64 residual update of the composition
+    out["precond_f32"], out["compose_f64"] = levels + out["z_thomas"] + out["section"], apply_flops(pc.op)
+    return out
+
+
+def run_extruded(ftt, counters) -> dict:
+    """Phase [17]: the 591,360-DOF tube of tools/tube_bench.py through the
+    extruded route. Returns the times of its compute, which has no TPU kernel."""
+    from fea_tpu_torch.assembly import assemble_bcoo
+    from fea_tpu_torch.ops.extruded import build_extruded_operator, infer_extruded
+    from fea_tpu_torch.ops.extruded_mg import (ComposedExtrudedPrecond, build_extruded_multigrid,
+                                               build_section_coarse)
+    from fea_tpu_torch.solve import staged
+
+    solve_mod = sys.modules["fea_tpu_torch.solve"]
+    scene, a = tube_scene(ftt)
+    nodes, elements, fixed, mat, loads = a["nodes"], a["elements"], a["fixed"], a["mat"], a["loads"]
+    say(f"  scene: {TUBE[0]}-segment annulus x {TUBE[1]} layers, {scene.n_dof} DOF, {scene.n_elements} elements "
+        f"on {scene.device}; TF32 for matmul {torch.backends.cuda.matmul.allow_tf32}")
+    require({"591,360 DOF": scene.n_dof == 591_360,
+             "f32 products in full f32 (TF32 off)": not torch.backends.cuda.matmul.allow_tf32}, "tube scene")
+    ftt.clear_build_cache()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    say("  set-up before the first solve: " + ", ".join(time_detectors(scene)))
+    routes = []
+    real_large = solve_mod._solve_large_hex8
+
+    def record(*args, **kwargs):
+        out = real_large(*args, **kwargs)
+        routes.append(None if out is None else out[1])
+        return out
+
+    with patched({(solve_mod, "_solve_large_hex8"): record,
+                  (solve_mod, "solve_curvilinear"): must_not_run("curvilinear")}):
+        zero_counts(staged.COUNTS)
+        sol, launches, whole_s = counted(counters, lambda: ftt.solve(scene, tol=1e-8))
+        steps = staged.COUNTS["steps"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    st = sol.stats
+    say(f"  whole solve (fea_tpu_torch.solve, detection and build included): {whole_s:.3f} s, peak device memory "
+        f"{peak_gb:.3f} GB; route {routes}; {st.iterations} iterations (the reference on its TPU: {TUBE_REF_ITERS}), "
+        f"reported {st.relative_residual:.3e}, converged {st.converged}; replays {steps}")
+    u = sol.displacements.cpu().numpy()
+    (Ku, rel_host), host_s = timed(lambda: host_check(nodes, elements, mat, fixed, loads, u))
+    reac = sol.reactions.cpu().numpy()
+    reac_err = float(np.abs(reac - Ku).max() / np.abs(Ku).max())
+    ring = fixed.any(axis=1)
+    ring_y, load_y = float(reac[ring, 1].sum()), float(loads[:, 1].sum())
+    balance = abs(ring_y + load_y) / abs(load_y)
+    say(f"  host f64 true relative residual {rel_host:.3e} ({host_s:.1f} s); reactions vs host K u {reac_err:.3e}; "
+        f"y-sum of the reactions over the fixed ring {ring_y:.9f} lbf against the load's {load_y:.9f} lbf "
+        f"(balance {balance:.2e}); tip deflection min u_y {float(u[:, 1].min()):.6e} m")
+    if st.iterations > TUBE_REF_ITERS:
+        say(f"  iterations {st.iterations} above the reference's {TUBE_REF_ITERS}: a fault to log in ROADMAP queue 3")
+    require({
+        "the extruded route ran": routes == ["fpcg-extruded-multigrid"],
+        "converged": st.converged,
+        "host true residual <= 1e-8": rel_host <= 1e-8,
+        "reactions = K u (1e-10)": reac_err <= 1e-10,
+        "reactions balance the load (1e-6)": balance <= 1e-6,
+        "fixed ring exactly 0": not u[fixed].any(),
+        "no kernel launched": not any(launches.values()),
+    }, "extruded")
+
+    # the set-up by stage, on the same scene afresh
+    det, t_det = timed(lambda: infer_extruded(dataclasses.replace(scene)))
+    op, t_op = timed(lambda: build_extruded_operator(scene, det, dtype=torch.float64))
+    mgz, t_mg = timed(lambda: build_extruded_multigrid(scene, det, degree=3))
+    sc, t_sc = timed(lambda: build_section_coarse(scene, det, target_section_aggregates=64))
+    pc = ComposedExtrudedPrecond(mg=mgz, sc=sc, op=op)
+    _, t_first = timed(lambda: ftt.solve_extruded(scene, det, tol=1e-8, prebuilt=(op, pc)))
+    _, t_fcg = timed(lambda: ftt.solve_extruded(scene, det, tol=1e-8, prebuilt=(op, pc)))
+    # the reference's composition: r - A z with the V-cycle's f32 level-0 operator
+    pc_ref = ComposedExtrudedPrecond(mg=mgz, sc=sc, op=mgz.levels[0].op)
+    ftt.solve_extruded(scene, det, tol=1e-8, prebuilt=(op, pc_ref))
+    ref, t_ref = timed(lambda: ftt.solve_extruded(scene, det, tol=1e-8, prebuilt=(op, pc_ref)))
+    rel_ref = host_check(nodes, elements, mat, fixed, loads, ref.displacements.cpu().numpy())[1]
+    say(f"  the reference's composition (r - A z by the f32 level-0 operator) on the same factors: "
+        f"{ref.stats.iterations} iterations, FCG with certification {t_ref:.3f} s warm, host f64 true residual "
+        f"{rel_ref:.3e}, converged {ref.stats.converged}")
+    del ref, pc_ref
+    say(f"  stages: detector {t_det:.3f} s, operator {t_op:.3f} s, hierarchy {t_mg:.3f} s, section coarse "
+        f"{t_sc:.3f} s, FCG with certification {t_first:.3f} s first (captures), {t_fcg:.3f} s warm; levels "
+        + ", ".join(f"{lv.op.n_layers} layers (lambda_max {lv.lam_max:.4f}, special {list(lv.special_idx)})"
+                    for lv in mgz.levels)
+        + f", Thomas {mgz.thomas_uinv.shape[0]} layers of {mgz.thomas_uinv.shape[1]}; section coarse "
+        f"{sc.n_aggs} aggregates, {sc.n_layers} layers of {sc.thomas_uinv.shape[1]}; stored "
+        f"{tensor_bytes(op, pc) / 1e9:.3f} GB")
+
+    new_loads = np.zeros_like(loads)
+    new_loads[:, 0] = 0.5 * TUBE_LOAD * a["w"]
+    new_loads[:, 1] = -2.0 * TUBE_LOAD * a["w"]
+    cached_second_solve(ftt, scene, new_loads, whole_s,
+                        lambda v: host_check(nodes, elements, mat, fixed, new_loads, v)[1])
+
+    say("  FCG stage with certification, the Python loop beside the staged loop (one operator and hierarchy):")
+    loop_vs_staged(op, pc, scene.loads, scene.prescribed_or_zero(torch.float64),
+                   lambda v: host_check(nodes, elements, mat, fixed, loads, v)[1])
+
+    rng = np.random.default_rng(17)
+    batch = np.zeros((TUBE_CASES,) + nodes.shape)
+    for i in range(TUBE_CASES):
+        batch[i, :, 1] = -rng.uniform(0.5, 2.0) * TUBE_LOAD * a["w"]
+        batch[i, :, 0] = rng.uniform(-1.0, 1.0) * TUBE_LOAD * a["w"]
+    many, counts, wall = counted(counters, lambda: ftt.solve_many(scene, batch, tol=1e-8))
+    rels = [host_check(nodes, elements, mat, fixed, batch[i], many.displacements[i].cpu().numpy())[1]
+            for i in range(TUBE_CASES)]
+    say(f"  solve_many of {TUBE_CASES} tip loads: {wall:.3f} s ({wall / TUBE_CASES:.3f} s a case, against "
+        f"{t_fcg:.3f} s for one warm FCG stage); iterations {many.stats.iterations.tolist()}; host f64 true residuals "
+        f"{', '.join(f'{r:.2e}' for r in rels)}")
+    require({"every case converged": bool(many.stats.converged.all()),
+             "every host true residual <= 1e-8": max(rels) <= 1e-8,
+             "no kernel launched": not any(counts.values())}, "extruded solve_many")
+
+    # the compute of the route, timed on the card beside its bound
+    u_np = np.random.default_rng(20261021).standard_normal(nodes.shape)
+    u64 = torch.as_tensor(u_np, device=DEV)
+    want = torch.as_tensor(host_ku(nodes, elements, float(mat.E), float(mat.nu), u_np), device=DEV)
+    L, n2, Q2 = op.n_layers, op.n2, op.kes.shape[0]
+    ke_all = op.kes.expand(L - 1, Q2, 24, 24).reshape(-1, 24, 24)
+    csr = assemble_bcoo(ke_all, scene.elements, 3, scene.n_dof).to_sparse_csr()
+    del ke_all
+    flops = extruded_flops(pc)
+    lv0 = mgz.levels[0]
+    out = {}
+    for key, o in (("extruded_apply_f64", op), ("extruded_apply_f32", lv0.op)):
+        uu = u64.to(o.dtype)
+        nbytes = tensor_bytes(o.kes, o.quads, o.inc_q, o.inc_c, o.inc_m) + 2 * uu.numel() * uu.element_size()
+        out[key] = no_kernel_timing(f"extruded apply {str(o.dtype).replace('torch.', '')} ({scene.n_elements} "
+                                    f"elements, {Q2} section Ke)", o.apply_raw, uu, want,
+                                    nbytes, flops["apply_f32"], csr if o is op else csr.to(o.dtype))
+    degree = mgz.degree
+    out["extruded_apply_f64"]["applies"] = f"{steps} replays x 2 (FCG and the composition) + certification"
+    out["extruded_apply_f32"]["applies"] = f"{steps} replays x {2 * degree + 1} (level 0)"
+    del csr
+
+    r32 = (torch.as_tensor(np.random.default_rng(20261022).standard_normal(nodes.shape), device=DEV)
+           * op.free).to(torch.float32)
+    Lc, b = mgz.thomas_uinv.shape[0], mgz.thomas_uinv.shape[1]
+    rc = torch.as_tensor(np.random.default_rng(20261023).standard_normal((Lc, n2, 3)), device=DEV).to(torch.float32)
+    rc = rc * mgz.coarse_free
+    sc64 = dataclasses.replace(sc, thomas_uinv=sc.thomas_uinv.double(), thomas_g=sc.thomas_g.double())
+    z64 = dataclasses.replace(mgz, thomas_uinv=mgz.thomas_uinv.double(), thomas_g=mgz.thomas_g.double())
+
+    def jacobi64(r):
+        rf = r.double().reshape(L, -1)
+        z = rf @ lv0.minv_interior.double().T
+        z[lv0.special] = torch.bmm(lv0.minv_special.double(), rf[lv0.special].unsqueeze(-1))[..., 0]
+        return z.reshape(r.shape)
+
+    r3 = r32.reshape(L, n2, 3)
+    # (name, function, its f64 twin on the same stored factors or None, tolerance, bytes, f32 flops, f64 flops, count)
+    pieces = [
+        ("extruded_block_jacobi_f32", "level-0 block-Jacobi", lambda: lv0.block_jacobi(r3), lambda: jacobi64(r3), 2e-5,
+         tensor_bytes(lv0.minv_interior, lv0.minv_special) + 2 * r3.numel() * 4, flops["block_jacobi"], 0,
+         f"{steps} replays x {2 * degree}"),
+        ("extruded_thomas_z_f32", f"z-coarse Thomas solve ({Lc} layers of {b})", lambda: mgz._coarse_solve(rc),
+         lambda: z64._coarse_solve(rc.double()), 1e-4,
+         tensor_bytes(mgz.thomas_uinv, mgz.thomas_g) + 2 * rc.numel() * 4, flops["z_thomas"], 0,
+         f"{steps} replays x 1"),
+        ("extruded_section_coarse_f32", f"section coarse solve ({sc.n_layers} layers of {sc.thomas_uinv.shape[1]})",
+         lambda: sc(r32), lambda: sc64(r32.double()), 1e-3,
+         tensor_bytes(sc) + 2 * r32.numel() * 4, flops["section"], 0, f"{steps} replays x 1"),
+        ("extruded_precond_f32", "whole preconditioner (section coarse, then the V-cycle)", lambda: pc(r32), None, None,
+         tensor_bytes(pc) + 2 * r32.numel() * 4, flops["precond_f32"], flops["compose_f64"], f"{steps} replays x 1"),
+    ]
+    case = staged._Case(0, op.free.shape, op.free.device, torch.zeros(5, dtype=torch.float64, device=DEV))
+    # a zero budget: the step is frozen, and does the same work
+    case.start(op.free, op.rhs(scene.loads, scene.prescribed_or_zero(torch.float64)), None, 1e-8, 0)
+    pieces.append(("extruded_fcg_step", "FCG step (preconditioner, f64 apply, dots, updates)",
+                   lambda: case.step(op.apply, pc), None, None,
+                   tensor_bytes(op, pc) + 12 * op.free.numel() * 8, flops["precond_f32"],
+                   flops["compose_f64"] + flops["apply_f32"],
+                   f"{steps} replays"))
+    for key, label, fn, twin, tol, nbytes, f32_flops, f64_flops, count in pieces:
+        got = fn()
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(got).all()) if got is not None else True
+        err = None if twin is None else float((got.double() - twin()).abs().max() / twin().abs().max())
+        ms = graph_ms(fn, calls=5)
+        host_ms = event_ms(fn, runs=5, reps=2)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = (f32_flops / PEAK_FLOPS[torch.float32] + f64_flops / PEAK_FLOPS[torch.float64]) * 1e3
+        bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        say(f"  {label}: card {ms:.4f} ms, host pace {host_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{nbytes / 1e6:.1f} MB, {(f32_flops + f64_flops) / 1e9:.2f} GFLOP)"
+            + ("" if err is None else f", against the same factors in f64 {err:.2e} (tol {tol:g})"))
+        require({f"{label} finite": finite, f"{label} within {tol}": err is None or err <= tol}, label)
+        out[key] = dict(ms=ms, host_ms=host_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                        max_rel_err=err, applies=count)
+    del case, op, mgz, sc, pc, sol, many
+    ftt.clear_build_cache()
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -2293,6 +2576,10 @@ def main() -> None:
 
     phase(f"[16] two-level slice: the {TWO_LEVEL_L} L-domain with FEA_TPU_NO_EMBED and FEA_TPU_NO_AMG set")
     no_kernel.update(run_two_level(ftt, counters))
+
+    phase(f"[17] extruded slice: the {TUBE[0]}-segment x {TUBE[1]}-layer tube (591,360 DOF) through "
+          "fea_tpu_torch.solve")
+    no_kernel.update(run_extruded(ftt, counters))
 
     say(json.dumps({"kernels": [
         dict(name=spec["name"], route="cuda", source=spec["source"], replaces=spec["replaces"],

@@ -9,8 +9,8 @@ version serves:
     (K4/K5), the canonicalized (renumbered) grid, a box subset embedded
     in its box (K4/K5), and any other topology by block-CSR
     smoothed-aggregation AMG, else the two-level preconditioner
-    (``build_two_level``, ``build_two_level_cheb``); only an extruded mesh
-    still raises;
+    (``build_two_level``, ``build_two_level_cheb``), and an extruded mesh
+    (a section extruded along z: ``build_extruded``, ``solve_extruded``);
   * ``solve_many``: many load cases on one mesh of any of those routes
     but AMG (the arbitrary branch takes the two-level preconditioner);
   * the voxel box z-sharded over several devices
@@ -50,10 +50,12 @@ from .scene import FAMILIES, ElementFamily, Scene, fix_where, make_scene, scene_
 from .solve import (
     Solution,
     build_curvilinear,
+    build_extruded,
     clear_build_cache,
     solve,
     solve_curvilinear,
     solve_displacements,
+    solve_extruded,
     solve_many,
     solve_nonlinear,
     solve_operator,
@@ -79,6 +81,7 @@ __all__ = [
     "TwoLevelPrecond",
     "assembly",
     "build_curvilinear",
+    "build_extruded",
     "build_operator",
     "build_two_level",
     "build_two_level_cheb",
@@ -94,6 +97,7 @@ __all__ = [
     "solve",
     "solve_curvilinear",
     "solve_displacements",
+    "solve_extruded",
     "solve_many",
     "solve_nonlinear",
     "solve_operator",

@@ -89,16 +89,18 @@ def _sl(ndim: int, axis: int, s: slice) -> tuple:
 def _prolong(c: torch.Tensor, axes: tuple[int, ...] = (0, 1, 2)) -> torch.Tensor:
     """Trilinear interpolation: coarse grid (Zc,Yc,Xc,3) -> fine grid
     (2Zc-1, 2Yc-1, 2Xc-1, 3); axis-wise [1/2, 1, 1/2]. Only the grid
-    ``axes`` are refined (semi-coarsening leaves the others as they are)."""
+    ``axes`` are refined (semi-coarsening leaves the others as they are).
+    Any rank: the extruded hierarchy refines (L, n2, 3) fields along 0."""
     out = c
+    nd = c.ndim
     for axis in axes:
         n = out.shape[axis]
         shape = list(out.shape)
         shape[axis] = 2 * n - 1
         fine = torch.empty(shape, dtype=out.dtype, device=out.device)
-        fine[_sl(4, axis, slice(0, None, 2))] = out
-        fine[_sl(4, axis, slice(1, None, 2))] = 0.5 * (
-            out[_sl(4, axis, slice(0, n - 1))] + out[_sl(4, axis, slice(1, n))]
+        fine[_sl(nd, axis, slice(0, None, 2))] = out
+        fine[_sl(nd, axis, slice(1, None, 2))] = 0.5 * (
+            out[_sl(nd, axis, slice(0, n - 1))] + out[_sl(nd, axis, slice(1, n))]
         )
         out = fine
     return out
@@ -108,15 +110,16 @@ def _restrict(f: torch.Tensor, axes: tuple[int, ...] = (0, 1, 2)) -> torch.Tenso
     """Exact adjoint of _prolong: c[i] = f[2i] + (f[2i-1] + f[2i+1]) / 2
     along each of the grid ``axes``."""
     out = f
+    nd = f.ndim
     for axis in reversed(axes):
-        even = out[_sl(4, axis, slice(0, None, 2))]
-        odd = out[_sl(4, axis, slice(1, None, 2))]
+        even = out[_sl(nd, axis, slice(0, None, 2))]
+        odd = out[_sl(nd, axis, slice(1, None, 2))]
         # odd fine points contribute half to both coarse neighbours
-        pad_lo = [0] * 8
-        pad_hi = [0] * 8
-        # F.pad lists (last dim first) pairs; axis a is pair index 3 - a
-        pad_lo[2 * (3 - axis)] = 1
-        pad_hi[2 * (3 - axis) + 1] = 1
+        pad_lo = [0] * (2 * nd)
+        pad_hi = [0] * (2 * nd)
+        # F.pad lists (last dim first) pairs; axis a is pair index nd - 1 - a
+        pad_lo[2 * (nd - 1 - axis)] = 1
+        pad_hi[2 * (nd - 1 - axis) + 1] = 1
         out = even + 0.5 * (
             torch.nn.functional.pad(odd, pad_lo) + torch.nn.functional.pad(odd, pad_hi)
         )

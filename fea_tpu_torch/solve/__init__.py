@@ -17,7 +17,11 @@ reference's order:
         one device, or, when ``sharded=True`` asks for it and more than
         one device is visible, its z-sharded solve over them
         (``parallel/halo.py``, K1's halo form and K3);
-     b. an extruded mesh: not ported yet, raises (item 12);
+     b. an extruded mesh (a section extruded along z with uniform
+        spacing): the semi-structured operator and the z-semicoarsened
+        line-smoothed V-cycle with the section-RBM coarse space
+        (``solve/extruded.py``), on one device also under
+        ``sharded=True``;
      c. box-grid connectivity with free node positions: the curvilinear
         route (``solve/curv.py``, K4/K5);
      d. a box grid under node renumbering: canonicalized, solved through
@@ -44,9 +48,9 @@ The large routes run f64 flexible PCG with a multigrid or two-level
 preconditioner, its loop held on the card as replays of a captured
 iteration (``solve/staged.py``; the z-sharded solve keeps the Python loop
 of ``solve_operator_fpcg``); every route reports the true residual of the
-displacements it returns. Among hex8 scenes only an extruded mesh raises
-``NotImplementedError`` (ROADMAP item 12), naming the route; no scene
-silently takes another path.
+displacements it returns. Only ``debug_nans`` raises
+``NotImplementedError`` (ROADMAP item 15), naming what is not ported; no
+scene silently takes another path.
 """
 from __future__ import annotations
 
@@ -69,6 +73,7 @@ from ._types import Solution
 from .cache import _cached_build, clear_build_cache
 from .curv import build_curvilinear, solve_curvilinear
 from .embed import _cached_embedding, solve_subgrid_embedded
+from .extruded import build_extruded, solve_extruded
 from .fpcg import solve_operator_fpcg
 from .many import solve_many
 from .staged import solve_operator_fpcg_staged
@@ -77,10 +82,12 @@ from .unstructured import _solve_unstructured_amg, _solve_unstructured_two_level
 __all__ = [
     "Solution",
     "build_curvilinear",
+    "build_extruded",
     "clear_build_cache",
     "solve",
     "solve_curvilinear",
     "solve_displacements",
+    "solve_extruded",
     "solve_many",
     "solve_nonlinear",
     "solve_operator",
@@ -267,9 +274,10 @@ def _device_count(device: torch.device) -> int:
 
 def _grid_route(scene: Scene):
     """The grid route of a hex8 scene, the detectors run in the
-    reference's order: ``("voxel", box dims)``, ``("curvilinear", grid
+    reference's order: ``("voxel", box dims)``, ``("extruded",
+    infer_extruded's (quads, n2, n_layers))``, ``("curvilinear", grid
     dims)``, ``("grid", dims)`` for box-grid connectivity too small to
-    coarsen, or ``(None, None)``. An extruded mesh raises (item 12)."""
+    coarsen, or ``(None, None)``."""
     from ..ops.curvilinear import curv_coarsenable, infer_topo_dims
     from ..ops.extruded import extruded_mg_coarsenable, infer_extruded
     from ..ops.structured import infer_box_dims
@@ -281,7 +289,7 @@ def _grid_route(scene: Scene):
     # reference sends it to the extruded route, so it is tested first
     ext = infer_extruded(scene)
     if ext is not None and extruded_mg_coarsenable(ext[2] - 1):
-        raise _not_ported("extruded", "12")
+        return "extruded", ext
     tdims = infer_topo_dims(scene)
     if tdims is None:
         return None, None
@@ -304,10 +312,10 @@ def _solve_large_hex8(
     scene: Scene, cfg: SolverConfig, tol, max_iters, dtype, check_jacobians
 ) -> Optional[tuple[Solution, str]]:
     """The grid routes of a large hex8 scene, in the reference's order:
-    (solution, route name), NotImplementedError for an extruded mesh
-    (item 12), or None for a scene no grid route takes: it goes on to the
-    routes of :func:`solve`'s tail (embedded, AMG, two-level, or dense/CG
-    for a scene under ``_BLOCK_PRECOND_MIN_DOF``), as in the reference."""
+    (solution, route name), or None for a scene no grid route takes: it
+    goes on to the routes of :func:`solve`'s tail (embedded, AMG,
+    two-level, or dense/CG for a scene under ``_BLOCK_PRECOND_MIN_DOF``),
+    as in the reference."""
     route, dims = _grid_route(scene)
     if route == "voxel":
         # the z-sharded solve only when asked for (``sharded=True``) and more
@@ -343,6 +351,10 @@ def _solve_large_hex8(
             max_iters=max_iters if max_iters is not None else 300,
         )
         return sol, "fpcg-multigrid"
+    if route == "extruded":
+        # one device whatever ``sharded`` says, as in the reference
+        sol = solve_extruded(scene, dims, tol=tol, max_iters=max_iters if max_iters is not None else 300)
+        return sol, "fpcg-extruded-multigrid"
     if route == "curvilinear":
         sol = solve_curvilinear(
             scene, dims, tol=tol,

@@ -7,11 +7,11 @@ card, each case freezing on its own and the host replaying only the cases
 it has not seen halt, with one readback of the whole batch's status a
 round. Each case is certified against its true f64 residual on its own
 (``certify.refine_true``), with its own correction tolerance. Routing
-follows the reference: a voxel box, then extruded (not ported, item 12),
-then curvilinear, then a box subset (embedded: the batch scattered into
-the lattice and gathered back), else arbitrary topology (the two-level
-preconditioner over the element-by-element f64 operator). Every build but
-the voxel one comes from the cache ``solve()`` uses.
+follows the reference: a voxel box, then extruded, then curvilinear, then
+a box subset (embedded: the batch scattered into the lattice and gathered
+back), else arbitrary topology (the two-level preconditioner over the
+element-by-element f64 operator). Every build but the voxel one comes
+from the cache ``solve()`` uses.
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ from ..solvers.cg import SolveStats
 from ._types import Solution
 from .curv import _cached_curvilinear
 from .embed import _cached_embedding, _to_lattice
+from .extruded import _cached_extruded
 from .staged import _solve_cases
 
 __all__ = ["solve_many"]
@@ -41,13 +42,14 @@ def _batch(name: str, value, scene: Scene) -> torch.Tensor:
 def _build(scene: Scene):
     """``((f64 operator, preconditioner), lat)`` of ``scene``'s route,
     built as ``solve()`` builds it (from the same cache where ``solve()``
-    caches); ``lat`` is the lattice map of the embedded route, else None.
-    An extruded mesh raises NotImplementedError (item 12)."""
+    caches); ``lat`` is the lattice map of the embedded route, else None."""
     from . import _grid_route, _operator_f64, _two_level, _voxel_build
 
     route, dims = _grid_route(scene)
     if route == "voxel":
         return _voxel_build(scene, dims), None
+    if route == "extruded":
+        return _cached_extruded(scene, dims), None
     if route == "curvilinear":
         return _cached_curvilinear(scene, dims), None
     if not os.environ.get("FEA_TPU_NO_EMBED"):

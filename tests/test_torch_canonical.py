@@ -1,7 +1,7 @@
 """Port parity, routing: the canonicalized route of fea_tpu_torch.solve
 against the curvilinear solve of the un-renumbered scene and against
-fea_tpu's detector, and the routes that must raise instead of taking
-the curvilinear one. Everything runs on the CPU."""
+fea_tpu's detector, and the extruded route, which a z-extruded box mesh
+takes instead of the curvilinear one. Everything runs on the CPU."""
 import sys
 
 import jax.numpy as jnp
@@ -62,26 +62,34 @@ def test_renumbered_grid_takes_the_canonicalized_route(large_routes_for_small_sc
 def test_z_extruded_box_mesh_raises_item_12(large_routes_for_small_scenes, monkeypatch):
     """A box-connectivity mesh whose section is distorted alike in every
     layer matches the extruded and the curvilinear detectors; the
-    reference takes the extruded route, so the port must raise for it and
-    never solve it as curvilinear."""
+    reference takes the extruded route, so the port must take it too
+    (it raised while the route was not ported, hence the name), never the
+    curvilinear one, and meet tol in the true residual."""
+    solve_mod = sys.modules["fea_tpu_torch.solve"]
+    monkeypatch.setattr(sys.modules["fea_tpu_torch.solve.cache"], "_BUILD_CACHE", {})
     dims = (6, 6, 24)
     nodes, elements = ftt.mesh.box_hex_mesh(*dims, 0.1, 0.1, 0.4)
     n2 = 7 * 7
     section = nodes[:n2, :2] + 0.2 * (0.1 / 6) * np.random.default_rng(3).uniform(-1, 1, (n2, 2))
     nodes[:, :2] = np.tile(section, (25, 1))
     fixed = ftt.fix_where(nodes, lambda q: q[:, 2] == 0.0, 3)
-    scene = _scene(nodes, elements, fixed, np.ones_like(nodes))
+    loads = np.ones_like(nodes)
+    scene = _scene(nodes, elements, fixed, loads)
     assert infer_topo_dims(scene) == dims and curv_coarsenable(dims)
     assert infer_extruded(scene) is not None
-    jsc = ft.make_scene(nodes, elements, fixed, np.ones_like(nodes), ft.Material(**MAT), dtype=jnp.float64)
+    jsc = ft.make_scene(nodes, elements, fixed, loads, ft.Material(**MAT), dtype=jnp.float64)
     assert jax_infer_extruded(jsc) is not None
 
     def must_not_run(*args, **kwargs):
         raise AssertionError("the curvilinear route was taken")
 
-    monkeypatch.setattr(sys.modules["fea_tpu_torch.solve"], "solve_curvilinear", must_not_run)
-    with pytest.raises(NotImplementedError, match="extruded.*item 12"):
-        ftt.solve(scene)
+    taken = []
+    real = solve_mod.solve_extruded
+    monkeypatch.setattr(solve_mod, "solve_curvilinear", must_not_run)
+    monkeypatch.setattr(solve_mod, "solve_extruded", lambda *a, **kw: taken.append("extruded") or real(*a, **kw))
+    sol = ftt.solve(scene, tol=TOL)
+    assert taken == ["extruded"] and sol.stats.converged
+    assert true_rel_residual(nodes, dims, fixed, loads, None, sol.displacements.numpy()) <= TOL
 
 
 def test_l_shaped_subset_takes_the_embedded_route(large_routes_for_small_scenes, monkeypatch):

@@ -1,5 +1,6 @@
 """K1, K2, K3 (and K1's halo form), K4, K5, K6 and K7 on the card against
-their plain version (f64) on the card, and the z-sharded solve on one card.
+their plain version (f64) on the card, the z-sharded solve on one card,
+and the staged loop of the grid, embedded and extruded routes on the card.
 
 Needs a CUDA card and nvcc; skips without a card. This file imports
 neither JAX nor fea_tpu, so it runs where only the port is installed:
@@ -379,6 +380,44 @@ def test_embedded_solve_on_card_matches_cpu(monkeypatch):
         torch.cuda.synchronize()
     assert cuda_varstencil.LAUNCHES["var_f64"] > 0
     assert cuda_stencil.LAUNCHES["f32"] == 0 and cuda_stencil.LAUNCHES["f64"] == 0
+    cpu, card = sols["cpu"], sols["cuda"]
+    assert card.stats.converged and abs(card.stats.iterations - cpu.stats.iterations) <= 1
+    u = cpu.displacements
+    assert float((card.displacements.cpu() - u).abs().max()) <= 1e-7 * float(u.abs().max())
+
+
+@pytest.mark.cuda
+def test_extruded_solve_on_card_matches_cpu(monkeypatch):
+    """The extruded route of a two-level tube on the card (its step
+    captured with the section-coarse and z-coarse Thomas sweeps) against
+    the same solve on the CPU; a second solve replays the graph bit for
+    bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the staged loop captures on the card")
+    import sys
+
+    import fea_tpu_torch as ftt
+    from fea_tpu_torch.mesh import annulus_section, extrude_quads
+    from fea_tpu_torch.scene import fix_where, make_scene
+    from fea_tpu_torch.solve import staged
+
+    monkeypatch.setattr(sys.modules["fea_tpu_torch.solve"], "_STRUCTURED_MIN_DOF", 0)
+    nodes2d, quads = annulus_section(16, 0.08, 0.1)
+    nodes, elements = extrude_quads(nodes2d, quads, np.linspace(0.0, 0.6, 65))
+    fixed = fix_where(nodes, lambda p: p[:, 2] == 0.0, 3)
+    loads = np.zeros_like(nodes)
+    loads[nodes[:, 2] == nodes[:, 2].max(), 1] = 1.0
+    sols = {}
+    for dev in ("cpu", "cuda"):
+        sc = make_scene(nodes, elements, fixed, loads, Material(E=2e6, nu=0.3), dtype=torch.float64, device=dev)
+        for key in staged.COUNTS:
+            staged.COUNTS[key] = 0
+        sols[dev] = ftt.solve(sc, tol=1e-10)
+        torch.cuda.synchronize()
+        if dev == "cuda":
+            assert staged.COUNTS["captures"] == 1
+            again = ftt.solve(sc, tol=1e-10)
+            assert staged.COUNTS["captures"] == 1 and torch.equal(again.displacements, sols[dev].displacements)
     cpu, card = sols["cpu"], sols["cuda"]
     assert card.stats.converged and abs(card.stats.iterations - cpu.stats.iterations) <= 1
     u = cpu.displacements

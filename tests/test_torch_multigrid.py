@@ -61,6 +61,13 @@ def test_prolong_restrict_match_jax(rng):
     f = rng.normal(size=(5, 7, 3, 3))
     assert np.array_equal(_prolong(torch.as_tensor(c)).numpy(), np.asarray(jp(jnp.asarray(c))))
     assert np.array_equal(_restrict(torch.as_tensor(f)).numpy(), np.asarray(jr(jnp.asarray(f))))
+    # the extruded hierarchy's (L, n2, 3) fields, along the layer axis only
+    c3 = rng.normal(size=(5, 7, 3))
+    f3 = rng.normal(size=(9, 7, 3))
+    assert np.array_equal(_prolong(torch.as_tensor(c3), axes=(0,)).numpy(),
+                          np.asarray(jp(jnp.asarray(c3), axes=(0,))))
+    assert np.array_equal(_restrict(torch.as_tensor(f3), axes=(0,)).numpy(),
+                          np.asarray(jr(jnp.asarray(f3), axes=(0,))))
 
 
 @pytest.mark.parametrize("small_level_dof", [0, 100_000])

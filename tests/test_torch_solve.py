@@ -1,6 +1,6 @@
 """Port parity, the whole slice: ``fea_tpu_torch.solve`` against
-``fea_tpu.solve`` on the voxel route, and the routes the port does not
-take yet.
+``fea_tpu.solve`` on the voxel route, the routes of other scenes, and
+what the port does not take yet.
 
 The scene is the slender cantilever of tests/test_refine.py at 8x8x64
 (15,795 DOF): large enough for a two-level V-cycle (4x4x8 at 2,475 DOF
@@ -107,14 +107,30 @@ def test_routes_not_ported_raise_with_their_name():
     assert ftt.solve(box, method="cg").stats.converged
 
 
-def test_large_non_voxel_scene_raises(voxel_route_for_small_scenes):
+def test_large_non_voxel_scene_raises(voxel_route_for_small_scenes, monkeypatch):
+    """A large tube takes the extruded route (it raised while the route
+    was not ported, hence the name) and meets tol in the true residual of
+    the oracle's K."""
+    from oracle import assemble_sparse
+
+    monkeypatch.setattr(sys.modules["fea_tpu_torch.solve.cache"], "_BUILD_CACHE", {})
     mat = ftt.Material(E=1e7, nu=0.3)
     n2, q = ftt.mesh.annulus_section(26, 0.099, 0.1016)
     nodes, elements = ftt.mesh.extrude_quads(n2, q, np.linspace(0.0, 1.0, 50))
     fixed = ftt.fix_where(nodes, lambda p: p[:, 2] == 0.0, 3)
-    tube = ftt.make_scene(nodes, elements, fixed, np.ones_like(nodes), mat, dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="extruded"):
-        ftt.solve(tube)
+    loads = np.ones_like(nodes)
+    tube = ftt.make_scene(nodes, elements, fixed, loads, mat, dtype=torch.float64, device="cpu")
+    solve_mod = sys.modules["fea_tpu_torch.solve"]
+    taken = []
+    real = solve_mod.solve_extruded
+    monkeypatch.setattr(solve_mod, "solve_extruded", lambda *a, **kw: taken.append(1) or real(*a, **kw))
+    sol = ftt.solve(tube, tol=TOL)
+    assert taken == [1] and sol.stats.converged
+    K = assemble_sparse(nodes, elements, 1e7, 0.3)
+    F = 1.0 - fixed.astype(np.float64)
+    u = sol.displacements.numpy()
+    r = F * (loads - (K @ u.reshape(-1)).reshape(u.shape))
+    assert np.linalg.norm(r) <= TOL * np.linalg.norm(F * loads)
 
 
 def test_nonconverged_solve_is_never_silent(voxel_route_for_small_scenes):
