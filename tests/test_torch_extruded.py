@@ -246,6 +246,36 @@ def test_prescribed_root_is_exact():
     assert np.abs(u[:, 0] - 1e-4).max() < 1e-9
 
 
+def test_partial_constraints_match_jax(tube32):
+    """A roller line (u_y fixed on the outer +x nodes of 13 interior node
+    layers) beside the fixed root: special interior layers with mixed
+    masks in the hierarchy and the section coarse space, against the
+    reference's host build and solve; the fixed rows stay exactly 0."""
+    nodes, elements, fixed, loads = tube32
+    fixed = fixed.copy()
+    fixed[(nodes[:, 0] > 0.099) & (nodes[:, 2] > 0.14) & (nodes[:, 2] < 0.39), 1] = True
+    jsc, tsc, det = both(nodes, elements, fixed, loads)
+    jdet = jex.infer_extruded(jsc)
+    m_j = jmg.build_extruded_multigrid(jsc, jdet, device_build=False)
+    m_t = mg.build_extruded_multigrid(tsc, det)
+    lj, lt = m_j.levels[0], m_t.levels[0]
+    assert lt.special_idx == lj.special_idx and len(lt.special_idx) == 15
+    assert rel_err(lt.minv_special.numpy(), lj.minv_special) <= 1e-5
+    assert abs(lt.lam_max - float(lj.lam_max)) <= 1e-3 * float(lj.lam_max)
+    sc_j = jmg.build_section_coarse(jsc, jdet, target_section_aggregates=8)
+    sc_t = mg.build_section_coarse(tsc, det, target_section_aggregates=8)
+    assert rel_err(sc_t.thomas_uinv.numpy(), sc_j.thomas_uinv) <= 1e-5
+    assert rel_err(sc_t.thomas_g.numpy(), sc_j.thomas_g) <= 1e-5
+    want = jax_solve_extruded(jsc, tol=1e-10, krylov="f64")
+    sol = ftt.solve_extruded(tsc, det, tol=1e-10)
+    u = sol.displacements.numpy()
+    assert sol.stats.converged and sol.stats.iterations <= int(want.stats.iterations)
+    assert rel_err(u, want.displacements) <= 3e-8 and not u[fixed].any()
+    K = assemble_sparse(nodes, elements, MAT["E"], MAT["nu"])
+    F = 1.0 - fixed.astype(np.float64)
+    assert np.linalg.norm(F * (loads - (K @ u.reshape(-1)).reshape(u.shape))) <= 1e-10 * np.linalg.norm(F * loads)
+
+
 def test_slender_tube_converges_without_section_coarse():
     """tests/test_section_coarse.py's slender tube (L/R = 20, one element
     through the wall), whose all-f32 Thomas chain diverged the
