@@ -309,4 +309,4 @@ def test_solve_routes_the_tube_under_sharded_and_builds_once(monkeypatch, tube32
     sol, route = SOLVE._solve_large_hex8(tsc, cfg, 1e-8, None, None, True)
     assert route == "fpcg-extruded-multigrid" and sol.stats.converged
     again = ftt.solve(tsc, config=cfg, tol=1e-8)
-    assert len(builds) == 1 and torch.equal(again.displacements, sol.displacements)
+    assert len(builds) == 1 and rel_err(again.displacements.numpy(), sol.displacements.numpy()) <= 1e-14
