@@ -145,7 +145,22 @@ Phases, in order:
      assembled matrix), the level-0 block-Jacobi, the z-coarse Thomas solve,
      the section coarse solve, the whole preconditioner and one FCG step,
      each beside its bound;
- 18. one JSON line of the kernels, one of the compute with no TPU kernel,
+ 18. sharded modes: every decomposition of ``fea_tpu_torch.parallel`` over
+     four shards of the one card (``make_device_mesh(4)`` repeats it):
+     K4-slab and K5-slab on the four slabs of the 811,923-DOF field and of
+     its level 1 against their plain version (f64) and, value for value,
+     the unsharded K4/K5, timed beside them, the plain version, cuSPARSE
+     CSR of the shards' rows and the bound; ``shard_operator`` on [9]'s
+     box (K7 f64) and its distorted twin's stored operator (K6 f64),
+     ``sharded_sweep`` of four scaled tip loads on the box,
+     ``shard_structured_operator`` on the flagship with the unsharded
+     V-cycle beside it, ``shard_curvilinear`` on [6]'s cantilever (with the
+     memory a shard keeps), ``shard_extruded`` on [17]'s tube through
+     ``solve_extruded``: each solve host-checked by ``host_ku``, its
+     iterations and displacements held against the unsharded solve, its
+     wall beside the unsharded Python loop's; then
+     ``python -m fea_tpu_torch.dryrun 4``, all seven modes;
+ 19. one JSON line of the kernels, one of the compute with no TPU kernel,
      the card's line, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the last line.
@@ -254,6 +269,11 @@ KERNELS = {
                      replaces="fea_tpu/ops/pallas_stencil.py:540", dtype=torch.float32, tol=2e-5),
     "slab_f64": dict(name="K3 stencil_apply_slab_f64", source="fea_tpu_torch/csrc/stencil.cu",
                      replaces="fea_tpu/ops/pallas_stencil.py:108", dtype=torch.float64, tol=1e-12),
+    # K4/K5 on one z slab of a sharded curvilinear grid (parallel/curv.py)
+    "var_slab_f32": dict(name="K4-slab var_apply_slab_f32", source="fea_tpu_torch/csrc/varstencil.cu",
+                         replaces="fea_tpu/ops/pallas_varstencil.py:183", dtype=torch.float32, tol=2e-5),
+    "var_slab_f64": dict(name="K5-slab var_apply_slab_f64", source="fea_tpu_torch/csrc/varstencil.cu",
+                         replaces="fea_tpu/ops/pallas_varstencil.py:277", dtype=torch.float64, tol=1e-12),
 }
 STENCIL_KEYS = ("f32", "f64")
 VAR_KEYS = ("var_f32", "var_f64")
@@ -1030,7 +1050,8 @@ def run_curvilinear(ftt, cuda_stencil, cuda_varstencil) -> dict:
     new_loads[tip, 2] = 0.5 / tip.sum()
     cached_second_solve(ftt, scene, new_loads, whole_s,
                         lambda v: host_check(nodes, elements, mat, fixed, new_loads, v)[1])
-    return launches
+    return launches, dict(scene=scene, nodes=nodes, elements=elements, fixed=fixed, loads=loads, mat=mat, u=u,
+                          iterations=st.iterations)
 
 
 def cached_second_solve(ftt, scene, new_loads, first_wall: float, host_rel, check_tol: float = 1e-8) -> None:
@@ -2499,6 +2520,318 @@ def run_extruded(ftt, counters) -> dict:
     return out
 
 
+# -- [18] the sharded modes of fea_tpu_torch.parallel, four shards on the one card
+
+VAR_SLAB_KEYS = ("var_slab_f32", "var_slab_f64")
+
+
+def slab_csr(w: torch.Tensor) -> torch.Tensor:
+    """The (3 Zl Y X, 3 (Zl + 2) Y X) CSR matrix of one slab's weights
+    (27, 3, 3, Zl, Y, X) acting on its halo-extended state: ``stencil_csr``
+    of the weights between two zero planes, the two halo planes' rows
+    dropped."""
+    A = stencil_csr(torch.nn.functional.pad(w, (0, 0, 0, 0, 1, 1)))
+    Zl, Y, X = w.shape[3:]
+    plane = 3 * Y * X
+    crow, col, val = A.crow_indices(), A.col_indices(), A.values()
+    s, e = int(crow[plane]), int(crow[plane * (Zl + 1)])
+    return torch.sparse_csr_tensor(crow[plane : plane * (Zl + 1) + 1] - s, col[s:e], val[s:e],
+                                   size=(plane * Zl, plane * (Zl + 2)), check_invariants=False)
+
+
+def check_var_slab_kernels(cuda_varstencil) -> dict:
+    """[18.1]: K4-slab and K5-slab on the SHARDS slabs of the curvilinear
+    fine grid and of its level 1, as ``shard_curvilinear`` cuts them, with
+    random weights and state from a NumPy seed: within 2e-5 / 1e-12 of the
+    plain slab version run in f64, value for value the unsharded K4/K5 on
+    the real planes, padding planes 0; at the fine grid the times of one
+    apply over the four shards beside the unsharded kernel, the plain
+    version, cuSPARSE CSR of the shards' rows and the bound."""
+    from fea_tpu_torch.ops.curvilinear import coarsen_dims_partial, curv_apply_slab_grid
+    from fea_tpu_torch.parallel.curv import _geometry
+
+    rng = np.random.default_rng(20261024)
+    report = {k: dict(max_abs_err=0.0, max_rel_err=0.0) for k in VAR_SLAB_KEYS}
+    fine, axes = CURV, []
+    grids = [CURV]
+    for _ in range(2):
+        nxt, ax = coarsen_dims_partial(grids[-1])
+        grids.append(nxt)
+        axes.append(ax)
+    zls = _geometry(CURV[2] + 1, SHARDS, axes)
+    for dims, zl in zip(grids[:2], zls):
+        nx, ny, nz = dims
+        Z, Y, X = nz + 1, ny + 1, nx + 1
+        w64 = torch.zeros((27, 3, 3, SHARDS * zl, Y, X), dtype=torch.float64, device=DEV)
+        w64[:, :, :, :Z] = torch.as_tensor(rng.standard_normal((27, 3, 3, Z, Y, X)), device=DEV)
+        g64 = torch.zeros((SHARDS * zl + 2, Y, X, 3), dtype=torch.float64, device=DEV)
+        g64[1 : Z + 1] = torch.as_tensor(rng.standard_normal((Z, Y, X, 3)), device=DEV)
+        w_sh = [w64[:, :, :, i * zl : (i + 1) * zl].contiguous() for i in range(SHARDS)]
+        ext64 = [g64[i * zl : i * zl + zl + 2].clone() for i in range(SHARDS)]
+        want = [curv_apply_slab_grid(w, e) for w, e in zip(w_sh, ext64)]
+        scale = max(float(x.abs().max()) for x in want)
+        for key in VAR_SLAB_KEYS:
+            spec = KERNELS[key]
+            dt = spec["dtype"]
+            ws, ext = [w.to(dt) for w in w_sh], [e.to(dt) for e in ext64]
+
+            def shards():
+                return [cuda_varstencil.var_apply_slab(w, e) for w, e in zip(ws, ext)]
+
+            got = shards()
+            whole_w = w64[:, :, :, :Z].to(dt).contiguous()
+            whole_g = g64[1 : Z + 1].to(dt).contiguous()
+            whole = cuda_varstencil.var_apply(whole_w, whole_g)
+            torch.cuda.synchronize()
+            err = max(float((a.double() - b).abs().max()) for a, b in zip(got, want))
+            rel = err / scale
+            cat = torch.cat(got)
+            same = bool(torch.equal(cat[:Z], whole))
+            pad_zero = int(torch.count_nonzero(cat[Z:])) == 0
+            say(f"  {spec['name']} {dims} in {SHARDS} shards of {zl} planes ({SHARDS * zl - Z} padded): max abs err "
+                f"{err:.3e}, rel {rel:.3e} (tol {spec['tol']:g}); value for value the unsharded "
+                f"{spec['name'].split('-')[0]} on the {Z} real planes: {same}; padding 0: {pad_zero}")
+            require({f"{spec['name']} within {spec['tol']:g}": rel <= spec["tol"],
+                     f"{spec['name']} value for value the unsharded kernel": same,
+                     f"{spec['name']} padding planes 0": pad_zero}, f"{spec['name']} at {dims}")
+            report[key]["max_abs_err"] = max(report[key]["max_abs_err"], err)
+            report[key]["max_rel_err"] = max(report[key]["max_rel_err"], rel)
+            if dims != fine:
+                continue
+            ms, dev_ms = event_ms(shards), graph_ms(shards)
+            whole_ms = event_ms(lambda: cuda_varstencil.var_apply(whole_w, whole_g))
+            whole_dev_ms = graph_ms(lambda: cuda_varstencil.var_apply(whole_w, whole_g))
+            plain_ms = event_ms(lambda: [curv_apply_slab_grid(w, e) for w, e in zip(ws, ext)], runs=5, reps=2)
+            # each (node, offset) pair of a slab has its neighbour in the
+            # halo-extended slab along z; along y and x, inside the grid
+            terms = SHARDS * 3 * zl * (3 * Y - 2) * (3 * X - 2)
+            esize = whole_g.element_size()
+            nbytes = (9 * terms + sum(e.numel() for e in ext) + SHARDS * zl * Y * X * 3) * esize
+            bound_ms, bound_by = bound(dt, nbytes, 2 * 9 * terms)
+            fits, why = csr_fits(SHARDS * zl * Y * X, dt)
+            lib_ms = None
+            if fits:
+                csrs = [slab_csr(w) for w in ws]
+                lib = [torch.mv(A, e.reshape(-1)).reshape(w.shape[3:] + (3,)) for A, e, w in zip(csrs, ext, ws)]
+                lib_rel = max(float((a.double() - b).abs().max()) for a, b in zip(lib, want)) / scale
+                require({"CSR SpMV agrees with the plain version (1e-5)": lib_rel <= 1e-5}, "slab CSR")
+                lib_ms = event_ms(lambda: [torch.mv(A, e.reshape(-1)) for A, e in zip(csrs, ext)])
+                del csrs, lib
+            say(f"  {spec['name']} {dims} ({3 * Z * Y * X} DOF) over {SHARDS} shards: {ms:.4f} ms at the host's pace "
+                f"({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s), {dev_ms:.4f} ms on the card (graph replay); unsharded "
+                f"{spec['name'].split('-')[0]} {whole_ms:.4f} / {whole_dev_ms:.4f} ms; plain version {plain_ms:.4f} "
+                f"ms; "
+                f"CSR SpMV of the shards' rows " + (f"{lib_ms:.4f} ms" if fits else f"not built ({why})")
+                + f"; bound {bound_ms:.4f} ms ({bound_by})")
+            report[key].update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                               bound_by=bound_by, whole_ms=whole_ms, whole_device_ms=whole_dev_ms, shards=SHARDS,
+                               shard_planes=zl)
+        del w64, g64, w_sh, ext64, want
+    return report
+
+
+def sharded_memory(op_s, mg_s) -> dict:
+    """Bytes a shard keeps of the fine level (the f64 operator's and the
+    f32 level-0 weight slabs, the masks and the inverse diagonal) and its
+    largest tensor."""
+    per, largest = [0] * SHARDS, 0
+    lv0 = mg_s.levels[0] if mg_s.levels else None
+    for i in range(SHARDS):
+        ts = [op_s.w[i], op_s.free[i]] + ([lv0.w[i], lv0.free[i], lv0.inv_diag[i]] if lv0 else [])
+        per[i] = sum(t.numel() * t.element_size() for t in ts)
+        largest = max([largest] + [t.numel() * t.element_size() for t in ts])
+    return dict(per_shard=per, largest=largest)
+
+
+def run_sharded_modes(ftt, counters, flagship_ref: dict, curv_ref: dict, cuda_varstencil) -> tuple[dict, dict]:
+    """Phase [18]: every decomposition of ``fea_tpu_torch.parallel`` over
+    SHARDS shards of the one card, at full width, each solve host-checked
+    by ``host_ku`` and timed beside the unsharded one. Returns the K4-slab
+    / K5-slab report and their launches in the sharded curvilinear solve."""
+    from fea_tpu_torch.ops.extruded import infer_extruded
+    from fea_tpu_torch.parallel import (make_device_mesh, replicated_precond, shard_curvilinear, shard_extruded,
+                                        shard_operator, shard_structured_operator, sharded_sweep)
+    from fea_tpu_torch.solve import solve_operator_fpcg
+
+    devices = make_device_mesh(SHARDS)
+    require({f"{SHARDS} shards on the one card": devices == [torch.device(DEV, 0)] * SHARDS}, "device list")
+
+    say("  [18.1] K4-slab / K5-slab against their plain version and the unsharded K4/K5")
+    report = check_var_slab_kernels(cuda_varstencil)
+
+    say(f"  [18.2] shard_operator: the {EBE_BOX} box (K7 f64) and its distorted twin's stored operator (K6 f64)")
+    nodes, elements = ftt.mesh.box_hex_mesh(*EBE_BOX, 0.1, 0.1, EBE_LZ)
+    fixed, loads, tip = cantilever_bcs(ftt, nodes, EBE_LZ)
+    mat = ftt.Material(E=10_000_000 * ftt.units.psi, nu=0.3)
+    box = ftt.make_scene(nodes, elements, fixed, loads, mat, dtype=torch.float64)
+    dnodes, _, _ = distorted_scene_arrays(ftt, EBE_BOX, EBE_LZ)
+    twin = ftt.make_scene(dnodes, elements, fixed, loads, mat, dtype=torch.float64)
+    mf = ftt.build_operator(twin, dtype=torch.float64)
+    stored = dataclasses.replace(mf, kind="stored", ke=mf.element_matrices().contiguous(), geom=None, material=None)
+    del mf
+    zero = box.prescribed_or_zero(torch.float64)
+    for label, scene, op, key, bound_iters in (("uniform", box, ftt.build_operator(box, dtype=torch.float64),
+                                                "uniform_f64", EBE_JAX_ITERS),
+                                               ("stored", twin, stored, "stored_f64", EBE_DISTORTED_JAX_ITERS)):
+        one, c1, wall1 = counted(counters, lambda: ftt.solve_operator(op, scene.loads, zero, tol=1e-8))
+        sop = shard_operator(op, devices)
+        sol, counts, wall = counted(counters, lambda: ftt.solve_operator(sop, scene.loads, zero, tol=1e-8))
+        st = sol.stats
+        u = sol.displacements.cpu().numpy()
+        _, rel_host = host_check(scene.host_nodes, elements, mat, fixed, loads, u)
+        du = float(np.abs(u - one.displacements.cpu().numpy()).max() / np.abs(u).max())
+        say(f"    {label} ({scene.n_dof} DOF, {op.elements.shape[0]} elements, {sop.shards[0].elements.shape[0]} a "
+            f"shard): sharded {st.iterations} iterations in {wall:.3f} s, unsharded {one.stats.iterations} in "
+            f"{wall1:.3f} s (JAX {bound_iters}); host f64 true residual {rel_host:.3e}; displacements vs unsharded "
+            f"{du:.3e} of max|u|; launches {KERNELS[key]['name'].split()[0]} {counts[key]} (unsharded {c1[key]})")
+        require({
+            "converged": st.converged,
+            f"iterations within 1% of {bound_iters}": abs(st.iterations - bound_iters) <= 0.01 * bound_iters + 1,
+            "host true residual <= 1e-8": rel_host <= 1e-8,
+            "displacements within 10 tol of the unsharded solve": du <= 1e-7,
+            f"{key} launched on every shard of every iteration": counts[key] >= SHARDS * st.iterations,
+        }, f"shard_operator {label}")
+        del sop
+    del stored, twin
+
+    say(f"  [18.3] sharded_sweep of {SHARDS} scaled tip loads on the box, one case a shard")
+    op = ftt.build_operator(box, dtype=torch.float64)
+    single, wall1 = timed(lambda: ftt.solve_displacements(op, box.loads, zero, tol=1e-8))
+    batch = torch.arange(1.0, SHARDS + 1.0, dtype=torch.float64, device=DEV)[:, None, None] * box.loads[None]
+    u_b, wall = timed(lambda: sharded_sweep(lambda lds: ftt.solve_displacements(op, lds, zero, tol=1e-8), batch,
+                                            devices))
+    rels = [host_check(nodes, elements, mat, fixed, batch[i].cpu().numpy(), u_b[i].cpu().numpy())[1]
+            for i in range(SHARDS)]
+    dus = [float((u_b[i] - (i + 1) * single).abs().max() / ((i + 1) * single).abs().max()) for i in range(SHARDS)]
+    say(f"    {wall:.3f} s for {SHARDS} cases ({wall1:.3f} s the single solve); host f64 true residuals "
+        + ", ".join(f"{r:.2e}" for r in rels) + "; case i vs (i + 1) x the single solve "
+        + ", ".join(f"{d:.1e}" for d in dus))
+    require({"every case: host true residual <= 1e-8": max(rels) <= 1e-8,
+             "every case within 10 tol of the scaled single solve": max(dus) <= 1e-7}, "sharded_sweep")
+    del op, box, batch, u_b
+
+    say("  [18.4] shard_structured_operator on the flagship, the unsharded V-cycle beside it")
+    scene, op_hi, mg = flagship_ref["scene"], flagship_ref["op_hi"], flagship_ref["mg"]
+    presc = scene.prescribed_or_zero(torch.float64)
+    one, wall1 = timed(lambda: solve_operator_fpcg(op_hi, scene.loads, presc, mg, tol=1e-8))
+    op_s, constrain = shard_structured_operator(op_hi, devices)
+    sol, counts, wall = counted(counters, lambda: solve_operator_fpcg(
+        op_s, constrain(scene.loads), constrain(presc), replicated_precond(op_s, mg), tol=1e-8))
+    st = sol.stats
+    u = op_s.gather(sol.displacements).cpu().numpy()
+    fl_nodes, fl_elements = scene.host_nodes, scene.host_elements
+    fl_fixed, fl_loads = scene.fixed.cpu().numpy(), scene.loads.cpu().numpy()
+    _, rel_host = host_check(fl_nodes, fl_elements, scene.material, fl_fixed, fl_loads, u)
+    du = float(np.abs(u - flagship_ref["u"]).max() / np.abs(flagship_ref["u"]).max())
+    say(f"    {scene.n_dof} DOF, {op_s.z_local} planes a shard: {st.iterations} iterations ([4]: "
+        f"{flagship_ref['iterations']}) in {wall:.3f} s, the unsharded FCG loop {one.stats.iterations} in "
+        f"{wall1:.3f} s; host f64 true residual {rel_host:.3e}; displacements vs [4] {du:.3e} of max|u|; launches "
+        f"K3 {counts['slab_f64']}, K1 {counts['f32']}, K2 {counts['f64']}")
+    require({"converged": st.converged,
+             "iterations within 1 of [4]": abs(st.iterations - flagship_ref["iterations"]) <= 1,
+             "host true residual <= 1e-8": rel_host <= 1e-8,
+             "displacements within 10 tol of [4]": du <= 1e-7,
+             "K3 launched on every shard of every apply": counts["slab_f64"] >= SHARDS * (st.iterations + 1)},
+            "shard_structured_operator")
+    del op_s, sol, one
+
+    say(f"  [18.5] shard_curvilinear on [6]'s {CURV} distorted cantilever")
+    scene = curv_ref["scene"]
+    presc = scene.prescribed_or_zero(torch.float64)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    op, mg = ftt.build_curvilinear(scene)
+    one, wall1 = timed(lambda: solve_operator_fpcg(op, scene.loads, presc, mg, tol=1e-8))
+    one_iters, one = one.stats.iterations, None
+    before = torch.cuda.memory_allocated()
+    (op_s, mg_s, constrain), t_build = timed(lambda: shard_curvilinear(op, mg, devices))
+    added = torch.cuda.memory_allocated() - before
+    whole_w = op.w.numel() * op.w.element_size()
+    whole_w0 = mg.levels[0].w.numel() * mg.levels[0].w.element_size()
+    mem = sharded_memory(op_s, mg_s)
+    del op, mg
+    gc.collect()
+    held = torch.cuda.memory_allocated() - base  # the shards and the replicated levels, the whole fields gone
+    sol, counts, wall = counted(counters, lambda: solve_operator_fpcg(
+        op_s, constrain(scene.loads), constrain(presc), mg_s, tol=1e-8))
+    st = sol.stats
+    u = op_s.gather(sol.displacements).cpu().numpy()
+    reac = op_s.gather(sol.reactions).cpu().numpy()
+    Ku, rel_host = host_check(curv_ref["nodes"], curv_ref["elements"], curv_ref["mat"], curv_ref["fixed"],
+                              curv_ref["loads"], u)
+    reac_err = float(np.abs(reac - Ku).max() / np.abs(Ku).max())
+    du = float(np.abs(u - curv_ref["u"]).max() / np.abs(curv_ref["u"]).max())
+    say(f"    {scene.n_dof} DOF, {op_s.z_local} planes a shard ({SHARDS * op_s.z_local - op_s.z_real} padded), "
+        f"sharded levels {[lv.w[0].shape[3:] for lv in mg_s.levels]}, replicated "
+        f"{[lv.dims for lv in mg_s.rest.levels]}; build {t_build:.3f} s")
+    per_shard = ", ".join(f"{b / 1e9:.3f}" for b in mem["per_shard"])
+    say(f"    memory: the whole fine fields {whole_w / 1e9:.3f} GB (f64 operator) and {whole_w0 / 1e9:.3f} GB "
+        f"(f32 level 0); the build added {added / 1e9:.3f} GB; a shard keeps {per_shard} GB of the fine level, its "
+        f"largest tensor {mem['largest'] / 1e9:.3f} GB; with the caller's whole fields dropped the decomposition "
+        f"holds {held / 1e9:.3f} GB")
+    say(f"    {st.iterations} iterations ([6]: {curv_ref['iterations']}) in {wall:.3f} s, the unsharded FCG loop "
+        f"{one_iters} in {wall1:.3f} s; host f64 true residual {rel_host:.3e}; reactions vs host K u "
+        f"{reac_err:.3e}; displacements vs [6] {du:.3e} of max|u|; launches K4-slab {counts['var_slab_f32']}, "
+        f"K5-slab {counts['var_slab_f64']}, K4 {counts['var_f32']}, K5 {counts['var_f64']}, K1/K2 "
+        f"{counts['f32'] + counts['f64']}")
+    require({"converged": st.converged,
+             "iterations within 1 of [6]": abs(st.iterations - curv_ref["iterations"]) <= 1,
+             "host true residual <= 1e-8": rel_host <= 1e-8,
+             "reactions = K u (1e-10)": reac_err <= 1e-10,
+             "displacements within 10 tol of [6]": du <= 1e-7,
+             "K4-slab launched": counts["var_slab_f32"] > 0,
+             "K5-slab launched on every shard of every apply": counts["var_slab_f64"] >= SHARDS * (st.iterations + 1),
+             "K1/K2 not launched": counts["f32"] == 0 and counts["f64"] == 0,
+             "a shard's largest tensor is its slab of the f64 field": op_s.z_local < op_s.z_real
+             and mem["largest"] == whole_w // op_s.z_real * op_s.z_local}, "shard_curvilinear")
+    slab_launches = {k: counts[k] for k in VAR_SLAB_KEYS}
+    report["var_slab_f32"].update(shard_bytes=mem["per_shard"][0], largest_shard_tensor_bytes=mem["largest"],
+                                  build_added_bytes=added)
+    del op_s, mg_s, sol
+
+    say("  [18.6] shard_extruded on [17]'s tube through solve_extruded")
+    tube, a = tube_scene(ftt)
+    det = infer_extruded(tube)
+    op, pc = ftt.build_extruded(tube, det)
+    presc = tube.prescribed_or_zero(torch.float64)
+    one, wall1 = timed(lambda: solve_operator_fpcg(op, tube.loads, presc, pc, tol=1e-8))
+    op_s, pc_s, _ = shard_extruded(op, pc, devices)
+    sol, counts, wall = counted(counters, lambda: ftt.solve_extruded(tube, det, tol=1e-8, prebuilt=(op_s, pc_s)))
+    st = sol.stats
+    u, reac = sol.displacements.cpu().numpy(), sol.reactions.cpu().numpy()
+    _, rel_host = host_check(a["nodes"], a["elements"], a["mat"], a["fixed"], a["loads"], u)
+    ring = a["fixed"].any(axis=1)
+    load_y = float(a["loads"][:, 1].sum())
+    balance = abs(float(reac[ring, 1].sum()) + load_y) / abs(load_y)
+    du = float(np.abs(u - one.displacements.cpu().numpy()).max() / np.abs(u).max())
+    say(f"    {tube.n_dof} DOF, {op_s.z_local} layers a shard, sharded levels "
+        f"{[lv.op.z_real for lv in pc_s.mg.levels]} layers: {st.iterations} iterations (the reference on its TPU: "
+        f"{TUBE_REF_ITERS}) in {wall:.3f} s, the unsharded FCG loop {one.stats.iterations} in {wall1:.3f} s; host f64 "
+        f"true residual {rel_host:.3e}; ring reactions balance {balance:.2e}; displacements vs unsharded {du:.3e}; "
+        f"launches {sum(counts.values())}")
+    require({"converged": st.converged,
+             f"iterations within 1 of {TUBE_REF_ITERS}": abs(st.iterations - TUBE_REF_ITERS) <= 1,
+             "host true residual <= 1e-8": rel_host <= 1e-8,
+             "reactions balance the load (1e-6)": balance <= 1e-6,
+             "displacements within 10 tol of the unsharded solve": du <= 1e-7,
+             "no kernel launched": not any(counts.values())}, "shard_extruded")
+    del op, pc, op_s, pc_s, sol, one
+
+    say(f"  [18.7] python -m fea_tpu_torch.dryrun {SHARDS}")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "fea_tpu_torch.dryrun", str(SHARDS)], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    for line in proc.stdout.strip().splitlines():
+        say(f"    {line}")
+    modes = [line.split(" mode ")[1].split(":")[0] for line in proc.stdout.splitlines() if " mode " in line]
+    say(f"    exit {proc.returncode} in {time.perf_counter() - t0:.1f} s" + (f"; stderr: {proc.stderr[-2000:]}"
+                                                                            if proc.returncode else ""))
+    require({"dryrun exits 0": proc.returncode == 0,
+             "all seven modes (and 5b)": modes == ["1", "2", "3", "4", "5", "5b", "6", "7"]}, "dryrun")
+    return report, slab_launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -2536,7 +2869,7 @@ def main() -> None:
     report.update(check_var_kernels(cuda_varstencil))
 
     phase("[6] curvilinear slice: the 811,923-DOF distorted cantilever through fea_tpu_torch.solve")
-    launches_curv = run_curvilinear(ftt, cuda_stencil, cuda_varstencil)
+    launches_curv, curv_ref = run_curvilinear(ftt, cuda_stencil, cuda_varstencil)
     launches.update({k: launches_curv[k] for k in VAR_KEYS})
 
     phase("[7] canonicalized slice: the renumbered 181,875-DOF scene through fea_tpu_torch.solve")
@@ -2558,7 +2891,7 @@ def main() -> None:
     phase(f"[12] z-sharded solve: build_zsharded_solver over {SHARDS} shards on the one card")
     sharded = run_sharded(ftt, counters, {"flagship": flagship_ref, "capacity": capacity_ref})
     launches.update({k: sharded[k] for k in SLAB_KEYS})
-    del flagship_ref, capacity_ref
+    del capacity_ref
 
     phase(f"[13] solve_many: {MANY_CASES} load cases on the flagship grid")
     run_many(ftt, counters)
@@ -2580,6 +2913,12 @@ def main() -> None:
     phase(f"[17] extruded slice: the {TUBE[0]}-segment x {TUBE[1]}-layer tube (591,360 DOF) through "
           "fea_tpu_torch.solve")
     no_kernel.update(run_extruded(ftt, counters))
+
+    phase(f"[18] sharded modes: fea_tpu_torch.parallel over {SHARDS} shards on the one card")
+    slab_report, slab_launches = run_sharded_modes(ftt, counters, flagship_ref, curv_ref, cuda_varstencil)
+    report.update(slab_report)
+    launches.update(slab_launches)
+    del flagship_ref, curv_ref
 
     say(json.dumps({"kernels": [
         dict(name=spec["name"], route="cuda", source=spec["source"], replaces=spec["replaces"],

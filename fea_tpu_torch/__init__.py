@@ -17,6 +17,11 @@ version serves:
     (``parallel.build_zsharded_solver``, K3 and K1's halo form), which
     ``solve`` takes under ``SolverConfig(sharded=True)`` when more than
     one card is visible;
+  * ``parallel``: the reference's decompositions over a list of devices
+    (one card may repeat): element shards (``shard_operator``), sharded
+    sweeps, and z-slab shards of the voxel, curvilinear (K4/K5's slab
+    form) and extruded pipelines; ``python -m fea_tpu_torch.dryrun N``
+    runs the reference's seven sharding modes;
   * the element-by-element operator (``build_operator``, K6/K7): an
     explicit ``method="cg"`` (Jacobi, block-Jacobi or none) or
     ``"dense"``, a prebuilt ``operator=``, hex8 scenes under 50,000 DOF,
@@ -64,6 +69,7 @@ from .solve import (
 from .solvers.cg import SolveStats, pcg
 from .solvers.dense import dense_solve
 from .solvers.newton import newton_krylov
+from . import parallel  # after .solve, which parallel.halo imports
 
 __version__ = "0.1.0"
 
@@ -91,6 +97,7 @@ __all__ = [
     "make_scene",
     "mesh",
     "newton_krylov",
+    "parallel",
     "pcg",
     "post",
     "scene_from_numpy",

@@ -35,6 +35,17 @@
 //
 // Offsets are 64-bit: 243 planes x 270,641 nodes is already 6.6e7.
 //
+// Slab form (K4-slab, K5-slab): the same body on one z slab of a sharded
+// grid (fea_tpu_torch/parallel/curv.py). The weights are the slab's own,
+// (27, 3, 3, Zl, Y, X), and the state is the slab between its neighbours'
+// edge planes, (Zl + 2, Y, X, 3): output plane z reads state planes z,
+// z + 1 and z + 2. No z term is skipped. Toward a plane past the global
+// ends the assembled weights are zero, and the halo there holds zeros, so
+// each such term adds an exact zero: a slab's output is, value for value,
+// the unsharded kernel's on the same planes. Padding planes past the grid
+// carry zero weights and come out 0. The slab form reads 27 weight blocks
+// a node where the unsharded kernel skips the z terms past the grid ends.
+//
 // Each extern "C" entry launches on the caller's stream and returns
 // cudaGetLastError() as an int; the Python wrapper raises when it is not 0.
 
@@ -43,7 +54,8 @@
 
 namespace {
 
-template <typename T>
+// kSlab: g holds Z + 2 planes, plane z + 1 being output plane z.
+template <typename T, bool kSlab>
 __global__ void var27_kernel(const T* __restrict__ W,
                              const T* __restrict__ g,
                              T* __restrict__ out,
@@ -58,8 +70,8 @@ __global__ void var27_kernel(const T* __restrict__ W,
     T a0 = T(0), a1 = T(0), a2 = T(0);
 #pragma unroll
     for (int dz = -1; dz <= 1; ++dz) {
-        const int64_t zz = z + dz;
-        if (zz < 0 || zz >= Z) continue;
+        const int64_t zz = kSlab ? z + 1 + dz : z + dz;
+        if (!kSlab && (zz < 0 || zz >= Z)) continue;
 #pragma unroll
         for (int dy = -1; dy <= 1; ++dy) {
             const int64_t yy = y + dy;
@@ -85,11 +97,11 @@ __global__ void var27_kernel(const T* __restrict__ W,
 
 constexpr int kThreads = 256;
 
-template <typename T>
+template <typename T, bool kSlab>
 int launch(const T* W, const T* g, T* out, int64_t X, int64_t Y, int64_t Z, void* stream) {
     const int64_t nodes = X * Y * Z;
     const int64_t blocks = (nodes + kThreads - 1) / kThreads;
-    var27_kernel<T><<<static_cast<unsigned int>(blocks), kThreads, 0,
+    var27_kernel<T, kSlab><<<static_cast<unsigned int>(blocks), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(W, g, out, X, Y, Z);
     return static_cast<int>(cudaGetLastError());
 }
@@ -99,12 +111,26 @@ int launch(const T* W, const T* g, T* out, int64_t X, int64_t Y, int64_t Z, void
 // K4: f32 variable-weight apply, used by the f32 V-cycle levels.
 extern "C" int fea_var_apply_f32(const float* W, const float* g, float* out,
                                  int64_t X, int64_t Y, int64_t Z, void* stream) {
-    return launch<float>(W, g, out, X, Y, Z, stream);
+    return launch<float, false>(W, g, out, X, Y, Z, stream);
 }
 
 // K5: f64 variable-weight apply, used by the FCG apply, the true-residual
 // check, the reactions and the f64 V-cycle levels.
 extern "C" int fea_var_apply_f64(const double* W, const double* g, double* out,
                                  int64_t X, int64_t Y, int64_t Z, void* stream) {
-    return launch<double>(W, g, out, X, Y, Z, stream);
+    return launch<double, false>(W, g, out, X, Y, Z, stream);
+}
+
+// K4-slab: K4 on one z slab, g (Zl + 2, Y, X, 3) -> out (Zl, Y, X, 3) with
+// Z = Zl; used by the sharded curvilinear V-cycle's f32 levels.
+extern "C" int fea_var_apply_slab_f32(const float* W, const float* g, float* out,
+                                      int64_t X, int64_t Y, int64_t Z, void* stream) {
+    return launch<float, true>(W, g, out, X, Y, Z, stream);
+}
+
+// K5-slab: K5 on one z slab; used by the sharded FCG apply, the
+// true-residual check, the reactions and the f64 sharded levels.
+extern "C" int fea_var_apply_slab_f64(const double* W, const double* g, double* out,
+                                      int64_t X, int64_t Y, int64_t Z, void* stream) {
+    return launch<double, true>(W, g, out, X, Y, Z, stream);
 }

@@ -9,7 +9,9 @@ The assembled stiffness of such a mesh is a 27-point block stencil with a
 
 so K @ u needs no index arrays: :func:`curv_apply_grid` is the plain
 torch version, and :func:`fea_tpu_torch.ops.cuda_varstencil.var_apply`
-runs it as K4 (f32) or K5 (f64) on the card. The weight field of a level
+runs it as K4 (f32) or K5 (f64) on the card; on one z slab of a sharded
+grid, :func:`curv_apply_slab_grid` and ``var_apply_slab`` (K4-slab,
+K5-slab). The weight field of a level
 is stored once, in the kernels' plane-major layout (27, 3, 3, Z, Y, X);
 :func:`grid_view` gives the (27, Z, Y, X, 3, 3) layout of the JAX package
 as a view of the same storage; host fields in that layout come in through
@@ -54,6 +56,7 @@ __all__ = [
     "build_curv_operator",
     "coarsen_dims_partial",
     "curv_apply_grid",
+    "curv_apply_slab_grid",
     "curv_coarsenable",
     "grid_view",
     "infer_topo_dims",
@@ -118,6 +121,18 @@ def infer_topo_dims(scene: Scene) -> Optional[tuple[int, int, int]]:
 # -- apply ---------------------------------------------------------------------
 
 
+def _apply_padded(w: torch.Tensor, gp: torch.Tensor) -> torch.Tensor:
+    """27 shifted multiply-adds of w (27, 3, 3, Z, Y, X) over the state
+    gp (3, Z + 2, Y + 2, X + 2), which holds one plane, row and column
+    beyond the nodes on each side: -> (Z, Y, X, 3)."""
+    Z, Y, X = w.shape[3:]
+    out = torch.zeros((3, Z, Y, X), dtype=gp.dtype, device=gp.device)
+    for d, (dz, dy, dx) in enumerate(_OFFSETS):
+        xs = gp[:, 1 + dz : 1 + dz + Z, 1 + dy : 1 + dy + Y, 1 + dx : 1 + dx + X]
+        out += (w[d] * xs[None]).sum(dim=1)
+    return out.permute(1, 2, 3, 0).contiguous()
+
+
 def curv_apply_grid(w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """K @ u in grid space, the plain version of K4 (f32) and K5 (f64):
     w (27, 3, 3, Z, Y, X), g (Z, Y, X, 3) -> (Z, Y, X, 3), in g's dtype.
@@ -125,13 +140,16 @@ def curv_apply_grid(w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     27 shifted multiply-adds over the zero-padded state, in the
     component-major form of the weight field.
     """
-    Z, Y, X = g.shape[:3]
-    gp = F_nn.pad(g.permute(3, 0, 1, 2), (1, 1, 1, 1, 1, 1))  # (3, Z+2, Y+2, X+2)
-    out = torch.zeros((3, Z, Y, X), dtype=g.dtype, device=g.device)
-    for d, (dz, dy, dx) in enumerate(_OFFSETS):
-        xs = gp[:, 1 + dz : 1 + dz + Z, 1 + dy : 1 + dy + Y, 1 + dx : 1 + dx + X]
-        out += (w[d] * xs[None]).sum(dim=1)
-    return out.permute(1, 2, 3, 0).contiguous()
+    return _apply_padded(w, F_nn.pad(g.permute(3, 0, 1, 2), (1, 1, 1, 1, 1, 1)))
+
+
+def curv_apply_slab_grid(w: torch.Tensor, g_ext: torch.Tensor) -> torch.Tensor:
+    """K @ u on one z slab, the plain version of K4-slab (f32) and K5-slab
+    (f64): the slab's weights w (27, 3, 3, Zl, Y, X) and its state between
+    the neighbours' edge planes g_ext (Zl + 2, Y, X, 3) -> (Zl, Y, X, 3).
+    The halo planes take the place of the zero padding along z: the same
+    multiply-adds as :func:`curv_apply_grid` on the slab's planes."""
+    return _apply_padded(w, F_nn.pad(g_ext.permute(3, 0, 1, 2), (1, 1, 1, 1)))
 
 
 # -- assembly ------------------------------------------------------------------

@@ -109,8 +109,9 @@ class ExtrudedOperator:
                                    inc_m=self.inc_m.to(dtype))
 
     def _element_forces(self, g: torch.Tensor) -> torch.Tensor:
-        """g (L, n2, 3) -> per-element forces (Q2, L - 1, 24)."""
-        uq = g[:, self.quads].reshape(self.n_layers, -1, 12)  # (L, Q2, 12): 4 corners x 3
+        """g (L, n2, 3) -> per-element forces (Q2, L - 1, 24), for any
+        number of consecutive node layers L (a slab of the mesh too)."""
+        uq = g[:, self.quads].reshape(g.shape[0], -1, 12)  # (L, Q2, 12): 4 corners x 3
         ue = torch.cat([uq[:-1], uq[1:]], dim=2)  # (L-1, Q2, 24): bottom corners, then top
         # one batched product for every element: fe[q, l] = Ke_q ue[l, q]
         return torch.bmm(ue.transpose(0, 1), self.kes.to(g.dtype).transpose(1, 2))
@@ -123,7 +124,7 @@ class ExtrudedOperator:
         def acc(part):  # (Q2, L-1, 4, 3) -> (L-1, n2, 3), summed over the valence in order
             return (part[self.inc_q, :, self.inc_c] * m[:, :, None]).sum(dim=1).transpose(0, 1)
 
-        out = fe.new_zeros((self.n_layers, self.n2, 3))
+        out = fe.new_zeros((fe.shape[1] + 1, self.n2, 3))
         out[:-1] = acc(fe[:, :, :4])  # bottom-face contributions -> layer l
         out[1:] += acc(fe[:, :, 4:])  # top-face contributions -> layer l + 1
         return out

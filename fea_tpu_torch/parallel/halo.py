@@ -46,6 +46,13 @@ each card of a host, with peer copies for the halos.
 The reference's double-f32 pair protocol and its recurrence floor exist
 only because the TPU has no f64: the FCG here runs in native f64, and the
 certification reports the true residual, as on every route of the port.
+
+The pieces every z-slab decomposition of :mod:`fea_tpu_torch.parallel`
+shares live here: :class:`Shards`, :class:`SlabVectors` (the scatter and
+gather of a slab-sharded operator's vectors), the halo exchange, the z
+restriction (over any in-plane axes) and prolongation, :func:`to_device`,
+and :class:`ShardedStructuredOperator`, the voxel operator on z slabs that
+``sharding.shard_structured_operator`` builds and this solver runs.
 """
 from __future__ import annotations
 
@@ -53,24 +60,31 @@ import dataclasses
 import operator
 from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..dtypes import precise_dot
 from ..ops.cuda_stencil import StencilWeights, check_free_mask, stencil_apply_slab
 from ..ops.multigrid import MultigridPreconditioner, _Level, _prolong, _restrict, chebyshev_smooth
-from ..ops.structured import StructuredOperator
+from ..ops.structured import StructuredOperator, corner_table_np, fill_regions_np
 from ..solve._types import Solution
 from ..solve.fpcg import solve_operator_fpcg
 
-__all__ = ["Shards", "ZShardedSolver", "build_zsharded_solver", "shard_geometry"]
+# multigrid levels a decomposition runs on its shards: the fine level and
+# level 1; the levels below are small enough to run on the first device
+SHARDED_LEVELS = 2
+
+__all__ = ["ShardedStructuredOperator", "Shards", "SlabVectors", "ZShardedSolver", "build_zsharded_solver",
+           "shard_geometry", "to_device"]
 
 
 class Shards(list):
     """A vector of the sharded solve: one tensor a shard, in shard order.
 
-    ``+``, ``-`` and ``*`` act shard by shard, with another Shards or with
-    a scalar (a 0-d tensor is copied to each shard's device); ``.to``
-    converts every shard; ``torch.zeros_like`` and
+    ``+``, ``-``, ``*``, ``/`` and ``>`` act shard by shard, with another
+    Shards or with a scalar (a 0-d tensor is copied to each shard's
+    device); ``.to`` converts every shard; ``torch.zeros_like``,
+    ``torch.ones_like``, ``torch.where`` of Shards and
     ``torch.linalg.vector_norm`` accept it; ``dtypes.precise_dot`` of two
     Shards is :meth:`dot`. That is all the single-device solver code asks
     of a vector.
@@ -78,12 +92,12 @@ class Shards(list):
 
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
-        if kwargs or len(args) != 1:
+        if kwargs:
             return NotImplemented
-        if func is torch.zeros_like:
-            return cls(torch.zeros_like(x) for x in args[0])
-        if func is torch.linalg.vector_norm:
+        if func is torch.linalg.vector_norm and len(args) == 1:
             return torch.sqrt(args[0].dot(args[0]))
+        if func in (torch.zeros_like, torch.ones_like, torch.where) and all(isinstance(a, list) for a in args):
+            return cls(func(*parts) for parts in zip(*args))
         return NotImplemented  # a tensor's operator then defers to ours
 
     def _map(self, other, op) -> "Shards":
@@ -104,6 +118,15 @@ class Shards(list):
 
     def __mul__(self, other):
         return self._map(other, operator.mul)
+
+    def __truediv__(self, other):
+        return self._map(other, operator.truediv)
+
+    def __rtruediv__(self, other):
+        return self._map(other, lambda x, y: y / x)
+
+    def __gt__(self, other):
+        return self._map(other, operator.gt)
 
     __radd__ = __iadd__ = __add__
     __rmul__ = __imul__ = __mul__
@@ -146,15 +169,16 @@ def _halo_exchange(xs: Shards) -> Shards:
     return out
 
 
-def _restrict_z_shard(d: Shards) -> Shards:
-    """Full-weighting restriction, shard by shard: y and x locally, z
-    through the +-1 plane halo (coarse plane j, at fine plane 2j, reads
-    fine planes 2j - 1 .. 2j + 1). (Zl, Y, X, 3) -> (Zl / 2, Yc, Xc, 3) a
-    shard, the same operations as ``_restrict``."""
+def _restrict_z_shard(d: Shards, axes: tuple[int, ...] = (1, 2)) -> Shards:
+    """Full-weighting restriction, shard by shard: the in-plane ``axes``
+    locally, z through the +-1 plane halo (coarse plane j, at fine plane
+    2j, reads fine planes 2j - 1 .. 2j + 1). (Zl, Y, X, 3) ->
+    (Zl / 2, Yc, Xc, 3) a shard (any trailing shape: ``axes=()`` restricts
+    z alone), the same operations as ``_restrict`` with z among its axes."""
     out = Shards()
     for e in _halo_exchange(d):
         half = (e.shape[0] - 2) // 2
-        eyx = _restrict(e, axes=(1, 2))
+        eyx = _restrict(e, axes=axes)
         out.append(eyx[1::2][:half] + 0.5 * (eyx[0::2][:half] + eyx[2::2][:half]))
     return out
 
@@ -191,6 +215,20 @@ def _device(d) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device()) if d.type == "cuda" and d.index is None else d
 
 
+def to_device(obj, device):
+    """A frozen dataclass (an operator, a level, a coarse space) with
+    every tensor in it, in nested dataclasses too, on ``device``: a copy
+    for each device of what a decomposition replicates."""
+    changes = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            changes[f.name] = v.to(device)
+        elif dataclasses.is_dataclass(v):
+            changes[f.name] = to_device(v, device)
+    return dataclasses.replace(obj, **changes)
+
+
 def _level_on(lv: _Level, dev: torch.device) -> _Level:
     return dataclasses.replace(
         lv, weights=lv.weights.to(dev),
@@ -198,10 +236,42 @@ def _level_on(lv: _Level, dev: torch.device) -> _Level:
     )
 
 
+class SlabVectors:
+    """The vectors of an operator sharded by z slabs: ``free`` is a
+    :class:`Shards` of ``z_local`` planes a shard, over ``z_real`` real
+    planes (a voxel or curvilinear grid's (Y, X, 3) planes, an extruded
+    mesh's (n2, 3) node layers). :meth:`scatter` and :meth:`gather` move
+    the scene's (N, 3) vectors onto the shards and back."""
+
+    @property
+    def devices(self) -> list[torch.device]:
+        return [f.device for f in self.free]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.free.dtype
+
+    @property
+    def n_dof(self) -> int:
+        return self.z_real * self.free[0][0].numel()
+
+    def scatter(self, flat: torch.Tensor) -> Shards:
+        """(N, 3) node values -> shards in the same dtype, zero past the
+        real planes."""
+        return _scatter(flat.reshape((self.z_real,) + tuple(self.free[0].shape[1:])), self.devices, self.z_local)
+
+    def gather(self, xs: Shards) -> torch.Tensor:
+        """Shards -> (N, 3) node values on the first shard's device."""
+        return _gather(xs, self.z_real).reshape(-1, self.free[0].shape[-1])
+
+    rhs = StructuredOperator.rhs
+
+
 @dataclasses.dataclass(frozen=True)
-class _ShardOperator:
+class ShardedStructuredOperator(SlabVectors):
     """A structured operator over z shards of ``z_local`` planes: the
-    masked ``apply`` and ``rhs`` of ``StructuredOperator`` on Shards."""
+    masked ``apply`` and ``rhs`` of ``StructuredOperator`` on Shards,
+    one slab launch a shard (K3 in f64, K1's halo form in f32)."""
 
     weights: list[StencilWeights]  # Ke on each shard's device
     free: Shards
@@ -225,11 +295,20 @@ class _ShardOperator:
             for i, (w, e, f) in enumerate(zip(self.weights, _halo_exchange(xs), self.free_ext))
         )
 
-    rhs = StructuredOperator.rhs
+    def diag_raw(self) -> Shards:
+        """The assembled diagonal of K on the shards (Jacobi), filled by
+        region on the host and scattered."""
+        Y, X = self.free[0].shape[1:3]
+        ke = self.weights[0].ke.cpu().double().numpy()
+        d = fill_regions_np(corner_table_np(np.ascontiguousarray(np.diagonal(ke))), (X - 1, Y - 1, self.z_real - 1))
+        return self.scatter(torch.as_tensor(d).to(self.dtype))
+
+    def diag_masked(self) -> Shards:
+        return self.free * self.diag_raw() + (1.0 - self.free)
 
 
 @dataclasses.dataclass(frozen=True)
-class _ShardLevel(_ShardOperator):
+class _ShardLevel(ShardedStructuredOperator):
     """One multigrid level over z shards."""
 
     inv_diag: Shards
@@ -242,7 +321,7 @@ class ZShardedSolver:
     takes the loads (and prescribed values) of the operator's scene."""
 
     def __init__(self, op_hi: StructuredOperator, mg: MultigridPreconditioner,
-                 devices: Sequence, *, shard_levels: int = 2):
+                 devices: Sequence, *, shard_levels: int = SHARDED_LEVELS):
         if len(mg.levels) < 2:
             raise ValueError(
                 "z-sharded solve needs a >= 2-level hierarchy (the fine level shards, "
@@ -258,7 +337,7 @@ class ZShardedSolver:
         self.z_local, self.z_pad = shard_geometry(Z, len(self.devices), self.shard_l1)
         self.degree, self.lam_min_frac = mg.degree, mg.lam_min_frac
         free = _scatter(check_free_mask(op_hi.free).reshape(Z, Y, X, 3), self.devices, self.z_local)
-        self.op = _ShardOperator(
+        self.op = ShardedStructuredOperator(
             weights=self._on_devices(op_hi.weights), free=free, free_ext=_halo_exchange(free),
             z_real=Z, z_local=self.z_local,
         )
@@ -345,7 +424,7 @@ class ZShardedSolver:
 
 
 def build_zsharded_solver(op_hi: StructuredOperator, mg: MultigridPreconditioner, devices: Sequence, *,
-                          shard_levels: int = 2) -> ZShardedSolver:
+                          shard_levels: int = SHARDED_LEVELS) -> ZShardedSolver:
     """The z-sharded solver of ``op_hi`` (the f64 structured operator)
     with the V-cycle of ``mg`` (its multigrid hierarchy), one z shard on
     each entry of ``devices`` (torch devices or their names; entries may

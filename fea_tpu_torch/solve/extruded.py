@@ -5,8 +5,9 @@ space (``ops/extruded.py``, ``ops/extruded_mg.py``).
 
 f64 flexible PCG whose apply is the f64 extruded operator, with the f32
 composed preconditioner, held on the card by ``solve/staged.py`` and
-certified against the true f64 residual (``solve/certify.py``). The
-build is cached on the scene's mesh (``solve/cache.py``), so ``solve()``
+certified against the true f64 residual (``solve/certify.py``); a
+layer-slab decomposition of the pair (``parallel/extruded.py``) takes the
+Python loop of ``solve/fpcg.py`` instead. The build is cached on the scene's mesh (``solve/cache.py``), so ``solve()``
 and ``solve_many`` on one mesh build once. Counterpart of
 ``fea_tpu/solve/extruded.py`` without its double-f32 pair recurrence
 (``krylov="dd"``, for a chip without f64): the loop is native f64, the
@@ -21,6 +22,7 @@ from ..scene import Scene
 from . import staged
 from ._types import Solution
 from .cache import _cached_build
+from .fpcg import solve_operator_fpcg
 
 __all__ = ["build_extruded", "solve_extruded"]
 
@@ -73,10 +75,17 @@ def solve_extruded(
     """Solve an extruded scene to a true relative residual of ``tol``.
 
     ``detected`` is ``infer_extruded(scene)`` (detected again when None).
-    ``prebuilt``: an ``(op, mg)`` pair from :func:`build_extruded`; without
-    it the build is cached on the scene's mesh. Fixed DOFs hold the
-    prescribed values exactly."""
+    ``prebuilt``: an ``(op, mg)`` pair from :func:`build_extruded`, or its
+    layer-slab decomposition from ``parallel.shard_extruded`` (solved by
+    the Python FCG loop on the shards, the results gathered to (N, 3) on
+    the first shard's device); without it the build is cached on the
+    scene's mesh. Fixed DOFs hold the prescribed values exactly."""
+    from ..parallel.extruded import ShardedExtrudedOperator
+
     op, mg = prebuilt if prebuilt is not None else _cached_extruded(scene, detected, degree=degree)
-    return staged.solve_operator_fpcg_staged(
-        op, scene.loads, scene.prescribed_or_zero(torch.float64), mg, tol=tol, max_iters=max_iters
-    )
+    presc = scene.prescribed_or_zero(torch.float64)
+    if isinstance(op, ShardedExtrudedOperator):
+        sol = solve_operator_fpcg(op, op.scatter(scene.loads), op.scatter(presc), mg, tol=tol, max_iters=max_iters)
+        return Solution(displacements=op.gather(sol.displacements), reactions=op.gather(sol.reactions),
+                        stats=sol.stats)
+    return staged.solve_operator_fpcg_staged(op, scene.loads, presc, mg, tol=tol, max_iters=max_iters)

@@ -1,5 +1,6 @@
-"""K1, K2, K3 (and K1's halo form), K4, K5, K6 and K7 on the card against
-their plain version (f64) on the card, the z-sharded solve on one card,
+"""K1, K2, K3 (and K1's halo form), K4, K5 (and their slab forms), K6 and
+K7 on the card against their plain version (f64) on the card, the
+z-sharded and the sharded curvilinear solve on one card,
 and the staged loop of the grid, embedded and extruded routes on the card.
 
 Needs a CUDA card and nvcc; skips without a card. This file imports
@@ -82,6 +83,82 @@ def test_var_kernels_match_plain_version_on_card(dims):
         assert cuda_varstencil.LAUNCHES[key] == n0 + 1
         rel = float((got.double() - want).abs().max() / want.abs().max())
         assert rel < bound, (dims, key, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 3])
+@pytest.mark.parametrize("dims", [(1, 1, 1), (3, 4, 6), (20, 20, 7), (255, 1, 2), (16, 15, 33)])
+def test_var_slab_kernels_match_plain_version_on_card(dims, n):
+    """K4-slab (f32, 2e-5) and K5-slab (f64, 1e-12) on each of n shards'
+    own weights and halo-extended state, against the plain slab version in
+    f64; the shapes straddle the kernel's block of 256 nodes (planes of
+    441 and 512 nodes, a row of 256) and the cuts leave padding planes,
+    which come out 0. Each slab is, value for value, the unsharded K4/K5
+    on its planes: the z terms past the grid add exact zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K4-slab and K5-slab have no CPU mode")
+    from fea_tpu_torch.ops import cuda_varstencil
+    from fea_tpu_torch.ops.curvilinear import curv_apply_slab_grid
+
+    nx, ny, nz = dims
+    Z, Y, X = nz + 1, ny + 1, nx + 1
+    zl = -(-Z // n)
+    rng = np.random.default_rng(9)
+    w64 = torch.zeros((27, 3, 3, n * zl, Y, X), dtype=torch.float64, device="cuda")
+    w64[:, :, :, :Z] = torch.as_tensor(rng.normal(size=(27, 3, 3, Z, Y, X)), device="cuda")
+    g64 = torch.zeros((n * zl + 2, Y, X, 3), dtype=torch.float64, device="cuda")
+    g64[1 : Z + 1] = torch.as_tensor(rng.normal(size=(Z, Y, X, 3)), device="cuda")
+    for dt, bound in ((torch.float32, 2e-5), (torch.float64, 1e-12)):
+        key = "var_slab_f32" if dt == torch.float32 else "var_slab_f64"
+        whole = cuda_varstencil.var_apply(w64[:, :, :, :Z].to(dt).contiguous(), g64[1 : Z + 1].to(dt).contiguous())
+        got = []
+        for i in range(n):
+            w = w64[:, :, :, i * zl : (i + 1) * zl]
+            ext = g64[i * zl : i * zl + zl + 2]
+            want = curv_apply_slab_grid(w, ext)
+            n0 = cuda_varstencil.LAUNCHES[key]
+            got.append(cuda_varstencil.var_apply_slab(w.to(dt).contiguous(), ext.to(dt).contiguous()))
+            torch.cuda.synchronize()
+            assert cuda_varstencil.LAUNCHES[key] == n0 + 1
+            scale = float(want.abs().max()) or 1.0
+            assert float((got[-1].double() - want).abs().max()) / scale < bound, (dims, n, i, key)
+        got = torch.cat(got)
+        assert torch.count_nonzero(got[Z:]) == 0
+        assert torch.equal(got[:Z], whole), (dims, n, key)
+
+
+@pytest.mark.cuda
+def test_sharded_curvilinear_solve_on_one_card():
+    """``shard_curvilinear`` over four shards of one card against the
+    unsharded FCG of the same operator and hierarchy: iterations within 1,
+    displacements within 10 tol, and K4-slab / K5-slab launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import fea_tpu_torch as ftt
+    from fea_tpu_torch.ops import cuda_varstencil
+    from fea_tpu_torch.parallel import shard_curvilinear
+    from fea_tpu_torch.solve import solve_operator_fpcg
+
+    nodes, elements = ftt.mesh.box_hex_mesh(16, 16, 64, 0.1, 0.1, 1.0)
+    rng = np.random.default_rng(10)
+    interior = (nodes[:, 2] > 0) & (nodes[:, 2] < 1.0)
+    nodes = nodes + 0.25 * (0.1 / 16) * rng.uniform(-1, 1, nodes.shape) * interior[:, None]
+    fixed = ftt.fix_where(nodes, lambda p: p[:, 2] == 0.0, 3)
+    loads = np.zeros_like(nodes)
+    loads[nodes[:, 2] == 1.0, 1] = 1.0
+    scene = ftt.make_scene(nodes, elements, fixed, loads, ftt.Material(E=1e7, nu=0.3), dtype=torch.float64,
+                           device="cuda")
+    op, mg = ftt.build_curvilinear(scene)
+    zero = torch.zeros_like(scene.loads)
+    ref = solve_operator_fpcg(op, scene.loads, zero, mg, tol=1e-8)
+    op_s, mg_s, constrain = shard_curvilinear(op, mg, ["cuda"] * 4)
+    n0 = dict(cuda_varstencil.LAUNCHES)
+    sol = solve_operator_fpcg(op_s, constrain(scene.loads), constrain(zero), mg_s, tol=1e-8)
+    torch.cuda.synchronize()
+    assert sol.stats.converged and abs(sol.stats.iterations - ref.stats.iterations) <= 1
+    du = (op_s.gather(sol.displacements) - ref.displacements).abs().max() / ref.displacements.abs().max()
+    assert float(du) <= 1e-7
+    assert all(cuda_varstencil.LAUNCHES[k] > n0[k] for k in ("var_slab_f32", "var_slab_f64"))
 
 
 @pytest.mark.cuda

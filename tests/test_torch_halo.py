@@ -310,7 +310,7 @@ def test_masked_slab_apply_is_the_masked_whole_grid_apply(n, dtype):
 
 @pytest.mark.parametrize("n", [2, 3, 8])
 def test_shard_operator_apply_is_the_masked_operator(n):
-    """``_ShardOperator.apply`` (raw halos, the halo-extended mask built
+    """``ShardedStructuredOperator.apply`` (raw halos, the halo-extended mask built
     once) gathers to ``StructuredOperator.apply`` of the whole grid, and
     its mask shards hold their neighbours' edge planes."""
     dims, lengths = SCENES["2x2x12"]
