@@ -160,8 +160,25 @@ Phases, in order:
      iterations and displacements held against the unsharded solve, its
      wall beside the unsharded Python loop's; then
      ``python -m fea_tpu_torch.dryrun 4``, all seven modes;
- 19. one JSON line of the kernels, one of the compute with no TPU kernel,
-     the card's line, then the last line ``{"ok": true, "device": {...}}``.
+ 19. the rest of the reference: ``solve_operator_refined`` (the f64
+     refinement loop around an f32 Jacobi PCG) on the 16x16x160 voxel
+     cantilever (139,587 DOF; K2 outside, K1 inside), on [9]'s box (K7 f64 /
+     f32) and on its distorted twin's stored operator (K6 f64 / f32), each
+     converged, host-checked by ``host_ku``, within 1e-6 of ``solve()``'s
+     displacements, its outer steps and inner iterations beside the
+     reference's (``REFINE_JAX``, from refine_yardsticks.py), its launches
+     exactly those of its outer and inner applies; the outer loop's guard
+     against a NaN and a negated inner apply; ``solve(debug_nans=True)`` on
+     the flagship (as without it, both walls) and on a NaN load (raises),
+     and a K2 launch on a NaN input under the sanitizer (raises, naming the
+     kernel); ``native``'s residual of [4]'s solution against ``host_ku``'s;
+     ``utils`` (a Timer, a record, a trace holding K2's kernel); each demo
+     of ``fea_tpu_torch.examples`` in this process, its printed anchors
+     against the CPU's;
+ 20. one JSON line of the kernels (K1, K2, K6, K7 with their launches in
+     [19]'s refined solves as ``refined_launches``), one of the compute with
+     no TPU kernel, the card's line, then the last line
+     ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the last line.
 """
@@ -2832,6 +2849,351 @@ def run_sharded_modes(ftt, counters, flagship_ref: dict, curv_ref: dict, cuda_va
     return report, slab_launches
 
 
+# -- [19] the rest of the reference: refinement, the sanitizer, native, utils, demos -------
+
+REFINE_VOXEL = (16, 16, 160)  # the flagship's geometry at 139,587 DOF, the size the reference documents refinement at
+REFINE_TOL = 1e-8
+# `refine_yardsticks.py --history`: fea_tpu's pcg_refined on the scenes of [19.1] and [19.2] at tol 1e-8 with
+# the config's defaults (inner_tol 1e-3, inner_iters 2000, max_outer 25), JAX on the CPU in f64: outer steps,
+# inner iterations in all, converged, the true relative residual recomputed through the f64 operator, and after
+# each outer step the inner iterations in all and the outer residual
+REFINE_JAX = {
+    "voxel": dict(outers=12, inner=12175, converged=True, true_rel=9.966e-9,
+                  inner_by_outer=[795, 1923, 3056, 4048, 5096, 6168, 7155, 8225, 9273, 10139, 11192, 12175],
+                  residual_by_outer=[3.48e-1, 6.45e-2, 1.47e-2, 3.24e-3, 6.65e-4, 1.56e-4, 3.20e-5, 6.42e-6,
+                                     1.29e-6, 2.58e-7, 6.41e-8, 9.97e-9]),
+    "box": dict(outers=7, inner=3998, converged=True, true_rel=7.124e-9,
+                inner_by_outer=[404, 990, 1581, 2160, 2789, 3370, 3998],
+                residual_by_outer=[6.38e-2, 7.45e-3, 5.85e-4, 3.53e-5, 2.15e-6, 1.15e-7, 7.12e-9]),
+    "stored": dict(outers=5, inner=4079, converged=True, true_rel=3.964e-11,
+                   inner_by_outer=[846, 1636, 2430, 3274, 4079],
+                   residual_by_outer=[1.65e-1, 4.53e-3, 7.33e-6, 1.06e-8, 1.48e-11]),
+}
+
+
+class CountedApply:
+    """An operator whose masked applies are counted: a refined solve's
+    outer steps are its f64 applies less the first. Given the inner
+    operator's ``CountedApply`` as ``inner``, each apply also notes how
+    many inner applies came before it, so that ``inner_by_outer()`` gives
+    the inner iterations in all after each outer step (an inner PCG
+    applies once more than it iterates)."""
+
+    def __init__(self, op, inner=None):
+        self.op, self.calls, self.inner, self.seen = op, 0, inner, []
+
+    def __getattr__(self, name):
+        return getattr(self.op, name)
+
+    def apply(self, x):
+        self.calls += 1
+        if self.inner is not None:
+            self.seen.append(self.inner.calls)
+        return self.op.apply(x)
+
+    def inner_by_outer(self) -> list:
+        return [n - k for k, n in enumerate(self.seen) if k > 0]
+
+
+def run_refined_case(ftt, counters, label: str, op_hi, scene, arrays, ref: dict, keys: tuple, plain) -> dict:
+    """``solve_operator_refined(op_hi, op_hi.astype(f32), ...)`` at tol
+    1e-8, the launches counted from 0: converged as the reference, the
+    true residual by ``host_ku`` (<= 1e-8 where the reference reached it,
+    else within 2x of the reference's), the outer steps within 1 of the
+    reference's and the inner iterations in all within 10% of the
+    reference's over the same outer steps (where a refined solve stops is
+    a threshold, the outer residual against tol: two f32 roundings of one
+    inner solve can stop an outer step apart), the f64 kernel (``keys[1]``)
+    launched once an outer step and three times more (rhs, first residual,
+    reactions), the f32 kernel (``keys[0]``) once an inner iteration and
+    once more an outer step, no other kernel; the displacements within
+    1e-6 relative of ``plain`` (a ``solve()`` of the same scene)."""
+    lo_key, hi_key = keys
+    lo = CountedApply(op_hi.astype(torch.float32))
+    hi = CountedApply(op_hi, lo)
+    presc = scene.prescribed_or_zero(torch.float64)
+    sol, counts, wall = counted(counters, lambda: ftt.solve_operator_refined(hi, lo, scene.loads, presc,
+                                                                             tol=REFINE_TOL))
+    st, outers, by_outer = sol.stats, hi.calls - 1, hi.inner_by_outer()
+    m = min(outers, ref["outers"])  # outer steps both took
+    same_steps = (by_outer[m - 1], ref["inner_by_outer"][m - 1]) if m else (0, 0)
+    nodes, elements, mat, fixed, loads = arrays
+    u = sol.displacements.cpu().numpy()
+    if u.shape != nodes.shape or not np.all(np.isfinite(u)):
+        raise AssertionError(f"{label}: displacements of shape {u.shape}, finite {np.all(np.isfinite(u))}")
+    _, rel_host = host_check(nodes, elements, mat, fixed, loads, u)
+    u_plain = plain.displacements.cpu().numpy()
+    du = float(np.abs(u - u_plain).max() / np.abs(u_plain).max())
+    name = lambda k: KERNELS[k]["name"].split()[0]  # noqa: E731
+    say(f"  {label} ({scene.n_dof} DOF): converged {st.converged}, {outers} outer steps, {st.iterations} inner "
+        f"iterations in {wall:.3f} s ({st.iterations / wall:.0f} inner iterations a second); outer residual "
+        f"{st.relative_residual:.3e}, host f64 true residual {rel_host:.3e} (host_ku); reference (JAX on the CPU): "
+        f"{ref['outers']} outer steps, {ref['inner']} inner iterations, true residual {ref['true_rel']:.3e}")
+    say(f"    inner iterations in all after each outer step: {by_outer}; reference {ref['inner_by_outer']}; "
+        f"outer residuals {[f'{r:.2e}' for r in ref['residual_by_outer']]} (reference)")
+    say(f"    launches: {name(hi_key)} f64 {counts[hi_key]}, {name(lo_key)} f32 {counts[lo_key]}, others "
+        f"{sum(v for k, v in counts.items() if k not in keys)}; vs solve() ({plain.stats.iterations} iterations): "
+        f"max|du| / max|u| = {du:.3e}")
+    if ref["converged"] and ref["true_rel"] <= REFINE_TOL:
+        held = {"converged": st.converged, "host true residual <= 1e-8": rel_host <= REFINE_TOL}
+    else:  # what the reference reaches instead
+        held = {"converged as the reference": st.converged == ref["converged"],
+                "host true residual within 2x of the reference's": rel_host <= 2 * ref["true_rel"]}
+    require({
+        **held,
+        f"inner iterations over the {m} outer steps both took within 10% of the reference's":
+            abs(same_steps[0] - same_steps[1]) <= 0.1 * same_steps[1],
+        "inner iterations in all = the last outer step's count": (by_outer[-1] if by_outer else 0) == st.iterations,
+        "outer steps within 1 of the reference's": abs(outers - ref["outers"]) <= 1,
+        f"{hi_key}: outer steps + 3 launches": counts[hi_key] == outers + 3,
+        f"{lo_key}: inner iterations + outer steps launches": counts[lo_key] == st.iterations + outers,
+        "no other kernel launched": all(v == 0 for k, v in counts.items() if k not in keys),
+        "displacements within 1e-6 of solve()'s": du <= 1e-6,
+    }, f"refined {label}")
+    return dict(counts=counts, wall=wall, outers=outers, inner=st.iterations, rel_host=rel_host)
+
+
+def run_refine_guard(op_hi, b) -> None:
+    """[19.3] tests/test_guards.py's broken inner solves on the card: a NaN
+    and a negated inner apply each end with converged False, a finite x
+    and a residual no larger than ||b||."""
+    from fea_tpu_torch.solvers.refine import pcg_refined
+
+    b_norm = float(b.norm())
+    broken = {"nan": lambda x: torch.full_like(x, float("nan")),
+              "negated": lambda x: -op_hi.apply(x.to(torch.float64)).to(x.dtype)}
+    checks = {}
+    for label, apply_lo in broken.items():
+        x, st = pcg_refined(op_hi.apply, apply_lo, b, tol=1e-9, max_outer=10, inner_tol=1e-2, inner_iters=50)
+        finite = bool(torch.isfinite(x).all())
+        say(f"  {label} inner apply: converged {st.converged}, x finite {finite}, residual {st.residual_norm:.6e} "
+            f"against ||b|| {b_norm:.6e}")
+        checks.update({f"{label}: not converged": not st.converged, f"{label}: x finite": finite,
+                       f"{label}: residual <= ||b||": st.residual_norm <= b_norm * (1 + 1e-12)})
+    require(checks, "refinement guard")
+
+
+def run_debug_nans(ftt, cuda_stencil, flagship_ref: dict) -> None:
+    """[19.4] ``solve(debug_nans=True)`` on the card: the flagship as
+    without it (iterations, displacements within 10 tol, the host check),
+    with both walls; the 49,179-DOF box with a NaN load raises
+    ``FloatingPointError``; a K2 launch on an input that holds a NaN
+    raises, naming the kernel (the dispatcher never sees a ctypes
+    launch)."""
+    from fea_tpu_torch import sanitize
+    from fea_tpu_torch.ops.structured import stencil_apply_np
+
+    scene, ke, dims = flagship_ref["scene"], flagship_ref["ke"], flagship_ref["dims"]
+    plain, wall_plain = timed(lambda: ftt.solve(scene, tol=1e-8))
+    checked, wall_checked = timed(lambda: ftt.solve(scene, tol=1e-8, debug_nans=True))
+    u_p, u_c = plain.displacements.cpu().numpy(), checked.displacements.cpu().numpy()
+    du = float(np.abs(u_c - u_p).max() / np.abs(u_p).max())
+    fixed, loads = scene.fixed.cpu().numpy(), scene.loads.cpu().numpy()
+    F = 1.0 - fixed.astype(np.float64)
+    Z, Y, X = dims[2] + 1, dims[1] + 1, dims[0] + 1
+    Ku = stencil_apply_np(ke, u_c.reshape(Z, Y, X, 3), dims).reshape(-1, 3)
+    rel_host = float(np.linalg.norm(F * (loads - Ku)) / np.linalg.norm(F * loads))
+    say(f"  flagship ({scene.n_dof} DOF): solve() {plain.stats.iterations} iterations in {wall_plain:.3f} s; "
+        f"solve(debug_nans=True) {checked.stats.iterations} iterations in {wall_checked:.3f} s; max|du| / max|u| "
+        f"{du:.3e}; host f64 true residual {rel_host:.3e}")
+
+    nodes, elements = ftt.mesh.box_hex_mesh(*EBE_BOX, 0.1, 0.1, EBE_LZ)
+    fixed_b, loads_b, tip = cantilever_bcs(ftt, nodes, EBE_LZ)
+    loads_b[np.nonzero(tip)[0][0], 1] = np.nan
+    bad = ftt.make_scene(nodes, elements, fixed_b, loads_b, ftt.Material(E=10_000_000 * ftt.units.psi, nu=0.3),
+                         dtype=torch.float64)
+    try:
+        ftt.solve(bad, tol=1e-8, debug_nans=True, on_nonconverged="ignore")
+        raised_solve = None
+    except FloatingPointError as exc:
+        raised_solve = str(exc)
+    g = torch.zeros((Z, Y, X, 3), dtype=torch.float64, device=DEV)
+    g[Z // 2, Y // 2, X // 2, 1] = float("nan")
+    try:
+        with sanitize.debug_nans():
+            cuda_stencil.stencil_apply(flagship_ref["op_hi"].weights, g)
+        raised_kernel = None
+    except FloatingPointError as exc:
+        raised_kernel = str(exc)
+    say(f"  {bad.n_dof}-DOF box with a NaN load, solve(debug_nans=True): raised {raised_solve!r}")
+    say(f"  K2 on an input holding a NaN under the sanitizer: raised {raised_kernel!r}")
+    require({
+        "same iterations": checked.stats.iterations == plain.stats.iterations,
+        "converged": checked.stats.converged,
+        "displacements within 10 tol": du <= 10 * 1e-8,
+        "host true residual <= 1e-8": rel_host <= 1e-8,
+        "a NaN load raises FloatingPointError": raised_solve is not None,
+        "the K2 launch raises, naming it": raised_kernel is not None and "fea_stencil_apply_f64" in raised_kernel,
+        "the sanitizer is off again": not sanitize.active(),
+    }, "debug_nans")
+
+
+def run_native(ftt, flagship_ref: dict) -> None:
+    """[19.5] ``fea_tpu_torch.native`` on the card's host: built, and its
+    residual of [4]'s flagship solution within 1e-10 of ||b|| of
+    ``host_ku``'s (two exact f64 sums in another order: they differ by
+    their rounding, ~1e-12 of ||b||), with the time of each."""
+    from fea_tpu_torch import native
+
+    (ok, t_build) = timed(native.available)
+    scene, ke, dims, u = flagship_ref["scene"], flagship_ref["ke"], flagship_ref["dims"], flagship_ref["u"]
+    nodes, elements = scene.host_nodes, scene.host_elements
+    fixed, loads = scene.fixed.cpu().numpy(), scene.loads.cpu().numpy()
+    F = 1.0 - fixed.astype(np.float64)
+    b_norm = float(np.linalg.norm(F * loads))
+    say(f"  native.available(): {ok} ({t_build:.2f} s, the g++ build included)")
+    require({"native library available": ok}, "native")
+    t0 = time.perf_counter()
+    _, rn, _ = native.stencil_residual_host(ke, u, loads, F, dims)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, rel_ku = host_check(nodes, elements, scene.material, fixed, loads, u)
+    t_ku = time.perf_counter() - t0
+    rel_native = rn / b_norm
+    say(f"  flagship solution of [4]: native residual {rel_native:.6e} in {t_native:.3f} s, host_ku {rel_ku:.6e} "
+        f"in {t_ku:.3f} s; difference {abs(rel_native - rel_ku):.3e} of ||b||")
+    require({"within 1e-10 of ||b||": abs(rel_native - rel_ku) <= 1e-10, "<= 1e-8": rel_native <= 1e-8}, "native")
+
+
+def run_utils(ftt, flagship_ref: dict) -> None:
+    """[19.6] ``utils`` on the card: a Timer around a warm flagship
+    ``solve()``, the record of that solve, and a ``trace`` whose Chrome
+    trace holds K2's ``__global__`` function as a CUDA kernel event."""
+    import tempfile
+
+    scene = flagship_ref["scene"]
+    with ftt.utils.Timer() as timer:
+        sol = timer.set_result(ftt.solve(scene, tol=1e-8))
+    rec = ftt.utils.record_solve(scene, sol.stats, timer.elapsed, method="fpcg-multigrid")
+    say(f"  Timer around a warm flagship solve(): {timer.elapsed:.4f} s; record {rec.to_json()}")
+    op_hi = flagship_ref["op_hi"]
+    x = torch.ones_like(op_hi.free)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        with ftt.utils.trace(d):  # a warm flagship solve (its certification and reactions launch K2), 3 applies
+            ftt.solve(scene, tol=1e-8)
+            for _ in range(3):
+                op_hi.apply(x)
+            torch.cuda.synchronize()
+        (path,) = Path(d).iterdir()
+        events = json.loads(path.read_text())["traceEvents"]
+        size = path.stat().st_size
+    cats = {}
+    for e in events:
+        cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+    # K2 is stencil27_kernel<double, ...> (its name demangled, or mangled: stencil27_kernelIdLb...)
+    k2 = [e for e in events if e.get("cat") == "kernel" and "stencil27_kernel" in e.get("name", "")
+          and ("stencil27_kernel<double" in e["name"] or "stencil27_kernelId" in e["name"])]
+    say(f"  trace: {path.name}, {size} bytes, {len(events)} events by category {cats}; {len(k2)} CUDA kernel "
+        f"events of K2, named {sorted({e['name'][:90] for e in k2})}")
+    require({
+        "record: backend cuda": rec.backend == "cuda",
+        "record: n_dof, n_elements, iterations": (rec.n_dof, rec.n_elements, rec.iterations)
+        == (scene.n_dof, scene.n_elements, sol.stats.iterations),
+        "record: in records": ftt.utils.records[-1] is rec,
+        "timer > 0": timer.elapsed > 0,
+        "trace holds K2's kernel": len(k2) >= 1,
+    }, "utils")
+
+
+# What each demo prints on the CPU (python -m fea_tpu_torch.examples.<name> --device cpu), held on the card:
+# a printed number's pattern and (the CPU's value, relative tolerance), or (None, bound) for "at most".
+DEMO_ANCHORS = {
+    "cubebeam": [(r"max \|u\| = (\S+)", 3.0504e-4, 1e-4)],
+    "euler_bernoulli": [(r"midspan deflection: (\S+)", 1.240079365e-05, 1e-9), (r"relative error: (\S+)", None, 1e-10)],
+    "truss": [(r"newton iterations: (\d+)", 4, 0.0), (r"residual: (\S+)", None, 1e-12),
+              (r"nonlinear apex displacement: \[\s*(\S+)", -0.01355685, 1e-6)],
+    "single_element": [(r"free nodes = (\S+)", None, 1e-9)],
+    "tube": [(r'"n_dof": (\d+)', 7800, 0.0), (r'"relative_residual": ([^,]+),', None, 1e-8),
+             (r"\s(\S+)\s+\S+\]\]\s*$", -0.0235, 1e-3)],
+    "lshape": [(r"max \|u\| = (\S+) m", 1.0418e-06, 1e-4), (r"max relative error (\S+)", None, 1e-7)],
+    "sweep": [(r"0\.50 x\s+->\s+(\S+)", 3.572309e-05, 1e-6), (r"case 0: tip\s+(\S+)", 4.490205e-05, 1e-6),
+              (r"linearity check: max deviation (\S+)", None, 1e-8)],
+    "unstructured": [(r"scalar Jacobi :\s+(\d+)", 424, 0.05), (r"block-Jacobi\s+:\s+(\d+)", 403, 0.05),
+                     (r"\ntwo-level\s+:\s+(\d+)", 44, 0.025), (r"cheb two-level:\s+(\d+)", 19, 0.06),
+                     (r"vs dense solve: max relative error (\S+)", None, 1e-6)],
+}
+
+
+def run_demos(ftt, counters) -> None:
+    """[19.7] Each demo's ``main()`` in this process, on the card, its
+    printed anchors against the CPU's (``DEMO_ANCHORS``)."""
+    import contextlib
+    import importlib
+    import io
+    import re
+
+    from fea_tpu_torch.examples import NAMES
+
+    checks = {}
+    for name in NAMES:
+        mod = importlib.import_module(f"fea_tpu_torch.examples.{name}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            _, counts, wall = counted(counters, lambda: mod.main([]))
+        out = buf.getvalue()
+        got = []
+        for pattern, want, tol in DEMO_ANCHORS[name]:
+            m = re.search(pattern, out)
+            v = float(m.group(1)) if m else float("nan")
+            ok = m is not None and (v <= tol if want is None else abs(v - want) <= tol * abs(want))
+            checks[f"{name}: {pattern} {'<=' if want is None else '~'} {tol if want is None else want}"] = ok
+            got.append(f"{v:g}")
+        launched = ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+        say(f"  {name}: {wall:.2f} s, anchors {', '.join(got)}; launches: {launched or 'none'}")
+    require(checks, "demos")
+
+
+def run_rest(ftt, counters, cuda_stencil, flagship_ref: dict) -> dict:
+    """Phase [19]; returns each kernel key's launches in its refined solve
+    (K1/K2 on the voxel scene, K7 on the box, K6 on its distorted twin)."""
+    from fea_tpu_torch.operator import build_operator
+    from fea_tpu_torch.ops.structured import build_structured_operator
+
+    mat = ftt.Material(E=10_000_000 * ftt.units.psi, nu=0.3)
+    say(f"  [19.1] refinement on the {REFINE_VOXEL} voxel cantilever: K2 outside, K1 inside, Jacobi")
+    scene, (nodes, elements, fixed, loads, _, _) = flagship_scene(ftt, REFINE_VOXEL)
+    op_hi = build_structured_operator(scene, REFINE_VOXEL, dtype=torch.float64)
+    plain = ftt.solve(scene, tol=REFINE_TOL)
+    voxel = run_refined_case(ftt, counters, "voxel", op_hi, scene, (nodes, elements, mat, fixed, loads),
+                             REFINE_JAX["voxel"], ("f32", "f64"), plain)
+    launches = {k: voxel["counts"][k] for k in ("f32", "f64")}
+
+    say(f"  [19.2] refinement on the {EBE_BOX} box (K7) and its distorted twin's stored operator (K6)")
+    box_nodes, box_el = ftt.mesh.box_hex_mesh(*EBE_BOX, 0.1, 0.1, EBE_LZ)
+    dist_nodes, _, _ = distorted_scene_arrays(ftt, EBE_BOX, EBE_LZ)
+    for label, nd, kind, keys, jax_iters in (("box", box_nodes, "uniform", ("uniform_f32", "uniform_f64"),
+                                              EBE_JAX_ITERS),
+                                             ("stored", dist_nodes, "stored", ("stored_f32", "stored_f64"),
+                                              EBE_DISTORTED_JAX_ITERS)):
+        fx, ld, _ = cantilever_bcs(ftt, nd, EBE_LZ)
+        sc = ftt.make_scene(nd, box_el, fx, ld, mat, dtype=torch.float64)
+        op = build_operator(sc, dtype=torch.float64)
+        if kind == "stored":
+            op = dataclasses.replace(op, kind="stored", ke=op.element_matrices().contiguous(), geom=None,
+                                     material=None)
+        plain_e = ftt.solve(sc, tol=REFINE_TOL)
+        say(f"    {label}: solve() by Jacobi PCG, {plain_e.stats.iterations} iterations (JAX {jax_iters})")
+        res = run_refined_case(ftt, counters, label, op, sc, (nd, box_el, mat, fx, ld), REFINE_JAX[label], keys,
+                               plain_e)
+        launches.update({k: res["counts"][k] for k in keys})
+        del op, sc
+
+    say("  [19.3] the outer loop's guard on the card (the voxel scene's f64 operator)")
+    run_refine_guard(op_hi, op_hi.rhs(scene.loads, scene.prescribed_or_zero(torch.float64)))
+    del op_hi, scene, plain
+
+    say("  [19.4] debug_nans on the card")
+    run_debug_nans(ftt, cuda_stencil, flagship_ref)
+    say("  [19.5] native on the card's host")
+    run_native(ftt, flagship_ref)
+    say("  [19.6] utils")
+    run_utils(ftt, flagship_ref)
+    say("  [19.7] the demos, in this process, on the card")
+    run_demos(ftt, counters)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -2918,7 +3280,12 @@ def main() -> None:
     slab_report, slab_launches = run_sharded_modes(ftt, counters, flagship_ref, curv_ref, cuda_varstencil)
     report.update(slab_report)
     launches.update(slab_launches)
-    del flagship_ref, curv_ref
+    del curv_ref
+
+    phase("[19] the rest: mixed-precision refinement (K1/K2, K7, K6), debug_nans, native, utils and the demos")
+    for key, n in run_rest(ftt, counters, cuda_stencil, flagship_ref).items():
+        report[key]["refined_launches"] = n
+    del flagship_ref
 
     say(json.dumps({"kernels": [
         dict(name=spec["name"], route="cuda", source=spec["source"], replaces=spec["replaces"],

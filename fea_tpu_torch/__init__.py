@@ -26,10 +26,20 @@ version serves:
     explicit ``method="cg"`` (Jacobi, block-Jacobi or none) or
     ``"dense"``, a prebuilt ``operator=``, hex8 scenes under 50,000 DOF,
     Euler-Bernoulli beams and 2D/3D bars, and ``solve_nonlinear`` for
-    bars.
+    bars;
+  * ``solve_operator_refined``: mixed-precision refinement, an f64 outer
+    loop around an f32 Jacobi PCG, on a structured operator (K2 outside,
+    K1 inside) or an element operator (K7, or K6 when stored);
+  * ``solve(debug_nans=True)``: the NaN sanitizer (``sanitize.py``);
+  * ``utils`` (solve records, timers, profiler traces, the build
+    directory), ``native`` (the host's exact f64 check in C++), ``viz``
+    (matplotlib, and pyvista where installed), ``Policy`` /
+    ``default_policy``, and the demos, ``python -m
+    fea_tpu_torch.examples.<name>``.
 
-See ROADMAP.md for the rest. Entry points run on the CUDA card unless
-the caller passes ``device="cpu"``.
+Every entry point of the reference's ``fea_tpu`` has its counterpart
+here. Entry points run on the CUDA card unless the caller passes
+``device="cpu"``.
 
 Quick start::
 
@@ -46,8 +56,9 @@ Quick start::
 """
 from __future__ import annotations
 
-from . import assembly, mesh, post
+from . import assembly, mesh, native, ops, post, utils, viz
 from .config import DEFAULT_CONFIG, SolverConfig
+from .dtypes import Policy, default_policy
 from .materials import Material, units
 from .operator import StiffnessOperator, build_operator
 from .ops.twolevel import TwoLevelChebPrecond, TwoLevelPrecond, build_two_level, build_two_level_cheb
@@ -65,10 +76,9 @@ from .solve import (
     solve_nonlinear,
     solve_operator,
     solve_operator_fpcg,
+    solve_operator_refined,
 )
-from .solvers.cg import SolveStats, pcg
-from .solvers.dense import dense_solve
-from .solvers.newton import newton_krylov
+from .solvers import SolveStats, dense_solve, newton_krylov, pcg
 from . import parallel  # after .solve, which parallel.halo imports
 
 __version__ = "0.1.0"
@@ -78,6 +88,7 @@ __all__ = [
     "ElementFamily",
     "FAMILIES",
     "Material",
+    "Policy",
     "Scene",
     "Solution",
     "SolveStats",
@@ -92,11 +103,14 @@ __all__ = [
     "build_two_level",
     "build_two_level_cheb",
     "clear_build_cache",
+    "default_policy",
     "dense_solve",
     "fix_where",
     "make_scene",
     "mesh",
+    "native",
     "newton_krylov",
+    "ops",
     "parallel",
     "pcg",
     "post",
@@ -109,5 +123,8 @@ __all__ = [
     "solve_nonlinear",
     "solve_operator",
     "solve_operator_fpcg",
+    "solve_operator_refined",
     "units",
+    "utils",
+    "viz",
 ]

@@ -23,7 +23,10 @@ class SolverConfig:
       max_outer:   refinement outer-step cap.
       mg_degree:   Chebyshev smoother degree for multigrid.
       on_nonconverged: 'warn' | 'raise' | 'ignore' (host-facing solves).
-      debug_nans:  NaN sanitizer mode of the JAX package.
+      debug_nans:  run the solve under the NaN sanitizer
+                   (fea_tpu_torch/sanitize.py): the first operation that
+                   makes a NaN raises FloatingPointError (debugging only;
+                   it syncs with the device after every operation).
       sharded:     the z-sharded solve of a voxel box over the visible
                    devices (fea_tpu_torch/parallel/halo.py). None or
                    False -> one device; True -> sharded when more than

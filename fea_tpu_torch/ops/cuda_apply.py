@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from .. import sanitize
 from .nvcc import CSRC, launch_on, load_library
 
 __all__ = [
@@ -107,6 +108,8 @@ def _dispatch(kind: str, ke: torch.Tensor, u_e: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA error {err} at launch (E={E}, k={k})")
     LAUNCHES[f"{kind}_{suffix}"] += 1
+    if sanitize.active():
+        sanitize.check(fn, out)
     return out
 
 

@@ -34,6 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import sanitize
 from .nvcc import CSRC, launch_on, load_library
 
 __all__ = [
@@ -216,6 +217,8 @@ def _launch(entries: dict, weights: StencilWeights, g: torch.Tensor, free: Optio
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA error {err} at launch (sizes {sizes})")
     LAUNCHES[key] += 1
+    if sanitize.active():
+        sanitize.check(fn, out)
 
 
 def stencil_apply(ke_table: StencilWeights, g: torch.Tensor, free: Optional[torch.Tensor] = None) -> torch.Tensor:

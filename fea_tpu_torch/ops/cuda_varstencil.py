@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from .. import sanitize
 from .nvcc import CSRC, launch_on, load_library
 
 __all__ = ["LAUNCHES", "build", "var_apply", "var_apply_slab"]
@@ -81,6 +82,8 @@ def _launch(name: str, entry: dict, weights: torch.Tensor, g: torch.Tensor, halo
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA error {err} at launch ({X}x{Y}x{planes} nodes)")
     LAUNCHES[key] += 1
+    if sanitize.active():
+        sanitize.check(fn, out)
     return out
 
 

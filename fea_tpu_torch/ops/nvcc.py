@@ -2,8 +2,9 @@
 
 Each source under ``fea_tpu_torch/csrc/`` is compiled on its own for
 ``sm_90a`` into a shared library with a plain C interface, in
-``fea_tpu_torch/_build/`` and keyed by the source's content and flags, and
-loaded with :mod:`ctypes`. Sources build independently, so callers that
+``fea_tpu_torch/_build/`` (or the directory of :func:`set_build_dir`)
+and keyed by the source's content and flags, and loaded with
+:mod:`ctypes`. Sources build independently, so callers that
 need several may build them in parallel threads. A failed build raises
 with the compiler's output.
 """
@@ -19,7 +20,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["CSRC", "NVCC_FLAGS", "find_nvcc", "launch_on", "load_library"]
+__all__ = ["CSRC", "NVCC_FLAGS", "build_dir", "find_nvcc", "launch_on", "load_library", "set_build_dir"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -28,6 +29,19 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+
+
+def build_dir() -> Path:
+    """Where the libraries are built."""
+    return _BUILD_DIR
+
+
+def set_build_dir(path) -> None:
+    """Build (and look for) the libraries in ``path`` from now on; a
+    library already loaded stays loaded
+    (``utils.cache.setup_compilation_cache`` keys the directory)."""
+    global _BUILD_DIR
+    _BUILD_DIR = Path(path)
 
 
 def find_nvcc() -> str:

@@ -42,6 +42,8 @@ __all__ = [
     "stencil_apply_grid",
     "stencil_apply_np",
     "stencil_apply_slab_grid",
+    "stencil_diag_grid",
+    "stencil_diag_np",
 ]
 
 # Corner offsets (dz, dy, dx) in node-grid index space, in the element's
@@ -132,6 +134,19 @@ def stencil_apply_chunked_grid(ke: torch.Tensor, g: torch.Tensor, n_chunks: int,
     return torch.cat(slabs)
 
 
+def stencil_diag_grid(ke: torch.Tensor, dims: tuple[int, int, int]) -> torch.Tensor:
+    """The assembled diagonal of K in grid space, (Z, Y, X, 3), in ke's
+    dtype on its device: each element adds the diagonal of its corner's
+    3x3 block of Ke into that corner's node, corner by corner. Built once
+    an operator, so it is plain torch."""
+    nx, ny, nz = dims
+    kd = torch.diagonal(ke)
+    d = torch.zeros((nz + 1, ny + 1, nx + 1, 3), dtype=ke.dtype, device=ke.device)
+    for a, (dz, dy, dx) in enumerate(_CORNERS):
+        d[dz : dz + nz, dy : dy + ny, dx : dx + nx, :] += kd[3 * a : 3 * a + 3]
+    return d
+
+
 # -- host-side (NumPy) twins ---------------------------------------------------
 # Used at build time (multigrid hierarchy, lambda_max bounds) and as the
 # f64 oracle that checks the card's results independently of its kernels.
@@ -175,6 +190,11 @@ def fill_regions_np(table: np.ndarray, dims: tuple[int, int, int]) -> np.ndarray
     return d
 
 
+def stencil_diag_np(ke: np.ndarray, dims: tuple[int, int, int]) -> np.ndarray:
+    """NumPy twin of :func:`stencil_diag_grid`, by the 27-region table."""
+    return fill_regions_np(corner_table_np(np.ascontiguousarray(np.diagonal(ke))), dims)
+
+
 def stencil_apply_np(ke: np.ndarray, g: np.ndarray, dims: tuple[int, int, int]) -> np.ndarray:
     """NumPy twin of :func:`stencil_apply_grid` (f64 host oracle)."""
     nx, ny, nz = dims
@@ -213,6 +233,10 @@ class StructuredOperator:
         return Z * Y * X
 
     @property
+    def dofs_per_node(self) -> int:
+        return 3
+
+    @property
     def n_dof(self) -> int:
         return 3 * self.n_nodes
 
@@ -239,6 +263,16 @@ class StructuredOperator:
         F = self.free.to(loads.dtype)
         xp = (1.0 - F) * prescribed.to(loads.dtype)
         return F * (loads - self.apply_raw(xp)) + xp
+
+    def diag_raw(self) -> torch.Tensor:
+        """The assembled diagonal of K, (N, 3) flat, in the operator's dtype."""
+        return stencil_diag_grid(self.ke, self.dims).reshape(-1, 3)
+
+    def diag_masked(self) -> torch.Tensor:
+        """The diagonal of the masked operator: K's on free DOFs, 1 on fixed
+        ones (the Jacobi preconditioner of the inner solve)."""
+        F = self.free
+        return F * self.diag_raw() + (1.0 - F)
 
 
 def _expected_box_elements(nx: int, ny: int, nz: int) -> np.ndarray:

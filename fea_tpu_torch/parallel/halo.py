@@ -60,13 +60,12 @@ import dataclasses
 import operator
 from typing import Callable, Optional, Sequence
 
-import numpy as np
 import torch
 
 from ..dtypes import precise_dot
 from ..ops.cuda_stencil import StencilWeights, check_free_mask, stencil_apply_slab
 from ..ops.multigrid import MultigridPreconditioner, _Level, _prolong, _restrict, chebyshev_smooth
-from ..ops.structured import StructuredOperator, corner_table_np, fill_regions_np
+from ..ops.structured import StructuredOperator, stencil_diag_np
 from ..solve._types import Solution
 from ..solve.fpcg import solve_operator_fpcg
 
@@ -300,7 +299,7 @@ class ShardedStructuredOperator(SlabVectors):
         region on the host and scattered."""
         Y, X = self.free[0].shape[1:3]
         ke = self.weights[0].ke.cpu().double().numpy()
-        d = fill_regions_np(corner_table_np(np.ascontiguousarray(np.diagonal(ke))), (X - 1, Y - 1, self.z_real - 1))
+        d = stencil_diag_np(ke, (X - 1, Y - 1, self.z_real - 1))
         return self.scatter(torch.as_tensor(d).to(self.dtype))
 
     def diag_masked(self) -> Shards:

@@ -48,9 +48,10 @@ The large routes run f64 flexible PCG with a multigrid or two-level
 preconditioner, its loop held on the card as replays of a captured
 iteration (``solve/staged.py``; the z-sharded solve keeps the Python loop
 of ``solve_operator_fpcg``); every route reports the true residual of the
-displacements it returns. Only ``debug_nans`` raises
-``NotImplementedError`` (ROADMAP item 15), naming what is not ported; no
-scene silently takes another path.
+displacements it returns. ``debug_nans`` runs the whole solve under the
+NaN sanitizer (``fea_tpu_torch/sanitize.py``): the first operation or
+kernel that makes a NaN raises ``FloatingPointError``. No scene silently
+takes another path.
 """
 from __future__ import annotations
 
@@ -62,6 +63,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import sanitize
 from ..config import DEFAULT_CONFIG, SolverConfig
 from ..dtypes import precise_dot, torch_dtype
 from ..operator import StiffnessOperator, build_operator
@@ -74,7 +76,7 @@ from .cache import _cached_build, clear_build_cache
 from .curv import build_curvilinear, solve_curvilinear
 from .embed import _cached_embedding, solve_subgrid_embedded
 from .extruded import build_extruded, solve_extruded
-from .fpcg import solve_operator_fpcg
+from .fpcg import solve_operator_fpcg, solve_operator_refined, solve_operator_refined_host
 from .many import solve_many
 from .staged import solve_operator_fpcg_staged
 from .unstructured import _solve_unstructured_amg, _solve_unstructured_two_level, build_amg_setup
@@ -93,20 +95,14 @@ __all__ = [
     "solve_operator",
     "solve_operator_fpcg",
     "solve_operator_fpcg_staged",
+    "solve_operator_refined",
+    "solve_operator_refined_host",
 ]
 
 # auto-routing takes the large-grid routes from this size (tests lower it)
 _STRUCTURED_MIN_DOF = 50_000
 # ... and the embedded, AMG and two-level routes from this one (tests lower it)
 _BLOCK_PRECOND_MIN_DOF = 50_000
-
-
-def _not_ported(route: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"fea_tpu_torch.solve: this scene takes the {route} route, which is "
-        f"not ported yet (ROADMAP.md queue 1 item {item}); no other route "
-        "is taken in its place"
-    )
 
 
 def _true_relative_residual(op: StiffnessOperator, b: torch.Tensor, u: torch.Tensor, safe_b_norm: float) -> float:
@@ -235,7 +231,14 @@ def solve(
         return sol
 
     if debug_nans:
-        raise _not_ported("debug_nans sanitizer", "15")
+        # the first operation that makes a NaN raises FloatingPointError there,
+        # instead of the NaN surfacing iterations later as a blow-up bail-out
+        with sanitize.debug_nans():
+            return solve(
+                scene, config=config, method=method, tol=tol, max_iters=max_iters, dtype=dtype,
+                check_jacobians=check_jacobians, operator=operator, on_nonconverged=on_nonconverged,
+                debug_nans=False,
+            )
     if method == "auto" and operator is None and (scene.n_dof >= _STRUCTURED_MIN_DOF or cfg.sharded):
         if scene.family == "hex8":
             found = _solve_large_hex8(scene, cfg, tol, max_iters, dtype, check_jacobians)

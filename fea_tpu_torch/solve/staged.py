@@ -33,7 +33,9 @@ H100's form:
     reads, and it stops replaying a case once it has seen it halt: at most
     one replay a pass runs past convergence, and it is frozen.
   * **On a CPU tensor** the same step runs eagerly and the host reads each
-    round at once. That is the plain version, which the tests drive.
+    round at once. That is the plain version, which the tests drive. It
+    also runs on the card under the NaN sanitizer
+    (``fea_tpu_torch.sanitize``), which sees no operation of a replay.
 
 A replay is one step, so the reference's ``FEA_TPU_STAGED_K`` (steps a
 dispatch) has no counterpart here. The captured state of a hierarchy (its
@@ -58,6 +60,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import sanitize
 from ..dtypes import precise_dot
 from ..ops import cuda_apply, cuda_stencil, cuda_varstencil
 from ..solvers.cg import SolveStats
@@ -188,10 +191,10 @@ class _Plan:
     which keys it in ``_PLANS``: nothing here keeps a hierarchy alive, and
     the plan goes with it."""
 
-    def __init__(self, op, mg, n_cases: int):
+    def __init__(self, op, mg, n_cases: int, graphs: bool = True):
         self.op = op
         device = op.free.device
-        self.cuda = device.type == "cuda"
+        self.cuda = device.type == "cuda" and graphs
         self.status = torch.zeros((n_cases, _STATUS), dtype=torch.float64, device=device)
         self.cases = [_Case(i, op.free.shape, device, self.status[i]) for i in range(n_cases)]
         self.slot = 0
@@ -230,7 +233,7 @@ class _Plan:
         takes."""
         COUNTS["readbacks"] += 1
         if not self.cuda:
-            return self.status.numpy().copy()
+            return self.status.cpu().numpy().copy()
         slot = self.slot
         self.slot = 1 - slot
         self.ring[slot].copy_(self.status, non_blocking=True)
@@ -278,6 +281,8 @@ def _plan_for(op, mg, n_cases: int) -> _Plan:
     """The plan of (op, mg) for ``n_cases`` cases: one a hierarchy, kept
     until the hierarchy goes, so that a solve captures at most once and
     later solves and correction passes on the same pair capture nothing."""
+    if sanitize.active():  # the eager step, kept by no one
+        return _Plan(op, mg, n_cases, graphs=False)
     key = id(mg)
     plan = _PLANS.get(key)
     if plan is not None and plan.op is op and len(plan.cases) == n_cases:

@@ -4,7 +4,8 @@ a low-precision preconditioner).
 
 Counterpart of ``fea_tpu/solvers/cg.py::pcg`` and ``::fpcg``: each loop
 runs in Python on the tensors' device, with one host sync per iteration
-for the convergence test. Dots accumulate in f64.
+for the convergence test. Dots accumulate in f64 (``pcg``: in the
+accumulation dtype of its ``policy``, when one is given).
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Callable, Optional
 
 import torch
 
-from ..dtypes import precise_dot
+from ..dtypes import Policy, precise_dot
 
 __all__ = ["SolveStats", "fpcg", "pcg"]
 
@@ -37,16 +38,20 @@ def pcg(
     precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     tol: float = 1e-8,
     max_iters: int = 10_000,
+    policy: Optional[Policy] = None,
 ) -> tuple[torch.Tensor, SolveStats]:
-    """Solve A x = b by preconditioned CG in the dtype of ``b``.
+    """Solve A x = b by preconditioned CG.
 
     ``apply`` must be SPD on the subspace it acts on (the masked stiffness
     operator is). Preconditioning: ``precond``, an SPD callable z = M^-1 r
     (it wins), else ``precond_diag``, the diagonal of A (Jacobi), else
-    none. The reported residual is the recurrence's; ``solve_operator``
-    recomputes the true one.
+    none. ``policy``: the vectors in ``policy.compute``, the dots and the
+    scalar recurrence in ``policy.accum``; None computes in the dtype of
+    ``b`` and accumulates in f64. The reported residual is the
+    recurrence's; ``solve_operator`` recomputes the true one.
     """
-    dtype = b.dtype
+    dtype, acc = (b.dtype, torch.float64) if policy is None else (policy.compute, policy.accum)
+    b = b.to(dtype)
     x = torch.zeros_like(b) if x0 is None else x0.to(dtype)
     if precond is None and precond_diag is not None:
         # a free DOF attached to no element has a zero assembled diagonal:
@@ -58,30 +63,30 @@ def pcg(
     elif precond is None:
         precond = lambda r: r  # noqa: E731
 
-    b_norm = float(torch.sqrt(precise_dot(b, b)))
+    b_norm = float(torch.sqrt(precise_dot(b, b, acc)))
     safe_b_norm = b_norm if b_norm > 0 else 1.0
 
     r = b - apply(x)
     z = precond(r)
     p = z
-    rz = precise_dot(r, z)
-    rr = float(precise_dot(r, r))
+    rz = precise_dot(r, z, acc)
+    rr = float(precise_dot(r, r, acc))
     # a residual 1e12x above its start (or NaN) can only get worse
     blowup = 1e12 * max(rr, safe_b_norm * safe_b_norm)
 
     k = 0
     while rr**0.5 > tol * safe_b_norm and k < max_iters and rr < blowup:
         Ap = apply(p)
-        pAp = precise_dot(p, Ap)
+        pAp = precise_dot(p, Ap, acc)
         alpha = (rz / torch.where(pAp > 0, pAp, torch.ones_like(pAp))).to(dtype)
         x = x + alpha * p
         r = r - alpha * Ap
         z = precond(r)
-        rz_new = precise_dot(r, z)
+        rz_new = precise_dot(r, z, acc)
         beta = (rz_new / torch.where(rz != 0, rz, torch.ones_like(rz))).to(dtype)
         p = z + beta * p
         rz = rz_new
-        rr = float(precise_dot(r, r))
+        rr = float(precise_dot(r, r, acc))
         k += 1
 
     res = rr**0.5

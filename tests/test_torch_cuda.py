@@ -499,3 +499,47 @@ def test_extruded_solve_on_card_matches_cpu(monkeypatch):
     assert card.stats.converged and abs(card.stats.iterations - cpu.stats.iterations) <= 1
     u = cpu.displacements
     assert float((card.displacements.cpu() - u).abs().max()) <= 1e-7 * float(u.abs().max())
+
+
+@pytest.mark.cuda
+def test_refined_solve_on_card_runs_k1_inside_and_k2_outside():
+    """Mixed-precision refinement on the card at small size: the f64 outer
+    apply is K2, the f32 inner PCG K1 (masked), nothing else launched;
+    against the same solve on the CPU (inner totals within 10%, outer
+    residual and displacements at the level of tol); the sanitizer's
+    kernel check sees K1/K2's output on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K1 and K2 have no CPU mode")
+    import fea_tpu_torch as ftt
+    from fea_tpu_torch import sanitize
+    from fea_tpu_torch.ops import cuda_apply, cuda_varstencil
+    from fea_tpu_torch.ops.structured import build_structured_operator, structured_scene
+
+    mat = Material(E=10_000_000 * ftt.units.psi, nu=0.3)
+    sols = {}
+    for dev in ("cpu", "cuda"):
+        scene, dims = structured_scene(4, 4, 32, 0.05, 0.05, 1.0, mat, dtype=torch.float64, device=dev)
+        loads = torch.zeros_like(scene.loads)
+        tip = scene.nodes[:, 2] == 1.0
+        loads[tip, 1] = 100.0 / int(tip.sum())
+        op_hi = build_structured_operator(scene, dims, dtype=torch.float64)
+        counters = (cuda_stencil.LAUNCHES, cuda_varstencil.LAUNCHES, cuda_apply.LAUNCHES)
+        for c in counters:
+            for k in c:
+                c[k] = 0
+        sols[dev] = ftt.solve_operator_refined(op_hi, op_hi.astype(torch.float32), loads, torch.zeros_like(loads),
+                                               tol=1e-9, inner_tol=1e-2, inner_iters=3000)
+        torch.cuda.synchronize()
+        if dev == "cuda":
+            counts = {k: v for c in counters for k, v in c.items()}
+            st = sols[dev].stats
+            assert counts["f32"] >= st.iterations and counts["f64"] >= 2
+            assert all(v == 0 for k, v in counts.items() if k not in ("f32", "f64"))
+            b = op_hi.rhs(loads, torch.zeros_like(loads))
+            with sanitize.debug_nans():  # K2's output checked, nothing raised on a clean apply
+                assert float((b - op_hi.apply(sols[dev].displacements)).norm() / b.norm()) < 1e-9
+    cpu, card = sols["cpu"], sols["cuda"]
+    assert card.stats.converged and card.stats.relative_residual < 1e-9
+    assert abs(card.stats.iterations - cpu.stats.iterations) <= 0.1 * cpu.stats.iterations
+    u = cpu.displacements
+    assert float((card.displacements.cpu() - u).abs().max()) <= 1e-7 * float(u.abs().max())

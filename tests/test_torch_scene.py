@@ -129,8 +129,13 @@ def test_scene_from_numpy_round_trips_a_jax_scene():
 
 
 def test_import_leaves_jax_out():
+    from fea_tpu_torch.examples import NAMES
+
+    examples = ", ".join(f"fea_tpu_torch.examples.{n}" for n in NAMES)
     code = (
-        "import sys, fea_tpu_torch, fea_tpu_torch.ops.multigrid, fea_tpu_torch.solve.fpcg; "
+        "import sys, fea_tpu_torch, fea_tpu_torch.ops.multigrid, fea_tpu_torch.solve.fpcg, "
+        "fea_tpu_torch.utils, fea_tpu_torch.utils.cache, fea_tpu_torch.native, fea_tpu_torch.viz.mpl, "
+        f"fea_tpu_torch.sanitize, fea_tpu_torch.solvers.refine, {examples}; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'fea_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -139,3 +144,21 @@ def test_import_leaves_jax_out():
         env={**os.environ, "PYTHONPATH": REPO},
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_every_reference_export_is_exported():
+    """Every name of ``fea_tpu.__all__`` is in ``fea_tpu_torch.__all__``
+    and importable from the package, as are the solvers' and the solve
+    module's exports of the reference."""
+    import fea_tpu
+    import fea_tpu.solve
+    import fea_tpu.solvers
+    import fea_tpu_torch.solve
+    import fea_tpu_torch.solvers
+
+    for ref, port in ((fea_tpu, ftt), (fea_tpu.solvers, fea_tpu_torch.solvers)):
+        missing = [n for n in ref.__all__ if n not in port.__all__ or not hasattr(port, n)]
+        assert not missing, missing
+    solve_mod = sys.modules["fea_tpu_torch.solve"]
+    for name in ("solve_operator_refined", "solve_operator_refined_host"):
+        assert hasattr(sys.modules["fea_tpu.solve"], name) and name in solve_mod.__all__

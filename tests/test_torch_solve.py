@@ -98,8 +98,10 @@ def test_routes_not_ported_raise_with_their_name():
     assert box.n_dof < 2000
     # one device, so sharded=True takes the one-device voxel route
     assert ftt.solve(box, config=ftt.SolverConfig(sharded=True)).stats.converged
-    with pytest.raises(NotImplementedError, match="debug_nans.*item 15"):
-        ftt.solve(box, debug_nans=True)
+    # the sanitizer is ported: a clean solve under it gives the same answer
+    plain, checked = ftt.solve(box), ftt.solve(box, debug_nans=True)
+    assert checked.stats == plain.stats
+    assert torch.equal(checked.displacements, plain.displacements)
     with pytest.raises(ValueError, match="on_nonconverged"):
         ftt.solve(box, on_nonconverged="sometimes")
     # the element-by-element routes (item 8) are ported: they solve
