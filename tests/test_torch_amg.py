@@ -32,6 +32,17 @@ CACHE = sys.modules["fea_tpu_torch.solve.cache"]
 AMG_JAX_ITERS = 25
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """This file's CPU work runs on one torch thread: beside the suite's
+    other workers, torch's thread pool contends and the file takes many
+    times longer (the JAX reference keeps its own threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def both_hosts(nx=6, nz=20):
     nodes, elements, fixed, loads, _ = l_arrays(nx, nz)
     hj = jamg.assemble_bcsr(nodes, elements, ft.Material(**MAT), fixed)

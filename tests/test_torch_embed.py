@@ -36,6 +36,17 @@ TOL = 1e-8
 EMBED_JAX_ITERS = 18
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """This file's CPU work runs on one torch thread: beside the suite's
+    other workers, torch's thread pool contends and the file takes many
+    times longer (the JAX reference keeps its own threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def l_arrays(nx, nz, *, seed=7, distort=0.2, presc=False):
     """tests/test_amg.py's L-domain: interior nodes moved by ``distort`` h
     U(-1, 1), z = 0 fixed, a +y load of 1 / n_tip on the tip face; with

@@ -37,6 +37,17 @@ SOLVE = sys.modules["fea_tpu_torch.solve"]
 CACHE = sys.modules["fea_tpu_torch.solve.cache"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """This file's CPU work runs on one torch thread: beside the suite's
+    other workers, torch's thread pool contends and the file takes many
+    times longer (the JAX reference keeps its own threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def tube_arrays(nseg, nlay, r_in, r_out, length, *, load="tip"):
     """The reference's tube mesh (z = 0 fixed) and a load: ``"tip"`` a
     unit +y shear on the tip ring (tests/test_extruded.py), ``"cosine"``

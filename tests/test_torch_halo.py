@@ -40,6 +40,17 @@ MAT = dict(E=6.9e10, nu=0.3)
 SCENES = {"2x2x12": ((2, 2, 12), (0.1, 0.1, 1.0)), "4x4x32": ((4, 4, 32), (0.05, 0.05, 1.0))}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """This file's CPU work runs on one torch thread: beside the suite's
+    other workers, torch's thread pool contends and the file takes many
+    times longer (the JAX reference keeps its own threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _ke(dims):
     """The Ke of one voxel of a 0.1 x 0.1 x 1.0 box of ``dims`` elements."""
     nx, ny, nz = dims

@@ -26,6 +26,17 @@ MAT = dict(E=1e7, nu=0.3)
 DIMS = (4, 4, 8)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """This file's CPU work runs on one torch thread: beside the suite's
+    other workers, torch's thread pool contends and the file takes many
+    times longer (the JAX reference keeps its own threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _ops():
     """The f64 structured operators of one cantilever, in both packages."""
     jsc, dims = jax_structured_scene(*DIMS, 0.1, 0.1, 0.5, ft.Material(**MAT), dtype=jnp.float64)

@@ -21,6 +21,17 @@ from fea_tpu_torch.ops.structured import build_structured_operator, stencil_appl
 pytestmark = pytest.mark.skipif(not nat.available(), reason="no host toolchain for the native kernel")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """This file's CPU work runs on one torch thread: beside the suite's
+    other workers, torch's thread pool contends and the file takes many
+    times longer (the JAX reference keeps its own threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _random_sym_ke(seed: int = 0) -> np.ndarray:
     rng = np.random.default_rng(seed)
     a = rng.normal(size=(24, 24))

@@ -36,6 +36,17 @@ MAT = dict(E=1e7, nu=0.3)
 F64 = 1e-12
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """This file's CPU work runs on one torch thread: beside the suite's
+    other workers, torch's thread pool contends and the file takes many
+    times longer (the JAX reference keeps its own threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def close(got, want, rel=F64):
     got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     want = np.asarray(want)

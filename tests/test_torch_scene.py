@@ -20,6 +20,17 @@ from fea_tpu_torch.ops.structured import infer_box_dims
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """This file's CPU work runs on one torch thread: beside the suite's
+    other workers, torch's thread pool contends and the file takes many
+    times longer (the JAX reference keeps its own threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _both_scenes(nodes, elements, fixed, loads, E=1e7, nu=0.3):
     jsc = ft.make_scene(nodes, elements, fixed, loads, ft.Material(E=E, nu=nu), dtype=jnp.float64)
     tsc = ftt.make_scene(nodes, elements, fixed, loads, ftt.Material(E=E, nu=nu), dtype=torch.float64, device="cpu")

@@ -28,6 +28,17 @@ DIMS = (8, 8, 64)
 TOL = 1e-8
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """This file's CPU work runs on one torch thread: beside the suite's
+    other workers, torch's thread pool contends and the file takes many
+    times longer (the JAX reference keeps its own threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def voxel_route_for_small_scenes(monkeypatch):
     # sys.modules, not `import fea_tpu.solve`: each package re-exports

@@ -35,6 +35,17 @@ MAT = dict(E=1e7, nu=0.3)
 TOL = 1e-6
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """This file's CPU work runs on one torch thread: beside the suite's
+    other workers, torch's thread pool contends and the file takes many
+    times longer (the JAX reference keeps its own threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _reference_case():
     """tests/test_staged.py's scene, loads and prescribed root motion."""
     jsc, dims = jax_structured_scene(2, 2, 6, 0.1, 0.1, 0.5, ft.Material(**MAT), dtype=jnp.float64)

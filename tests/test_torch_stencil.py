@@ -27,6 +27,17 @@ from fea_tpu_torch.ops.structured import stencil_apply_grid, stencil_apply_np
 DIMS = [(3, 2, 5), (1, 1, 1), (4, 4, 8)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """This file's CPU work runs on one torch thread: beside the suite's
+    other workers, torch's thread pool contends and the file takes many
+    times longer (the JAX reference keeps its own threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _ke(dims):
     """The reference Ke of a 0.3 x 0.2 x 0.5 box cut into ``dims`` voxels."""
     nx, ny, nz = dims

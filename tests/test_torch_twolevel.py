@@ -36,6 +36,17 @@ TWO_LEVEL_JAX_ITERS = 24
 TWO_LEVEL_JAX_ITERS_32K = 26
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """This file's CPU work runs on one torch thread: beside the suite's
+    other workers, torch's thread pool contends and the file takes many
+    times longer (the JAX reference keeps its own threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def both_ops(nx=6, nz=12):
     nodes, elements, fixed, loads, _ = l_arrays(nx, nz)
     jsc = ft.make_scene(nodes, elements, fixed, loads, ft.Material(**MAT), dtype=jnp.float64)

@@ -17,6 +17,17 @@ from fea_tpu_torch.ops import nvcc
 from fea_tpu_torch.utils import cache
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """This file's CPU work runs on one torch thread: beside the suite's
+    other workers, torch's thread pool contends and the file takes many
+    times longer (the JAX reference keeps its own threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cubebeam(pkg, **kw):
     nodes, elements = pkg.mesh.box_hex_mesh(2, 2, 6, 0.1, 0.1, 0.6)
     fixed = pkg.fix_where(nodes, lambda p: p[:, 2] == 0.0, 3)

@@ -32,6 +32,17 @@ except Exception:
 T = torch.as_tensor
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """This file's CPU work runs on one torch thread: beside the suite's
+    other workers, torch's thread pool contends and the file takes many
+    times longer (the JAX reference keeps its own threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture()
 def small_hex():
     nodes, elements = box_hex_mesh(2, 2, 3, 0.2, 0.2, 0.3)
