@@ -4,6 +4,7 @@ checkouts of this package, side by side on one CUDA card.
 
     python3 chip_pair.py DIR [DIR ...]     # e.g.  _parent . . _parent
     python3 chip_pair.py --solves DIR [DIR ...]
+    python3 chip_pair.py --var DIR [DIR ...]
 
 Each DIR is the root of a checkout that holds ``fea_tpu_torch`` ("." is
 this one). They are measured one after the other, each in a process of its
@@ -32,6 +33,16 @@ and one capture and replay of a one-kernel CUDA graph on a side stream,
 the process's first of each, before its solves; ``DIR:profile`` runs the
 first solve under torch.profiler and prints the host calls that took most
 of it (self time, calls, and the slowest single call).
+
+With ``--var``, each checkout's process times the variable-weight
+stencil wrappers (K4, K5, K4-slab, K5-slab) instead, on block-symmetric
+random fields (the mirror made exact, as every field of the port is): one
+``var_apply`` at every level grid of the 811,923-DOF curvilinear
+hierarchy, and one apply over the 4 slabs of its fine grid as
+``shard_curvilinear`` cuts them; each raw, as the masked expression
+``F * K(F g) + (1 - F) g`` written around the raw wrapper (what the
+callers ran before the masked entry), and through ``var_apply_masked`` /
+``var_apply_slab_masked`` where the checkout has them.
 
 Prints one line a measurement, then the card's name and power limit.
 """
@@ -112,6 +123,86 @@ def measure(root: Path) -> None:
         host_us = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
         emit(what="host cost of a stencil_apply call, 9x9x81 nodes", dtype=name, host_us=host_us)
+
+
+def symmetric(w):
+    """A (27, 3, 3, Z, Y, X) field made exactly block-symmetric in place,
+    W_d[n] = W_{26-d}[n + d]^T for the 13 lower offsets d (index < 13)
+    wherever n + d is inside the grid; the blocks toward the z ends
+    zeroed first, as an assembled field's are."""
+    w[:9, :, :, 0] = 0.0
+    w[18:, :, :, -1] = 0.0
+    offsets = [(dz, dy, dx) for dz in (-1, 0, 1) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
+    for d in range(13):
+        at = tuple(slice(max(0, -o), n - max(0, o)) for o, n in zip(offsets[d], w.shape[3:]))
+        nb = tuple(slice(max(0, o), n + min(0, o)) for o, n in zip(offsets[d], w.shape[3:]))
+        w[(d, slice(None), slice(None)) + at] = w[(26 - d, slice(None), slice(None)) + nb].transpose(0, 1)
+    return w
+
+
+def measure_var(root: Path) -> None:
+    """``--var``: times of K4/K5 and their slab forms of the checkout at
+    ``root``, one JSON object a line."""
+    sys.path.insert(0, str(root))
+    import numpy as np
+    import torch
+
+    import fea_tpu_torch as ftt
+    from fea_tpu_torch.ops import cuda_varstencil as vs
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_here", HERE / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    if Path(ftt.__file__).resolve().parents[1] != root:
+        raise SystemExit(f"imported {ftt.__file__}, not the package under {root}")
+    masked = hasattr(vs, "var_apply_masked")
+    rng = np.random.default_rng(20261030)
+
+    def emit(**row):
+        print(json.dumps(row), flush=True)
+
+    def both(fn):
+        return dict(card_ms=smoke.graph_ms(fn), host_pace_ms=smoke.event_ms(fn, runs=10))
+
+    from fea_tpu_torch.ops.curvilinear import coarsen_dims_partial
+    from fea_tpu_torch.parallel.curv import _geometry
+
+    grids = smoke.curv_level_grids()
+    axes = [coarsen_dims_partial(grids[0])[1], coarsen_dims_partial(grids[1])[1]]
+    zl = _geometry(grids[0][2] + 1, SHARDS, axes)[0]  # the slabs [18.1] times: 44 planes
+    for name, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        for dims in grids:
+            nx, ny, nz = dims
+            Z, Y, X = nz + 1, ny + 1, nx + 1
+            w = symmetric(torch.as_tensor(rng.normal(size=(27, 3, 3, Z, Y, X)), device="cuda")).to(dtype)
+            g = torch.as_tensor(rng.normal(size=(Z, Y, X, 3)), device="cuda").to(dtype)
+            F = torch.as_tensor(rng.random((Z, Y, X, 3)) < 0.8, device="cuda").to(dtype)
+            emit(what="whole", dtype=name, dims=dims, form="raw", **both(lambda: vs.var_apply(w, g)))
+            emit(what="whole", dtype=name, dims=dims, form="unfused masked",
+                 **both(lambda: F * vs.var_apply(w, F * g) + (1.0 - F) * g))
+            if masked:
+                emit(what="whole", dtype=name, dims=dims, form="masked",
+                     **both(lambda: vs.var_apply_masked(w, F, g)))
+            del w, g, F
+        nx, ny, nz = grids[0]
+        Z, Y, X = nz + 1, ny + 1, nx + 1
+        w = torch.zeros((27, 3, 3, SHARDS * zl, Y, X), dtype=dtype, device="cuda")
+        w[:, :, :, :Z] = symmetric(torch.as_tensor(rng.normal(size=(27, 3, 3, Z, Y, X)), device="cuda")).to(dtype)
+        full = torch.zeros((SHARDS * zl + 2, Y, X, 3), dtype=dtype, device="cuda")
+        full[1 : Z + 1] = torch.as_tensor(rng.normal(size=(Z, Y, X, 3)), device="cuda").to(dtype)
+        ws = [w[:, :, :, i * zl : (i + 1) * zl].contiguous() for i in range(SHARDS)]
+        ext = [full[i * zl : i * zl + zl + 2].clone() for i in range(SHARDS)]
+        fext = [torch.as_tensor(rng.random(tuple(e.shape)) < 0.8, device="cuda").to(dtype) for e in ext]
+        del w, full
+        emit(what=f"{SHARDS} slabs", dtype=name, dims=grids[0], form="raw",
+             **both(lambda: [vs.var_apply_slab(a, e) for a, e in zip(ws, ext)]))
+        emit(what=f"{SHARDS} slabs", dtype=name, dims=grids[0], form="unfused masked",
+             **both(lambda: [f[1:-1] * vs.var_apply_slab(a, f * e) + (1.0 - f[1:-1]) * e[1:-1]
+                             for a, e, f in zip(ws, ext, fext)]))
+        if masked:
+            emit(what=f"{SHARDS} slabs", dtype=name, dims=grids[0], form="masked",
+                 **both(lambda: [vs.var_apply_slab_masked(a, f, e) for a, e, f in zip(ws, ext, fext)]))
+        del ws, ext, fext
 
 
 def profiled(fn, emit, top: int = 14):
@@ -228,15 +319,20 @@ def main() -> None:
     if len(sys.argv) >= 3 and sys.argv[1] == "--measure-solves":
         measure_solves(Path(sys.argv[2]).resolve(), sys.argv[3] if len(sys.argv) > 3 else "")
         return
+    if len(sys.argv) >= 3 and sys.argv[1] == "--measure-var":
+        measure_var(Path(sys.argv[2]).resolve())
+        return
     solves = sys.argv[1:2] == ["--solves"]
-    args = sys.argv[2:] if solves else sys.argv[1:]
+    var = sys.argv[1:2] == ["--var"]
+    args = sys.argv[2:] if solves or var else sys.argv[1:]
     if not args:
         raise SystemExit(__doc__)
     for i, arg in enumerate(args):
         path, _, option = arg.partition(":")
         root = Path(path).resolve()
         print(f"== run {i + 1}: {root} {option}", flush=True)
-        cmd = [sys.executable, str(HERE / "chip_pair.py"), "--measure-solves" if solves else "--measure", str(root)]
+        mode = "--measure-solves" if solves else "--measure-var" if var else "--measure"
+        cmd = [sys.executable, str(HERE / "chip_pair.py"), mode, str(root)]
         proc = subprocess.run(cmd + ([option] if option else []), cwd=root, text=True, stdout=subprocess.PIPE,
                               timeout=900)
         if proc.returncode != 0:

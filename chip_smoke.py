@@ -11,7 +11,7 @@ Phases, in order:
      (fea_tpu_torch/csrc/varstencil.cu) and K6/K7
      (fea_tpu_torch/csrc/element_apply.cu) for sm_90a, one nvcc each, in
      parallel; what ptxas says of the registers and spills of each kernel of
-     stencil.cu and element_apply.cu;
+     stencil.cu, element_apply.cu and varstencil.cu;
   3. K1/K2 against their plain version on the card, at small shapes, at
      shapes that straddle the kernel's band, warp and chunk edges, at rows
      wider than a block (cut into segments), at every
@@ -40,14 +40,22 @@ Phases, in order:
      (zero rhs, exact ``max_iters``, a second solve replaying the same
      graph bit for bit the first);
   5. K4/K5 against their plain version on the card, as in phase 3, with
-     random weights and input at small shapes and at every level grid of
-     the 811,923-DOF curvilinear hierarchy: K4 within 2e-5, K5 within
-     1e-12; times, library call and bound at the fine grid;
+     symmetrized random weights (``symmetrize_field``: the kernels read 14
+     of the 27 blocks and mirror the rest) and random input at small shapes
+     and at every level grid of the 811,923-DOF curvilinear hierarchy, and
+     on that hierarchy's real fields (each first held to be its own mirror
+     exactly): K4 within 2e-5, K5 within 1e-12, raw and masked
+     (``var_apply_masked`` within the same of F K(F g) + (1 - F) g, and value
+     for value that expression around the raw kernel); at the fine grid the
+     card's time (graph replays) and the host's pace, raw and masked, the
+     plain version, a CSR SpMV, and the 27- and 14-block bounds;
   6. curvilinear slice: the distorted 40x40x160 cantilever of
      tools/curv_bench.py (811,923 DOF) through ``fea_tpu_torch.solve``,
      checked on the host by an element-by-element K u in NumPy f64 that
      shares no code with the package, the tip deflection, and the launch
-     counters (K4/K5 launched, K1/K2 not); before it, the routing
+     counters (K4/K5 launched, K1/K2 not), the iterations within 1 of 48,
+     every weight field the solve handed to K4/K5 its own mirror exactly
+     (``FieldSpy``; so in [7], [14] and [18.5]); before it, the routing
      detectors and the first torch.linalg call timed apart; after it, the
      stage times, the level grids, the peak memory, ``loop_vs_staged`` as
      in [4], the device memory the build cache keeps for the mesh once the
@@ -148,18 +156,22 @@ Phases, in order:
  18. sharded modes: every decomposition of ``fea_tpu_torch.parallel`` over
      four shards of the one card (``make_device_mesh(4)`` repeats it):
      K4-slab and K5-slab on the four slabs of the 811,923-DOF field and of
-     its level 1 against their plain version (f64) and, value for value,
-     the unsharded K4/K5, timed beside them, the plain version, cuSPARSE
-     CSR of the shards' rows and the bound; ``shard_operator`` on [9]'s
+     its level 1 (symmetrized random fields, zero toward the planes past
+     the z ends as assembled) against their plain version (f64) and, value
+     for value, the unsharded K4/K5, raw and masked, timed beside them, the
+     plain version, cuSPARSE CSR of the shards' rows and both bounds;
+     ``shard_operator`` on [9]'s
      box (K7 f64) and its distorted twin's stored operator (K6 f64),
      ``sharded_sweep`` of four scaled tip loads on the box,
      ``shard_structured_operator`` on the flagship with the unsharded
      V-cycle beside it, ``shard_curvilinear`` on [6]'s cantilever (with the
-     memory a shard keeps), ``shard_extruded`` on [17]'s tube through
+     memory a shard keeps, and its FCG stage's device time and busy
+     share), ``shard_extruded`` on [17]'s tube through
      ``solve_extruded``: each solve host-checked by ``host_ku``, its
      iterations and displacements held against the unsharded solve, its
      wall beside the unsharded Python loop's; then
-     ``python -m fea_tpu_torch.dryrun 4``, all seven modes;
+     ``python -m fea_tpu_torch.dryrun 4``, all seven modes; and the four
+     K4/K5 rows side by side (``var_summary``);
  19. the rest of the reference: ``solve_operator_refined`` (the f64
      refinement loop around an f32 Jacobi PCG) on the 16x16x160 voxel
      cantilever (139,587 DOF; K2 outside, K1 inside), on [9]'s box (K7 f64 /
@@ -219,6 +231,9 @@ VAR_SMALL = [(1, 1, 1), (3, 4, 6)]
 TIP_BAND = (0.70, 1.30)  # bench.py's band for the FEM / beam-theory tip ratio
 MAX_ITERS = 16
 CURV_MAX_ITERS = 80
+# the port's iteration counts on [6], [7] and [14]'s scenes (PERF.md section 5, PR 6-10 runs); the symmetric
+# K4/K5 leave them as they were
+CURV_ITERS, CANON_ITERS, EMBED_ITERS = 48, 48, 59
 CANON_TOL = 2e-8
 # tests/test_pallas.py's E, and E around K7's tile of 128 elements at every kind of k
 APPLY_SMALL = ([(E, k) for E in (1, 700, 1030) for k in (4, 6, 24)]
@@ -354,7 +369,7 @@ def graph_ms(fn, calls: int = 20, runs: int = 10) -> float:
     return statistics.median(times)
 
 
-PTXAS_SOURCES = ("stencil.cu", "element_apply.cu")  # the redesigned sources
+PTXAS_SOURCES = ("stencil.cu", "element_apply.cu", "varstencil.cu")  # the redesigned sources
 
 
 def ptxas_log(nvcc, name: str) -> str:
@@ -376,13 +391,16 @@ def ptxas_report(logs: dict) -> None:
         for i, line in enumerate(lines):
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
-                parts = re.search(r"\d+((?:stencil27|uniform_tile|uniform|stored)_kernel)I([df])(?:Li(\d+)E)?"
-                                  r"(?:Lb([01])E)?(?:Lb([01])E)?", m.group(1))
+                parts = re.search(r"\d+((?:stencil27|uniform_tile|uniform|stored|var27_sym)_kernel)I([df])"
+                                  r"(?:Li(\d+)E)?(?:Lb([01])E)?(?:Lb([01])E)?", m.group(1))
+                var = parts is not None and parts.group(1) == "var27_sym_kernel"
                 kernel = m.group(1)[-40:] if not parts else (
                     f"{parts.group(1)}<{'double' if parts.group(2) == 'd' else 'float'}"
                     + (f", {parts.group(3)}" if parts.group(3) else "")
-                    + ("" if parts.group(4) is None else ", masked" if parts.group(4) == "1" else ", raw")
-                    + (", segments" if parts.group(5) == "1" else "") + ">")
+                    + (("" if parts.group(4) is None else ", slab" if parts.group(4) == "1" else ", whole")
+                       + (", masked" if parts.group(5) == "1" else ", raw") if var else
+                       ("" if parts.group(4) is None else ", masked" if parts.group(4) == "1" else ", raw")
+                       + (", segments" if parts.group(5) == "1" else "")) + ">")
                 info = " ".join(lines[i + 1 : i + 4])
                 regs = re.search(r"Used (\d+) registers", info)
                 spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
@@ -402,6 +420,91 @@ def bound(dtype: torch.dtype, nbytes: int, flops: int) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def var_bytes(Z: int, Y: int, X: int, esize: int, masked: bool = False) -> tuple[int, int]:
+    """Bytes of one K4/K5 apply on a (Z, Y, X) grid, (27-block, 14-block):
+    the state in and out (and the mask) once, and the weights toward each
+    neighbour inside the grid, 9 values for each (node, offset) pair
+    (27-block, all stored blocks) or for each unordered pair of nodes and
+    each node's centre (14-block: on a block-symmetric field the other
+    blocks are their transposes)."""
+    terms, n = neighbour_terms(Z, Y, X), Z * Y * X
+    state = (3 if masked else 2) * 3 * n
+    return (9 * terms + state) * esize, (9 * (terms + n) // 2 + state) * esize
+
+
+def mirror_defect(w: torch.Tensor) -> float:
+    """max |W_d[n] - W_{26-d}[n + d]^T| of a (27, 3, 3, Z, Y, X) field over
+    the lower offsets d and the nodes whose neighbour n + d is inside the
+    grid: 0 for the exactly block-symmetric field K4/K5 take."""
+    from fea_tpu_torch.ops.curvilinear import _OFFSETS, _in_grid
+
+    Z, Y, X = w.shape[3:]
+    worst = 0.0
+    for d in range(13):
+        at, nb = zip(*(_in_grid(o, n) for o, n in zip(_OFFSETS[d], (Z, Y, X))))
+        lower = w[(d, slice(None), slice(None)) + at]
+        if lower.numel():
+            worst = max(worst, float((lower - w[(26 - d, slice(None), slice(None)) + nb].transpose(0, 1)).abs().max()))
+    return worst
+
+
+def symmetric_random(rng, Z: int, Y: int, X: int, zero_z_ends: bool = False) -> torch.Tensor:
+    """``symmetrize_field`` of a random f64 (27, 3, 3, Z, Y, X) field on the
+    card (the kernels' input contract); with ``zero_z_ends`` its blocks
+    toward the planes past the z ends are zero, as an assembled field's are
+    (the slab kernels read those)."""
+    from fea_tpu_torch.ops.curvilinear import symmetrize_field
+
+    w = torch.as_tensor(rng.standard_normal((27, 3, 3, Z, Y, X)), device=DEV)
+    if zero_z_ends:
+        w[:9, :, :, 0] = 0.0
+        w[18:, :, :, -1] = 0.0
+    return symmetrize_field(w)
+
+
+class FieldSpy:
+    """While active, records every weight field handed to K4/K5 (whole,
+    slab, raw or masked: ``cuda_varstencil._launch``); ``check`` then
+    requires each to equal its mirror exactly. Recording costs no device
+    work, so it runs inside graph captures too. It holds the fields it
+    records, up to HOLD_BYTES; past that it counts the fields it could not
+    hold (a dtype cast made afresh for each apply would be one), and
+    ``check`` names their number."""
+
+    HOLD_BYTES = 2e9
+
+    def __init__(self, cuda_varstencil):
+        self.mod, self.fields, self.unheld = cuda_varstencil, {}, 0
+
+    def __enter__(self):
+        self.orig = self.mod._launch
+
+        def launch(name, entry, weights, *args):
+            held = sum(w.numel() * w.element_size() for w in self.fields.values())
+            if weights.data_ptr() in self.fields:
+                pass
+            elif held + weights.numel() * weights.element_size() <= self.HOLD_BYTES:
+                self.fields[weights.data_ptr()] = weights
+            else:
+                self.unheld += 1
+            return self.orig(name, entry, weights, *args)
+
+        self.mod._launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._launch = self.orig
+
+    def check(self, what: str) -> None:
+        defects = [mirror_defect(w) for w in self.fields.values()]
+        shapes = sorted({(tuple(w.shape[3:]), str(w.dtype).replace("torch.", "")) for w in self.fields.values()})
+        say(f"  {what}: {len(defects)} weight fields handed to K4/K5 {shapes}, largest mirror defect "
+            f"{max(defects, default=float('nan'))}; {self.unheld} more launches on fields past what the check holds")
+        require({"every field handed to K4/K5 equals its mirror exactly": bool(defects) and max(defects) == 0.0},
+                f"{what} fields")
+        self.fields.clear()
 
 
 def stencil_csr(w: torch.Tensor) -> torch.Tensor:
@@ -609,47 +712,111 @@ def curv_level_grids() -> list[tuple[int, int, int]]:
     return grids
 
 
-def check_var_kernels(cuda_varstencil) -> dict:
+def var_cases(ftt, rng):
+    """(label, f64 field, f64 state, 0/1 mask) of phase [5]: symmetrized
+    random fields and states at VAR_SMALL and every level grid of the
+    CURV hierarchy (the fine one first), then the real fields of that
+    hierarchy (the f64 operator and every level, as built) with their free
+    masks."""
+    for dims in VAR_SMALL + curv_level_grids():
+        nx, ny, nz = dims
+        Z, Y, X = nz + 1, ny + 1, nx + 1
+        w = symmetric_random(rng, Z, Y, X)
+        g = torch.as_tensor(rng.standard_normal((Z, Y, X, 3)), device=DEV)
+        F = torch.as_tensor((rng.random((Z, Y, X, 3)) < 0.8).astype(np.float64), device=DEV)
+        yield f"random {dims}", w, g, F
+        del w, g, F
+    nodes, elements, _ = distorted_scene_arrays(ftt, CURV)
+    fixed, loads, _ = cantilever_bcs(ftt, nodes)
+    scene = ftt.make_scene(nodes, elements, fixed, loads, ftt.Material(E=10_000_000 * ftt.units.psi, nu=0.3),
+                           dtype=torch.float64)
+    op, mg = ftt.build_curvilinear(scene)
+    Z, Y, X = op.grid_shape
+    real = [(f"operator {CURV} f64", op.w, op.free.reshape(Z, Y, X, 3))]
+    real += [(f"level {i} {lv.dims} {str(lv.dtype).replace('torch.', '')}", lv.w, lv.free)
+             for i, lv in enumerate(mg.levels)]
+    del op, mg
+    for label, w, F in real:
+        if mirror_defect(w) != 0.0:
+            raise AssertionError(f"the real field {label} is not exactly block-symmetric")
+        g = torch.as_tensor(rng.standard_normal(tuple(F.shape)), device=DEV)
+        yield f"real {label}", w.double(), g, F.double()
+
+
+def check_var_kernels(ftt, cuda_varstencil) -> dict:
+    """Phase [5]: K4/K5, raw and masked, against their plain version in f64
+    on symmetrized random fields and on the real fields of the 811,923-DOF
+    hierarchy (``var_cases``): raw within 2e-5 / 1e-12 of max|K u|, masked
+    within that of the masked expression's max and value for value the
+    unfused expression around the raw kernel. At the fine grid: card ms
+    (graph replays) and host pace raw and masked, the plain version, a CSR
+    SpMV, the 27- and 14-block bounds and GB/s on the 14-block bytes."""
     from fea_tpu_torch.ops.curvilinear import curv_apply_grid
 
     rng = np.random.default_rng(20261017)
     report = {k: dict(max_abs_err=0.0, max_rel_err=0.0) for k in VAR_KEYS}
-    for dims in VAR_SMALL + curv_level_grids():
-        nx, ny, nz = dims
-        Z, Y, X = nz + 1, ny + 1, nx + 1
-        w64 = torch.as_tensor(rng.standard_normal((27, 3, 3, Z, Y, X)), device=DEV)
-        g64 = torch.as_tensor(rng.standard_normal((Z, Y, X, 3)), device=DEV)
+    for label, w64, g64, F64 in var_cases(ftt, rng):
+        Z, Y, X = w64.shape[3:]
         want = curv_apply_grid(w64, g64)
-        scale = float(want.abs().max())
+        want_m = F64 * curv_apply_grid(w64, F64 * g64) + (1.0 - F64) * g64
+        scale, scale_m = float(want.abs().max()), float(want_m.abs().max())
         for key in VAR_KEYS:
             spec = KERNELS[key]
             w = w64.to(spec["dtype"]).contiguous()
             g = g64.to(spec["dtype"]).contiguous()
+            F = F64.to(spec["dtype"]).contiguous()
             got = cuda_varstencil.var_apply(w, g)
+            got_m = cuda_varstencil.var_apply_masked(w, F, g)
+            same = bool(torch.equal(got_m, F * cuda_varstencil.var_apply(w, F * g) + (1.0 - F) * g))
             torch.cuda.synchronize()
             err = float((got.double() - want).abs().max())
-            rel = err / scale
-            say(f"  {spec['name']} {dims}: max abs err {err:.3e}, rel {rel:.3e} (tol {spec['tol']:g})")
-            if not rel <= spec["tol"]:
-                raise AssertionError(f"{spec['name']} at {dims}: rel err {rel:.3e} > {spec['tol']:g}")
+            rel, rel_m = err / scale, float((got_m.double() - want_m).abs().max()) / scale_m
+            say(f"  {spec['name']} {label}: max abs err {err:.3e}, rel {rel:.3e}; masked rel {rel_m:.3e} (tol "
+                f"{spec['tol']:g}), value for value the unfused expression: {same}")
+            require({f"{spec['name']} within {spec['tol']:g}": rel <= spec["tol"],
+                     f"{spec['name']} masked within {spec['tol']:g}": rel_m <= spec["tol"],
+                     f"{spec['name']} masked = F K(F g) + (1 - F) g value for value": same}, f"[5] {label}")
             report[key]["max_abs_err"] = max(report[key]["max_abs_err"], err)
-            report[key]["max_rel_err"] = max(report[key]["max_rel_err"], rel)
-            if dims == CURV:
-                ms = event_ms(lambda: cuda_varstencil.var_apply(w, g))
+            report[key]["max_rel_err"] = max(report[key]["max_rel_err"], rel, rel_m)
+            if label == f"random {CURV}":
+                ms = graph_ms(lambda: cuda_varstencil.var_apply(w, g))
+                host_ms = event_ms(lambda: cuda_varstencil.var_apply(w, g))
+                masked_ms = graph_ms(lambda: cuda_varstencil.var_apply_masked(w, F, g))
+                unfused_ms = graph_ms(lambda: F * cuda_varstencil.var_apply(w, F * g) + (1.0 - F) * g)
                 plain_ms = event_ms(lambda: curv_apply_grid(w, g))
                 lib_ms = library_ms(w, g, want)
-                # the kernel loads no weight toward a neighbour outside the
-                # grid: 9 values for each (node, offset) pair inside it
-                nbytes = (9 * neighbour_terms(Z, Y, X) + 2 * g.numel()) * g.element_size()
-                bound_ms, bound_by = bound(spec["dtype"], nbytes, 2 * 9 * neighbour_terms(Z, Y, X))
-                gbs = nbytes / (ms * 1e-3) / 1e9
-                say(f"  {spec['name']} {dims} ({3 * Z * Y * X} DOF): kernel {ms:.4f} ms "
-                    f"({gbs:.1f} GB/s), plain version {plain_ms:.4f} ms, CSR SpMV {lib_ms:.4f} ms, "
-                    f"bound {bound_ms:.4f} ms ({bound_by})")
-                report[key].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                                   bound_by=bound_by, gb_per_s=gbs)
-        del w64, g64, want, w, g, got
+                b27, b14 = var_bytes(Z, Y, X, g.element_size())
+                flops = 2 * 9 * neighbour_terms(Z, Y, X)
+                bound27, _ = bound(spec["dtype"], b27, flops)
+                bound_ms, bound_by = bound(spec["dtype"], b14, flops)
+                bound_m, _ = bound(spec["dtype"], var_bytes(Z, Y, X, g.element_size(), masked=True)[1], flops)
+                gbs = b14 / (ms * 1e-3) / 1e9
+                say(f"  {spec['name']} {CURV} ({3 * Z * Y * X} DOF): card {ms:.4f} ms ({gbs:.1f} GB/s on the "
+                    f"14-block bytes, {bound_ms / ms * 100:.0f}% of the 14-block bound), "
+                    f"host pace {host_ms:.4f} ms; masked card {masked_ms:.4f} ms (the unfused expression "
+                    f"{unfused_ms:.4f} ms); plain version {plain_ms:.4f} ms, CSR SpMV {lib_ms:.4f} ms; bound "
+                    f"{bound_ms:.4f} ms on 14 blocks ({bound_by}; masked {bound_m:.4f}), {bound27:.4f} ms on 27")
+                report[key].update(ms=ms, host_ms=host_ms, masked_ms=masked_ms, unfused_ms=unfused_ms,
+                                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                   bound_27_ms=bound27, bound_masked_ms=bound_m, gb_per_s=gbs)
+            del w, g, F, got, got_m
+        del want, want_m
     return report
+
+
+def var_summary(report: dict, launches: dict) -> None:
+    """K4, K5, K4-slab and K5-slab side by side at the 811,923-DOF grid
+    (the slab rows one apply over SHARDS slabs): card ms, host pace, the
+    masked form, CSR, both bounds, GB/s and share of the 14-block bound,
+    launches a solve ([6] for K4/K5, [18.5] for the slab forms)."""
+    say("  K4/K5 at the 811,923-DOF grid (card: graph replays; bounds at 3.35 TB/s; launches in one solve):")
+    for key in VAR_KEYS + VAR_SLAB_KEYS:
+        r = report[key]
+        lib = "not built" if r.get("library_ms") is None else f"{r['library_ms']:.4f}"
+        say(f"    {KERNELS[key]['name']}: card {r['ms']:.4f} ms, host pace {r['host_ms']:.4f} ms, masked "
+            f"{r['masked_ms']:.4f} ms, CSR {lib} ms, bound {r['bound_27_ms']:.4f} ms (27 blocks) / {r['bound_ms']:.4f} "
+            f"ms (14 blocks), {r['gb_per_s']:.1f} GB/s, {r['bound_ms'] / r['ms'] * 100:.0f}% of the 14-block bound, "
+            f"{launches[key]} launches a solve")
 
 
 def flagship_scene(ftt, dims=None):
@@ -1001,10 +1168,11 @@ def run_curvilinear(ftt, cuda_stencil, cuda_varstencil) -> dict:
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     zero_counts(cuda_stencil.LAUNCHES, cuda_varstencil.LAUNCHES)
-    t0 = time.perf_counter()
-    sol = ftt.solve(scene, tol=1e-8)
-    torch.cuda.synchronize()
-    whole_s = time.perf_counter() - t0
+    with FieldSpy(cuda_varstencil) as fields:
+        t0 = time.perf_counter()
+        sol = ftt.solve(scene, tol=1e-8)
+        torch.cuda.synchronize()
+        whole_s = time.perf_counter() - t0
     launches = {**cuda_stencil.LAUNCHES, **cuda_varstencil.LAUNCHES}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     st = sol.stats
@@ -1054,6 +1222,7 @@ def run_curvilinear(ftt, cuda_stencil, cuda_varstencil) -> dict:
     checks = {
         "converged": st.converged,
         f"iterations <= {CURV_MAX_ITERS}": st.iterations <= CURV_MAX_ITERS,
+        f"iterations within 1 of {CURV_ITERS}": abs(st.iterations - CURV_ITERS) <= 1,
         "host true residual <= 1e-8": rel_host <= 1e-8,
         "reactions = K u (1e-10)": reac_err <= 1e-10,
         f"tip ratio in {TIP_BAND}": TIP_BAND[0] < tip_ratio < TIP_BAND[1],
@@ -1062,6 +1231,7 @@ def run_curvilinear(ftt, cuda_stencil, cuda_varstencil) -> dict:
         "K1/K2 not launched": launches["f32"] == 0 and launches["f64"] == 0,
     }
     require(checks, "curvilinear")
+    fields.check("[6] the curvilinear solve")
     new_loads = np.zeros_like(loads)
     new_loads[tip, 0] = -2.0 / tip.sum()
     new_loads[tip, 2] = 0.5 / tip.sum()
@@ -1109,10 +1279,11 @@ def run_canonical(ftt, cuda_stencil, cuda_varstencil) -> None:
     say("  set-up before the solve: " + ", ".join(time_detectors(scene, renumbered=True)))
     zero_counts(cuda_stencil.LAUNCHES, cuda_varstencil.LAUNCHES)
     before = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    sol = ftt.solve(scene, tol=1e-8)
-    torch.cuda.synchronize()
-    whole_s = time.perf_counter() - t0
+    with FieldSpy(cuda_varstencil) as fields:
+        t0 = time.perf_counter()
+        sol = ftt.solve(scene, tol=1e-8)
+        torch.cuda.synchronize()
+        whole_s = time.perf_counter() - t0
     launches = {**cuda_stencil.LAUNCHES, **cuda_varstencil.LAUNCHES}
     st = sol.stats
     say(f"  whole solve (fea_tpu_torch.solve, canonicalization included): {whole_s:.3f} s; "
@@ -1158,11 +1329,13 @@ def run_canonical(ftt, cuda_stencil, cuda_varstencil) -> None:
     say(f"  host f64 true relative residual of the original system {rel_host:.3e}")
     checks = {
         "converged": st.converged,
+        f"iterations within 1 of {CANON_ITERS}": abs(st.iterations - CANON_ITERS) <= 1,
         f"host true residual <= {CANON_TOL:g}": rel_host <= CANON_TOL,
         "K4 launched": launches["var_f32"] > 0,
         "K5 launched": launches["var_f64"] > 0,
     }
     require(checks, "canonicalized")
+    fields.check("[7] the canonicalized solve")
     new_loads_r = np.zeros_like(loads_r)
     tip_r = np.isclose(nodes_r[:, 2], 1.0)
     new_loads_r[tip_r, 0] = 1.5 / tip_r.sum()
@@ -1950,6 +2123,8 @@ def check_embedded_field(cuda_varstencil, op) -> dict:
     scale = float(want.abs().max())
     void = (w64.abs().sum(dim=(0, 1, 2)) == 0)  # nodes no cell of the mesh touches
     nnz_blocks = int((w64.abs().sum(dim=(1, 2)) != 0).sum())
+    # a block-symmetric field's least blocks: each nonzero pair once, and the centres
+    least_blocks = (nnz_blocks + int((w64[13].abs().sum(dim=(0, 1)) != 0).sum())) // 2
     report = {}
     for key in VAR_KEYS:
         spec = KERNELS[key]
@@ -1965,15 +2140,18 @@ def check_embedded_field(cuda_varstencil, op) -> dict:
         plain_ms = event_ms(lambda: curv_apply_grid(w, g))
         lib_ms = library_ms(w, g, want)
         nbytes = (9 * nnz_blocks + 2 * g.numel()) * g.element_size()
-        bound_ms, bound_by = bound(spec["dtype"], nbytes, 2 * 9 * nnz_blocks)
+        bound27, _ = bound(spec["dtype"], nbytes, 2 * 9 * nnz_blocks)
+        bound_ms, bound_by = bound(spec["dtype"], (9 * least_blocks + 2 * g.numel()) * g.element_size(),
+                                   2 * 9 * nnz_blocks)
         say(f"  {spec['name']} on the void-masked {(X - 1, Y - 1, Z - 1)} field ({int(void.sum())} void nodes of "
             f"{Z * Y * X}, {nnz_blocks} nonzero blocks of {27 * Z * Y * X}): max abs err {err:.3e}, rel {rel:.3e} "
             f"(tol {spec['tol']:g}), void rows exactly 0: {void_zero}; card {ms:.4f} ms, host pace {host_ms:.4f} ms, "
-            f"plain version {plain_ms:.4f} ms, CSR SpMV {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            f"plain version {plain_ms:.4f} ms, CSR SpMV {lib_ms:.4f} ms, bound {bound_ms:.4f} ms on the nonzero blocks "
+            f"a symmetric field stores once ({bound_by}), {bound27:.4f} ms on every nonzero block")
         require({f"{spec['name']} within {spec['tol']:g}": rel <= spec["tol"], "void rows exactly 0": void_zero},
                 "K4/K5 on the void-masked field")
         report[key] = dict(max_abs_err=err, ms=ms, host_ms=host_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                           bound_ms=bound_ms, bound_by=bound_by)
+                           bound_ms=bound_ms, bound_by=bound_by, bound_27_ms=bound27)
         del w, g, got
     return report
 
@@ -1997,7 +2175,8 @@ def run_embedded(ftt, counters) -> dict:
     with patched({(solve_mod, "_solve_unstructured_amg"): must_not_run("AMG"),
                   (solve_mod, "solve_subgrid_embedded"): spy(taken, "embedded", solve_mod.solve_subgrid_embedded)}):
         zero_counts(staged.COUNTS)
-        sol, launches, whole_s = counted(counters, lambda: ftt.solve(scene, tol=1e-8))
+        with FieldSpy(cuda_varstencil) as fields:
+            sol, launches, whole_s = counted(counters, lambda: ftt.solve(scene, tol=1e-8))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     st = sol.stats
     say(f"  whole solve (fea_tpu_torch.solve, detection and build included): {whole_s:.3f} s, peak device memory "
@@ -2012,12 +2191,14 @@ def run_embedded(ftt, counters) -> dict:
     require({
         "the embedded route ran": taken == ["embedded"],
         "converged": st.converged,
+        f"iterations within 1 of {EMBED_ITERS}": abs(st.iterations - EMBED_ITERS) <= 1,
         "host true residual <= 1e-8": rel_host <= 1e-8,
         "reactions = K u (1e-10)": reac_err <= 1e-10,
         "K4 launched": launches["var_f32"] > 0,
         "K5 launched": launches["var_f64"] > 0,
         "K1/K2 not launched": launches["f32"] == 0 and launches["f64"] == 0,
     }, "embedded")
+    fields.check("[14] the embedded solve")
 
     # the set-up by stage, on the same scene afresh
     det, t_detect = timed(lambda: infer_subgrid_embedding(scene))
@@ -2559,11 +2740,15 @@ def slab_csr(w: torch.Tensor) -> torch.Tensor:
 def check_var_slab_kernels(cuda_varstencil) -> dict:
     """[18.1]: K4-slab and K5-slab on the SHARDS slabs of the curvilinear
     fine grid and of its level 1, as ``shard_curvilinear`` cuts them, with
-    random weights and state from a NumPy seed: within 2e-5 / 1e-12 of the
-    plain slab version run in f64, value for value the unsharded K4/K5 on
-    the real planes, padding planes 0; at the fine grid the times of one
-    apply over the four shards beside the unsharded kernel, the plain
-    version, cuSPARSE CSR of the shards' rows and the bound."""
+    symmetrized random weights (zero toward the planes past the z ends, as
+    assembled) and random state from a NumPy seed: within 2e-5 / 1e-12 of
+    the plain slab version run in f64, value for value the unsharded K4/K5
+    on the real planes, padding planes 0; the masked slab form within the
+    same of its plain version and value for value the unfused expression
+    around the raw slab kernel; at the fine grid the times of one apply over
+    the four shards (raw and masked) beside the unsharded kernel, the plain
+    version, cuSPARSE CSR of the shards' rows and the 27- and 14-block
+    bounds."""
     from fea_tpu_torch.ops.curvilinear import coarsen_dims_partial, curv_apply_slab_grid
     from fea_tpu_torch.parallel.curv import _geometry
 
@@ -2580,51 +2765,76 @@ def check_var_slab_kernels(cuda_varstencil) -> dict:
         nx, ny, nz = dims
         Z, Y, X = nz + 1, ny + 1, nx + 1
         w64 = torch.zeros((27, 3, 3, SHARDS * zl, Y, X), dtype=torch.float64, device=DEV)
-        w64[:, :, :, :Z] = torch.as_tensor(rng.standard_normal((27, 3, 3, Z, Y, X)), device=DEV)
+        w64[:, :, :, :Z] = symmetric_random(rng, Z, Y, X, zero_z_ends=True)
         g64 = torch.zeros((SHARDS * zl + 2, Y, X, 3), dtype=torch.float64, device=DEV)
         g64[1 : Z + 1] = torch.as_tensor(rng.standard_normal((Z, Y, X, 3)), device=DEV)
+        f64 = torch.as_tensor((rng.random(tuple(g64.shape)) < 0.8).astype(np.float64), device=DEV)
         w_sh = [w64[:, :, :, i * zl : (i + 1) * zl].contiguous() for i in range(SHARDS)]
         ext64 = [g64[i * zl : i * zl + zl + 2].clone() for i in range(SHARDS)]
+        fext64 = [f64[i * zl : i * zl + zl + 2].clone() for i in range(SHARDS)]
         want = [curv_apply_slab_grid(w, e) for w, e in zip(w_sh, ext64)]
+        want_m = [f[1:-1] * curv_apply_slab_grid(w, f * e) + (1.0 - f[1:-1]) * e[1:-1]
+                  for w, e, f in zip(w_sh, ext64, fext64)]
         scale = max(float(x.abs().max()) for x in want)
+        scale_m = max(float(x.abs().max()) for x in want_m)
         for key in VAR_SLAB_KEYS:
             spec = KERNELS[key]
             dt = spec["dtype"]
             ws, ext = [w.to(dt) for w in w_sh], [e.to(dt) for e in ext64]
+            fext = [f.to(dt) for f in fext64]
 
             def shards():
                 return [cuda_varstencil.var_apply_slab(w, e) for w, e in zip(ws, ext)]
 
+            def shards_masked():
+                return [cuda_varstencil.var_apply_slab_masked(w, f, e) for w, f, e in zip(ws, fext, ext)]
+
             got = shards()
+            got_m = shards_masked()
+            unfused = [f[1:-1] * cuda_varstencil.var_apply_slab(w, f * e) + (1.0 - f[1:-1]) * e[1:-1]
+                       for w, f, e in zip(ws, fext, ext)]
             whole_w = w64[:, :, :, :Z].to(dt).contiguous()
             whole_g = g64[1 : Z + 1].to(dt).contiguous()
             whole = cuda_varstencil.var_apply(whole_w, whole_g)
             torch.cuda.synchronize()
             err = max(float((a.double() - b).abs().max()) for a, b in zip(got, want))
             rel = err / scale
+            rel_m = max(float((a.double() - b).abs().max()) for a, b in zip(got_m, want_m)) / scale_m
+            same_m = all(bool(torch.equal(a, b)) for a, b in zip(got_m, unfused))
             cat = torch.cat(got)
             same = bool(torch.equal(cat[:Z], whole))
             pad_zero = int(torch.count_nonzero(cat[Z:])) == 0
             say(f"  {spec['name']} {dims} in {SHARDS} shards of {zl} planes ({SHARDS * zl - Z} padded): max abs err "
                 f"{err:.3e}, rel {rel:.3e} (tol {spec['tol']:g}); value for value the unsharded "
-                f"{spec['name'].split('-')[0]} on the {Z} real planes: {same}; padding 0: {pad_zero}")
+                f"{spec['name'].split('-')[0]} on the {Z} real planes: {same}; padding 0: {pad_zero}; masked rel "
+                f"{rel_m:.3e}, value for value the unfused expression: {same_m}")
             require({f"{spec['name']} within {spec['tol']:g}": rel <= spec["tol"],
                      f"{spec['name']} value for value the unsharded kernel": same,
-                     f"{spec['name']} padding planes 0": pad_zero}, f"{spec['name']} at {dims}")
+                     f"{spec['name']} padding planes 0": pad_zero,
+                     f"{spec['name']} masked within {spec['tol']:g}": rel_m <= spec["tol"],
+                     f"{spec['name']} masked = the unfused expression value for value": same_m},
+                    f"{spec['name']} at {dims}")
             report[key]["max_abs_err"] = max(report[key]["max_abs_err"], err)
-            report[key]["max_rel_err"] = max(report[key]["max_rel_err"], rel)
+            report[key]["max_rel_err"] = max(report[key]["max_rel_err"], rel, rel_m)
             if dims != fine:
                 continue
-            ms, dev_ms = event_ms(shards), graph_ms(shards)
+            host_ms, dev_ms = event_ms(shards), graph_ms(shards)
+            masked_ms = graph_ms(shards_masked)
             whole_ms = event_ms(lambda: cuda_varstencil.var_apply(whole_w, whole_g))
             whole_dev_ms = graph_ms(lambda: cuda_varstencil.var_apply(whole_w, whole_g))
             plain_ms = event_ms(lambda: [curv_apply_slab_grid(w, e) for w, e in zip(ws, ext)], runs=5, reps=2)
             # each (node, offset) pair of a slab has its neighbour in the
-            # halo-extended slab along z; along y and x, inside the grid
-            terms = SHARDS * 3 * zl * (3 * Y - 2) * (3 * X - 2)
+            # halo-extended slab along z; along y and x, inside the grid.
+            # 14-block: the unordered pairs inside a slab and the centres,
+            # and each pair across its two faces (stored on this slab alone)
+            cross = (3 * Y - 2) * (3 * X - 2)
+            terms = SHARDS * 3 * zl * cross
+            least = SHARDS * (((3 * zl - 2) * cross + zl * Y * X) // 2 + 2 * cross)
             esize = whole_g.element_size()
-            nbytes = (9 * terms + sum(e.numel() for e in ext) + SHARDS * zl * Y * X * 3) * esize
-            bound_ms, bound_by = bound(dt, nbytes, 2 * 9 * terms)
+            state = sum(e.numel() for e in ext) + SHARDS * zl * Y * X * 3
+            nbytes, nbytes14 = (9 * terms + state) * esize, (9 * least + state) * esize
+            bound27, _ = bound(dt, nbytes, 2 * 9 * terms)
+            bound_ms, bound_by = bound(dt, nbytes14, 2 * 9 * terms)
             fits, why = csr_fits(SHARDS * zl * Y * X, dt)
             lib_ms = None
             if fits:
@@ -2634,16 +2844,19 @@ def check_var_slab_kernels(cuda_varstencil) -> dict:
                 require({"CSR SpMV agrees with the plain version (1e-5)": lib_rel <= 1e-5}, "slab CSR")
                 lib_ms = event_ms(lambda: [torch.mv(A, e.reshape(-1)) for A, e in zip(csrs, ext)])
                 del csrs, lib
-            say(f"  {spec['name']} {dims} ({3 * Z * Y * X} DOF) over {SHARDS} shards: {ms:.4f} ms at the host's pace "
-                f"({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s), {dev_ms:.4f} ms on the card (graph replay); unsharded "
+            gbs = nbytes14 / (dev_ms * 1e-3) / 1e9
+            say(f"  {spec['name']} {dims} ({3 * Z * Y * X} DOF) over {SHARDS} shards: {dev_ms:.4f} ms on the card "
+                f"(graph replay; {gbs:.1f} GB/s on the 14-block bytes, {bound_ms / dev_ms * 100:.0f}% of the 14-block "
+                f"bound), {host_ms:.4f} ms at the host's pace; masked {masked_ms:.4f} ms on the card; unsharded "
                 f"{spec['name'].split('-')[0]} {whole_ms:.4f} / {whole_dev_ms:.4f} ms; plain version {plain_ms:.4f} "
                 f"ms; "
                 f"CSR SpMV of the shards' rows " + (f"{lib_ms:.4f} ms" if fits else f"not built ({why})")
-                + f"; bound {bound_ms:.4f} ms ({bound_by})")
-            report[key].update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                               bound_by=bound_by, whole_ms=whole_ms, whole_device_ms=whole_dev_ms, shards=SHARDS,
+                + f"; bound {bound_ms:.4f} ms on 14 blocks ({bound_by}), {bound27:.4f} ms on 27")
+            report[key].update(ms=dev_ms, host_ms=host_ms, masked_ms=masked_ms, plain_ms=plain_ms,
+                               library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by, bound_27_ms=bound27,
+                               gb_per_s=gbs, whole_ms=whole_ms, whole_device_ms=whole_dev_ms, shards=SHARDS,
                                shard_planes=zl)
-        del w64, g64, w_sh, ext64, want
+        del w64, g64, f64, w_sh, ext64, fext64, want, want_m
     return report
 
 
@@ -2770,8 +2983,15 @@ def run_sharded_modes(ftt, counters, flagship_ref: dict, curv_ref: dict, cuda_va
     del op, mg
     gc.collect()
     held = torch.cuda.memory_allocated() - base  # the shards and the replicated levels, the whole fields gone
-    sol, counts, wall = counted(counters, lambda: solve_operator_fpcg(
-        op_s, constrain(scene.loads), constrain(presc), mg_s, tol=1e-8))
+    with FieldSpy(cuda_varstencil) as fields:
+        sol, counts, wall = counted(counters, lambda: solve_operator_fpcg(
+            op_s, constrain(scene.loads), constrain(presc), mg_s, tol=1e-8))
+    fields.check("[18.5] the sharded curvilinear solve")
+    prof = profile_fcg(lambda: solve_operator_fpcg(op_s, constrain(scene.loads), constrain(presc), mg_s, tol=1e-8))
+    say(f"    FCG stage (the Python loop over the shards), profiled: device {prof['device_ms']:.2f} ms in "
+        f"{prof['n_device']} activities, busy share {prof['device_ms'] / 1e3 / wall:.3f} of the unprofiled wall "
+        f"{wall:.4f} s")
+    report["var_slab_f64"].update(sharded_fcg_device_ms=prof["device_ms"], sharded_fcg_wall_s=wall)
     st = sol.stats
     u = op_s.gather(sol.displacements).cpu().numpy()
     reac = op_s.gather(sol.reactions).cpu().numpy()
@@ -3228,7 +3448,7 @@ def main() -> None:
     launches, flagship_ref = run_slice(ftt, cuda_stencil, cuda_varstencil)
 
     phase("[5] K4/K5 vs plain version (f64) on the card")
-    report.update(check_var_kernels(cuda_varstencil))
+    report.update(check_var_kernels(ftt, cuda_varstencil))
 
     phase("[6] curvilinear slice: the 811,923-DOF distorted cantilever through fea_tpu_torch.solve")
     launches_curv, curv_ref = run_curvilinear(ftt, cuda_stencil, cuda_varstencil)
@@ -3281,6 +3501,7 @@ def main() -> None:
     report.update(slab_report)
     launches.update(slab_launches)
     del curv_ref
+    var_summary(report, launches)
 
     phase("[19] the rest: mixed-precision refinement (K1/K2, K7, K6), debug_nans, native, utils and the demos")
     for key, n in run_rest(ftt, counters, cuda_stencil, flagship_ref).items():

@@ -11,7 +11,12 @@ so K @ u needs no index arrays: :func:`curv_apply_grid` is the plain
 torch version, and :func:`fea_tpu_torch.ops.cuda_varstencil.var_apply`
 runs it as K4 (f32) or K5 (f64) on the card; on one z slab of a sharded
 grid, :func:`curv_apply_slab_grid` and ``var_apply_slab`` (K4-slab,
-K5-slab). The weight field of a level
+K5-slab). The stiffness is symmetric, so the field is block-symmetric,
+``W_{-d}[n + d] = W_d[n]^T``; every field made here leaves through
+:func:`symmetrize_field`, which makes that hold exactly (it holds to
+rounding before), and the kernels read 14 of the 27 blocks and mirror
+the rest (:func:`curv_apply_grid_sym` is the plain twin of that read
+pattern, for the tests). The weight field of a level
 is stored once, in the kernels' plane-major layout (27, 3, 3, Z, Y, X);
 :func:`grid_view` gives the (27, Z, Y, X, 3, 3) layout of the JAX package
 as a view of the same storage; host fields in that layout come in through
@@ -44,7 +49,7 @@ from ..dtypes import torch_dtype
 from ..elements.hex8 import batched_ke
 from ..materials import Material
 from ..scene import Scene
-from .cuda_varstencil import var_apply
+from .cuda_varstencil import var_apply, var_apply_masked
 from .multigrid import _prolong, _restrict, chebyshev_smooth
 from .structured import _CORNERS, _expected_box_elements
 
@@ -56,12 +61,15 @@ __all__ = [
     "build_curv_operator",
     "coarsen_dims_partial",
     "curv_apply_grid",
+    "curv_apply_grid_sym",
     "curv_apply_slab_grid",
+    "curv_apply_slab_grid_sym",
     "curv_coarsenable",
     "grid_view",
     "infer_topo_dims",
     "rap_coeffs",
     "rap_dev",
+    "symmetrize_field",
 ]
 
 # The 27 neighbour offsets (dz, dy, dx), index (dz+1)*9 + (dy+1)*3 + (dx+1).
@@ -83,10 +91,34 @@ def grid_view(w: torch.Tensor) -> torch.Tensor:
 
 
 def _kernel_layout(w_grid: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
-    """A (27, Z, Y, X, 3, 3) host field as a contiguous (27, 3, 3, Z, Y, X)
-    tensor on ``device``."""
+    """A (27, Z, Y, X, 3, 3) host field as a contiguous, symmetrized
+    (27, 3, 3, Z, Y, X) tensor on ``device``."""
     w = np.ascontiguousarray(np.asarray(w_grid).transpose(0, 4, 5, 1, 2, 3))
-    return torch.as_tensor(w, device=device).to(dtype)
+    return symmetrize_field(torch.as_tensor(w, device=device).to(dtype))
+
+
+def _in_grid(o: int, n: int) -> tuple[slice, slice]:
+    """Along one axis of n nodes: the nodes whose neighbour at offset o is
+    inside the grid, and those neighbours."""
+    return slice(max(0, -o), n - max(0, o)), slice(max(0, o), n + min(0, o))
+
+
+def symmetrize_field(w: torch.Tensor) -> torch.Tensor:
+    """Make a (27, 3, 3, Z, Y, X) field exactly block-symmetric, in place,
+    and return it: for each of the 13 lower offsets d (index < 13),
+    ``W_d[n] = W_{26-d}[n + d]^T`` wherever n + d is inside the grid. The
+    14 upper blocks and the lower blocks toward a neighbour outside the
+    grid stay as they are.
+
+    An assembled stiffness and its Galerkin levels are symmetric up to the
+    rounding of their sums (~1e-16 of the field's largest value in f64);
+    this makes the mirror hold exactly, which K4/K5 rely on: they read only
+    the upper blocks and the transposes of those."""
+    Z, Y, X = w.shape[3:]
+    for d in range(_CENTRE):
+        at, nb = zip(*(_in_grid(o, n) for o, n in zip(_OFFSETS[d], (Z, Y, X))))
+        w[(d, slice(None), slice(None)) + at] = w[(26 - d, slice(None), slice(None)) + nb].transpose(0, 1)
+    return w
 
 
 def infer_topo_dims(scene: Scene) -> Optional[tuple[int, int, int]]:
@@ -121,16 +153,38 @@ def infer_topo_dims(scene: Scene) -> Optional[tuple[int, int, int]]:
 # -- apply ---------------------------------------------------------------------
 
 
-def _apply_padded(w: torch.Tensor, gp: torch.Tensor) -> torch.Tensor:
-    """27 shifted multiply-adds of w (27, 3, 3, Z, Y, X) over the state
-    gp (3, Z + 2, Y + 2, X + 2), which holds one plane, row and column
-    beyond the nodes on each side: -> (Z, Y, X, 3)."""
-    Z, Y, X = w.shape[3:]
+def _apply_padded(blocks, gp: torch.Tensor) -> torch.Tensor:
+    """27 shifted multiply-adds of the (3, 3, Z, Y, X) blocks of the 27
+    offsets, in offset order (a (27, 3, 3, Z, Y, X) field, or what
+    :func:`_upper_read` yields), over the state gp (3, Z + 2, Y + 2, X + 2),
+    which holds one plane, row and column beyond the nodes on each side:
+    -> (Z, Y, X, 3)."""
+    Z, Y, X = (n - 2 for n in gp.shape[1:])
     out = torch.zeros((3, Z, Y, X), dtype=gp.dtype, device=gp.device)
-    for d, (dz, dy, dx) in enumerate(_OFFSETS):
+    for (dz, dy, dx), wd in zip(_OFFSETS, blocks):
         xs = gp[:, 1 + dz : 1 + dz + Z, 1 + dy : 1 + dy + Y, 1 + dx : 1 + dx + X]
-        out += (w[d] * xs[None]).sum(dim=1)
+        out += (wd * xs[None]).sum(dim=1)
     return out.permute(1, 2, 3, 0).contiguous()
+
+
+def _upper_read(w: torch.Tensor, slab: bool):
+    """The 27 blocks of w (27, 3, 3, Z, Y, X) as K4/K5 read them: an
+    upper block (index >= 13) as stored, a lower block d at n as the
+    transpose of block 26 - d at n + d (zero toward a neighbour outside the
+    grid, which the state's padding meets anyway), and, for a slab, the
+    dz = -1 blocks of its first plane as stored (their mirrors lie on the
+    neighbouring shard)."""
+    Z, Y, X = w.shape[3:]
+    for d in range(27):
+        if d >= _CENTRE:
+            yield w[d]
+            continue
+        m = torch.zeros_like(w[d])
+        at, nb = zip(*(_in_grid(o, n) for o, n in zip(_OFFSETS[d], (Z, Y, X))))
+        m[(slice(None), slice(None)) + at] = w[(26 - d, slice(None), slice(None)) + nb].transpose(0, 1)
+        if slab and _OFFSETS[d][0] == -1:
+            m[:, :, 0] = w[d][:, :, 0]
+        yield m
 
 
 def curv_apply_grid(w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -150,6 +204,22 @@ def curv_apply_slab_grid(w: torch.Tensor, g_ext: torch.Tensor) -> torch.Tensor:
     The halo planes take the place of the zero padding along z: the same
     multiply-adds as :func:`curv_apply_grid` on the slab's planes."""
     return _apply_padded(w, F_nn.pad(g_ext.permute(3, 0, 1, 2), (1, 1, 1, 1)))
+
+
+def curv_apply_grid_sym(w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """:func:`curv_apply_grid` reading what K4/K5 read: the 14 upper blocks
+    and the transposes of those for the 13 lower offsets, summed in
+    :func:`curv_apply_grid`'s offset order (the kernels sum the same terms
+    in pairs). On a block-symmetric field it is, value for value,
+    :func:`curv_apply_grid`; a lower block does not reach it."""
+    return _apply_padded(_upper_read(w, slab=False), F_nn.pad(g.permute(3, 0, 1, 2), (1, 1, 1, 1, 1, 1)))
+
+
+def curv_apply_slab_grid_sym(w: torch.Tensor, g_ext: torch.Tensor) -> torch.Tensor:
+    """:func:`curv_apply_slab_grid` reading what K4-slab/K5-slab read: the
+    upper blocks, their transposes, and the slab's own dz = -1 blocks on its
+    first plane."""
+    return _apply_padded(_upper_read(w, slab=True), F_nn.pad(g_ext.permute(3, 0, 1, 2), (1, 1, 1, 1)))
 
 
 # -- assembly ------------------------------------------------------------------
@@ -177,7 +247,7 @@ def assemble_curv_weights(
     valid=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Weight field (27, 3, 3, Zn, Yn, Xn) in ``dtype`` on the nodes'
-    device, and the minimum detJ as a 0-d tensor.
+    device, symmetrized, and the minimum detJ as a 0-d tensor.
 
     ``nodes`` (N, 3) in box grid order. Whole z element layers of about
     ``chunk_elems`` elements at a time: corner coordinates by slicing the
@@ -212,7 +282,7 @@ def assemble_curv_weights(
         _scatter_blocks(wg, ke.reshape(czi, ny, nx, 8, 3, 8, 3), z0, dims)
         mdj = detj.min()
         min_detj = mdj if min_detj is None else torch.minimum(min_detj, mdj)
-    return w, min_detj
+    return symmetrize_field(w), min_detj
 
 
 # -- operator ------------------------------------------------------------------
@@ -266,8 +336,10 @@ class CurvilinearOperator:
         return var_apply(self.w, u.reshape(Z, Y, X, 3).contiguous()).reshape(-1, 3)
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
-        F = self.free.to(x.dtype)
-        return F * self.apply_raw(F * x) + (1.0 - F) * x
+        """The masked operator F K(F x) + (1 - F) x, one masked launch."""
+        Z, Y, X = self.grid_shape
+        F = self.free.to(x.dtype).reshape(Z, Y, X, 3)
+        return var_apply_masked(self.w, F, x.reshape(Z, Y, X, 3).contiguous()).reshape(-1, 3)
 
     def rhs(self, loads: torch.Tensor, prescribed: torch.Tensor) -> torch.Tensor:
         F = self.free.to(loads.dtype)
@@ -378,7 +450,8 @@ def _rap_slices(av, axes, cs) -> Optional[tuple[slice, slice, slice]]:
 def rap_dev(w: torch.Tensor, axes: tuple[int, ...]) -> torch.Tensor:
     """Galerkin RAP of a (27, 3, 3, Z, Y, X) block stencil -> the coarse
     (27, 3, 3, Zc, Yc, Xc) stencil, on the field's device: one
-    (27, 27) @ (27, 9 Nc) product per admissible prolongation offset."""
+    (27, 27) @ (27, 9 Nc) product per admissible prolongation offset,
+    symmetrized."""
     Cnp = rap_coeffs(axes)
     C = torch.as_tensor(Cnp, dtype=w.dtype, device=w.device)
     cs = _coarse_sizes(tuple(w.shape[3:]), axes)
@@ -389,7 +462,7 @@ def rap_dev(w: torch.Tensor, axes: tuple[int, ...]) -> torch.Tensor:
         if sl is None or not Cnp[:, ai, :].any():
             continue
         wc += C[:, ai, :] @ wp[(slice(None),) * 3 + sl].reshape(27, -1)
-    return wc.reshape(27, 3, 3, *cs)
+    return symmetrize_field(wc.reshape(27, 3, 3, *cs))
 
 
 def curv_coarsenable(dims: tuple[int, int, int], *, max_coarse_dof: int = _MAX_COARSE_DOF) -> bool:
@@ -471,8 +544,7 @@ class _CurvLevel:
         takes the residual in the preconditioner's dtype, whatever its
         own)."""
         w = self.w if self.w.dtype == g.dtype else self.w.to(g.dtype)
-        F = self.free.to(g.dtype)
-        return F * var_apply(w, (F * g).contiguous()) + (1.0 - F) * g
+        return var_apply_masked(w, self.free.to(g.dtype), g.contiguous())
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,7 +8,11 @@ it applies, as its own contiguous (27, 3, 3, Zl, Y, X) tensor on its
 device; padding planes past the grid carry zero weights and a zero free
 mask, so they are fixed and no term reaches a real node from them. Each
 apply exchanges one plane with each neighbour and runs the slab form of
-K4/K5 (``var_apply_slab``) on the halo-extended slab.
+K4/K5 (``var_apply_slab``; the masked operator ``var_apply_slab_masked``,
+with the mask between the neighbours' edge planes built once) on the
+halo-extended slab. The slabs are cut from symmetrized fields, so each
+keeps the mirror relation the kernels read by (on its first plane the
+kernel reads the slab's own lower blocks).
 
 The V-cycle follows ``ops/curvilinear.py::CurvMultigrid._vcycle`` level by
 level, with the same operations in the same order: the fine level and,
@@ -30,7 +34,7 @@ from typing import Callable, Sequence
 
 import torch
 
-from ..ops.cuda_varstencil import var_apply_slab
+from ..ops.cuda_varstencil import var_apply_slab, var_apply_slab_masked
 from ..ops.curvilinear import CurvilinearOperator, CurvMultigrid
 from ..ops.multigrid import _prolong, _restrict
 from .halo import (SHARDED_LEVELS, Shards, SlabVectors, _device, _gather, _halo_exchange,
@@ -61,6 +65,7 @@ class ShardedCurvilinearOperator(SlabVectors):
 
     w: list[torch.Tensor]  # each shard's (27, 3, 3, Zl, Y, X) weights, on its device
     free: Shards  # (Zl, Y, X, 3)
+    free_ext: Shards  # the mask between its neighbours' edge planes, built once: the mask is static
     z_real: int
     z_local: int
 
@@ -70,9 +75,11 @@ class ShardedCurvilinearOperator(SlabVectors):
                       for w, e in zip(self.w, _halo_exchange(xs)))
 
     def apply(self, xs: Shards) -> Shards:
-        """The masked operator F K(F x) + (1 - F) x, in the dtype of ``xs``."""
-        F = self.free.to(xs.dtype)
-        return F * self.apply_raw(F * xs) + (1.0 - F) * xs
+        """The masked operator F K(F x) + (1 - F) x, in the dtype of ``xs``:
+        one masked slab launch a shard."""
+        return Shards(var_apply_slab_masked(w if w.dtype == e.dtype else w.to(e.dtype),
+                                            f if f.dtype == e.dtype else f.to(e.dtype), e)
+                      for w, f, e in zip(self.w, self.free_ext, _halo_exchange(xs)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,14 +183,15 @@ def shard_curvilinear(op: CurvilinearOperator, mg: CurvMultigrid, devices: Seque
     axes = tuple(mg.coarsen_axes[:n_sh])
     zls = _geometry(Z, n, axes)
 
+    free = _scatter(op.free.reshape(Z, Y, X, 3), devices, zls[0])
     op_s = ShardedCurvilinearOperator(
-        w=_weight_slabs(op.w, devices, zls[0]), free=_scatter(op.free.reshape(Z, Y, X, 3), devices, zls[0]),
-        z_real=Z, z_local=zls[0],
+        w=_weight_slabs(op.w, devices, zls[0]), free=free, free_ext=_halo_exchange(free), z_real=Z, z_local=zls[0],
     )
     levels = []
     for lv, zl in zip(mg.levels[:n_sh], zls):
+        free = _scatter(lv.free, devices, zl)
         levels.append(_ShardLevel(
-            w=_weight_slabs(lv.w, devices, zl), free=_scatter(lv.free, devices, zl), z_real=lv.free.shape[0],
+            w=_weight_slabs(lv.w, devices, zl), free=free, free_ext=_halo_exchange(free), z_real=lv.free.shape[0],
             z_local=zl, inv_diag=_scatter(lv.inv_diag, devices, zl, pad=1.0), lam_max=lv.lam_max,
         ))
     dev0 = devices[0]

@@ -61,28 +61,42 @@ def test_kernels_match_plain_version_on_card(dims):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dims", [(1, 1, 1), (3, 4, 6), (8, 8, 32), (20, 20, 80)])
+@pytest.mark.parametrize("dims", [(1, 1, 1), (3, 4, 6), (8, 8, 32), (20, 20, 80),
+                                  (40, 40, 160), (300, 2, 3), (130, 3, 9)])
 def test_var_kernels_match_plain_version_on_card(dims):
-    """K4 (f32) and K5 (f64) against the plain version in f64, on random
-    weights and input."""
+    """K4 (f32) and K5 (f64), raw and masked, against the plain version in
+    f64, on symmetrized random weights (the kernels' input contract: they
+    read 14 of the 27 blocks and mirror the rest) and random input. The
+    last three shapes: the fine curvilinear grid, whose 1,681-node planes
+    are no multiple of the kernel's 128-node tile, and rows longer than a
+    tile. The masked launch is, value for value, F K(F g) + (1 - F) g
+    around the raw launch (exact for a 0/1 mask)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: K4 and K5 have no CPU mode")
     from fea_tpu_torch.ops import cuda_varstencil
-    from fea_tpu_torch.ops.curvilinear import curv_apply_grid
+    from fea_tpu_torch.ops.curvilinear import curv_apply_grid, symmetrize_field
 
     nx, ny, nz = dims
     rng = np.random.default_rng(8)
-    w64 = torch.as_tensor(rng.normal(size=(27, 3, 3, nz + 1, ny + 1, nx + 1)), device="cuda")
+    w64 = symmetrize_field(torch.as_tensor(rng.normal(size=(27, 3, 3, nz + 1, ny + 1, nx + 1)), device="cuda"))
     g64 = torch.as_tensor(rng.normal(size=(nz + 1, ny + 1, nx + 1, 3)), device="cuda")
+    F64 = torch.as_tensor((rng.random(tuple(g64.shape)) < 0.8).astype(np.float64), device="cuda")
     want = curv_apply_grid(w64, g64)
+    want_m = F64 * curv_apply_grid(w64, F64 * g64) + (1.0 - F64) * g64
     for dt, bound in ((torch.float32, 2e-5), (torch.float64, 1e-12)):
         key = "var_f32" if dt == torch.float32 else "var_f64"
+        w, g, F = w64.to(dt).contiguous(), g64.to(dt).contiguous(), F64.to(dt).contiguous()
         n0 = cuda_varstencil.LAUNCHES[key]
-        got = cuda_varstencil.var_apply(w64.to(dt).contiguous(), g64.to(dt).contiguous())
+        got = cuda_varstencil.var_apply(w, g)
         torch.cuda.synchronize()
         assert cuda_varstencil.LAUNCHES[key] == n0 + 1
         rel = float((got.double() - want).abs().max() / want.abs().max())
         assert rel < bound, (dims, key, rel)
+        got_m = cuda_varstencil.var_apply_masked(w, F, g)
+        torch.cuda.synchronize()
+        assert cuda_varstencil.LAUNCHES[key] == n0 + 2  # the masked form is one launch
+        assert float((got_m.double() - want_m).abs().max() / want_m.abs().max()) < bound, (dims, key, "masked")
+        assert torch.equal(got_m, F * cuda_varstencil.var_apply(w, F * g) + (1.0 - F) * g), (dims, key)
 
 
 @pytest.mark.cuda
@@ -94,20 +108,27 @@ def test_var_slab_kernels_match_plain_version_on_card(dims, n):
     f64; the shapes straddle the kernel's block of 256 nodes (planes of
     441 and 512 nodes, a row of 256) and the cuts leave padding planes,
     which come out 0. Each slab is, value for value, the unsharded K4/K5
-    on its planes: the z terms past the grid add exact zeros."""
+    on its planes: the z terms past the grid add exact zeros. The weights
+    are symmetrized random ones, zero toward the planes past the z ends as
+    an assembled field's are (the slab kernels read those). The masked slab
+    launch is, value for value, the masked expression around the raw one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: K4-slab and K5-slab have no CPU mode")
     from fea_tpu_torch.ops import cuda_varstencil
-    from fea_tpu_torch.ops.curvilinear import curv_apply_slab_grid
+    from fea_tpu_torch.ops.curvilinear import curv_apply_slab_grid, symmetrize_field
 
     nx, ny, nz = dims
     Z, Y, X = nz + 1, ny + 1, nx + 1
     zl = -(-Z // n)
     rng = np.random.default_rng(9)
+    w_real = torch.as_tensor(rng.normal(size=(27, 3, 3, Z, Y, X)), device="cuda")
+    w_real[:9, :, :, 0] = 0.0
+    w_real[18:, :, :, -1] = 0.0
     w64 = torch.zeros((27, 3, 3, n * zl, Y, X), dtype=torch.float64, device="cuda")
-    w64[:, :, :, :Z] = torch.as_tensor(rng.normal(size=(27, 3, 3, Z, Y, X)), device="cuda")
+    w64[:, :, :, :Z] = symmetrize_field(w_real)
     g64 = torch.zeros((n * zl + 2, Y, X, 3), dtype=torch.float64, device="cuda")
     g64[1 : Z + 1] = torch.as_tensor(rng.normal(size=(Z, Y, X, 3)), device="cuda")
+    f64 = torch.as_tensor((rng.random(tuple(g64.shape)) < 0.8).astype(np.float64), device="cuda")
     for dt, bound in ((torch.float32, 2e-5), (torch.float64, 1e-12)):
         key = "var_slab_f32" if dt == torch.float32 else "var_slab_f64"
         whole = cuda_varstencil.var_apply(w64[:, :, :, :Z].to(dt).contiguous(), g64[1 : Z + 1].to(dt).contiguous())
@@ -122,6 +143,15 @@ def test_var_slab_kernels_match_plain_version_on_card(dims, n):
             assert cuda_varstencil.LAUNCHES[key] == n0 + 1
             scale = float(want.abs().max()) or 1.0
             assert float((got[-1].double() - want).abs().max()) / scale < bound, (dims, n, i, key)
+            f = f64[i * zl : i * zl + zl + 2]
+            want_m = f[1:-1] * curv_apply_slab_grid(w, f * ext) + (1.0 - f[1:-1]) * ext[1:-1]
+            wd, fd, ed = w.to(dt).contiguous(), f.to(dt).contiguous(), ext.to(dt).contiguous()
+            got_m = cuda_varstencil.var_apply_slab_masked(wd, fd, ed)
+            torch.cuda.synchronize()
+            assert cuda_varstencil.LAUNCHES[key] == n0 + 2
+            assert float((got_m.double() - want_m).abs().max()) / (float(want_m.abs().max()) or 1.0) < bound
+            unfused = fd[1:-1] * cuda_varstencil.var_apply_slab(wd, fd * ed) + (1.0 - fd[1:-1]) * ed[1:-1]
+            assert torch.equal(got_m, unfused), (dims, n, i, key)
         got = torch.cat(got)
         assert torch.count_nonzero(got[Z:]) == 0
         assert torch.equal(got[:Z], whole), (dims, n, key)

@@ -566,10 +566,13 @@ def test_no_curv_shard_tensor_exceeds_its_slab(curv, monkeypatch):
     for lv, planes in zip(mg_s.levels, (zl, zl // 2)):
         assert all(t.shape[3] == planes for t in lv.w)
         assert all(t.shape[0] == planes for t in list(lv.free) + list(lv.inv_diag))
-    calls = []
+    calls, masked = [], []
     monkeypatch.setattr(pcurv, "var_apply_slab", _spy(calls, pcurv.var_apply_slab))
+    monkeypatch.setattr(pcurv, "var_apply_slab_masked", _spy(masked, pcurv.var_apply_slab_masked))
     zero = sc.prescribed_or_zero(torch.float64)
     assert solve_operator_fpcg(op_s, constrain(sc.loads), constrain(zero), mg_s, tol=TOL).stats.converged
+    calls += [(w, g) for w, f, g in masked]
+    assert masked and all(f.shape == g.shape for _, f, g in masked)
     assert calls and max(g.shape[0] for _, g in calls) <= zl + 2
     assert max(w.shape[3] for w, _ in calls) <= zl
 
