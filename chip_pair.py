@@ -129,7 +129,8 @@ def symmetric(w):
     """A (27, 3, 3, Z, Y, X) field made exactly block-symmetric in place,
     W_d[n] = W_{26-d}[n + d]^T for the 13 lower offsets d (index < 13)
     wherever n + d is inside the grid; the blocks toward the z ends
-    zeroed first, as an assembled field's are."""
+    zeroed first, as an assembled field's are. Written out here because
+    an older checkout has no ``symmetrize_field``."""
     w[:9, :, :, 0] = 0.0
     w[18:, :, :, -1] = 0.0
     offsets = [(dz, dy, dx) for dz in (-1, 0, 1) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
