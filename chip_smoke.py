@@ -231,7 +231,7 @@ VAR_SMALL = [(1, 1, 1), (3, 4, 6)]
 TIP_BAND = (0.70, 1.30)  # bench.py's band for the FEM / beam-theory tip ratio
 MAX_ITERS = 16
 CURV_MAX_ITERS = 80
-# the port's iteration counts on [6], [7] and [14]'s scenes (PERF.md section 5, PR 6-10 runs); the symmetric
+# the port's iteration counts on [6], [7] and [14]'s scenes (PERF.md section 5); the symmetric
 # K4/K5 leave them as they were
 CURV_ITERS, CANON_ITERS, EMBED_ITERS = 48, 48, 59
 CANON_TOL = 2e-8
