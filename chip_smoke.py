@@ -434,22 +434,6 @@ def var_bytes(Z: int, Y: int, X: int, esize: int, masked: bool = False) -> tuple
     return (9 * terms + state) * esize, (9 * (terms + n) // 2 + state) * esize
 
 
-def mirror_defect(w: torch.Tensor) -> float:
-    """max |W_d[n] - W_{26-d}[n + d]^T| of a (27, 3, 3, Z, Y, X) field over
-    the lower offsets d and the nodes whose neighbour n + d is inside the
-    grid: 0 for the exactly block-symmetric field K4/K5 take."""
-    from fea_tpu_torch.ops.curvilinear import _OFFSETS, _in_grid
-
-    Z, Y, X = w.shape[3:]
-    worst = 0.0
-    for d in range(13):
-        at, nb = zip(*(_in_grid(o, n) for o, n in zip(_OFFSETS[d], (Z, Y, X))))
-        lower = w[(d, slice(None), slice(None)) + at]
-        if lower.numel():
-            worst = max(worst, float((lower - w[(26 - d, slice(None), slice(None)) + nb].transpose(0, 1)).abs().max()))
-    return worst
-
-
 def symmetric_random(rng, Z: int, Y: int, X: int, zero_z_ends: bool = False) -> torch.Tensor:
     """``symmetrize_field`` of a random f64 (27, 3, 3, Z, Y, X) field on the
     card (the kernels' input contract); with ``zero_z_ends`` its blocks
@@ -469,9 +453,9 @@ class FieldSpy:
     slab, raw or masked: ``cuda_varstencil._launch``); ``check`` then
     requires each to equal its mirror exactly. Recording costs no device
     work, so it runs inside graph captures too. It holds the fields it
-    records, up to HOLD_BYTES; past that it counts the fields it could not
-    hold (a dtype cast made afresh for each apply would be one), and
-    ``check`` names their number."""
+    records, up to HOLD_BYTES; a launch on a field past that (a dtype cast
+    made afresh for each apply would be one) goes unchecked, so ``check``
+    fails if there was any."""
 
     HOLD_BYTES = 2e9
 
@@ -498,12 +482,14 @@ class FieldSpy:
         self.mod._launch = self.orig
 
     def check(self, what: str) -> None:
+        from fea_tpu_torch.ops.curvilinear import mirror_defect
+
         defects = [mirror_defect(w) for w in self.fields.values()]
         shapes = sorted({(tuple(w.shape[3:]), str(w.dtype).replace("torch.", "")) for w in self.fields.values()})
         say(f"  {what}: {len(defects)} weight fields handed to K4/K5 {shapes}, largest mirror defect "
             f"{max(defects, default=float('nan'))}; {self.unheld} more launches on fields past what the check holds")
-        require({"every field handed to K4/K5 equals its mirror exactly": bool(defects) and max(defects) == 0.0},
-                f"{what} fields")
+        require({"every field handed to K4/K5 equals its mirror exactly": bool(defects) and max(defects) == 0.0,
+                 "every field handed to K4/K5 was held and checked": self.unheld == 0}, f"{what} fields")
         self.fields.clear()
 
 
@@ -718,6 +704,8 @@ def var_cases(ftt, rng):
     CURV hierarchy (the fine one first), then the real fields of that
     hierarchy (the f64 operator and every level, as built) with their free
     masks."""
+    from fea_tpu_torch.ops.curvilinear import mirror_defect
+
     for dims in VAR_SMALL + curv_level_grids():
         nx, ny, nz = dims
         Z, Y, X = nz + 1, ny + 1, nx + 1
@@ -779,26 +767,30 @@ def check_var_kernels(ftt, cuda_varstencil) -> dict:
             report[key]["max_abs_err"] = max(report[key]["max_abs_err"], err)
             report[key]["max_rel_err"] = max(report[key]["max_rel_err"], rel, rel_m)
             if label == f"random {CURV}":
-                ms = graph_ms(lambda: cuda_varstencil.var_apply(w, g))
-                host_ms = event_ms(lambda: cuda_varstencil.var_apply(w, g))
-                masked_ms = graph_ms(lambda: cuda_varstencil.var_apply_masked(w, F, g))
-                unfused_ms = graph_ms(lambda: F * cuda_varstencil.var_apply(w, F * g) + (1.0 - F) * g)
+                # ms, bound_ms and gb_per_s keep the meaning they have on every
+                # row (host pace; all 27 blocks); the card's time and the
+                # 14-block bound of a block-symmetric field stand beside them
+                ms = event_ms(lambda: cuda_varstencil.var_apply(w, g))
+                dev_ms = graph_ms(lambda: cuda_varstencil.var_apply(w, g))
+                dev_masked_ms = graph_ms(lambda: cuda_varstencil.var_apply_masked(w, F, g))
+                dev_unfused_ms = graph_ms(lambda: F * cuda_varstencil.var_apply(w, F * g) + (1.0 - F) * g)
                 plain_ms = event_ms(lambda: curv_apply_grid(w, g))
                 lib_ms = library_ms(w, g, want)
                 b27, b14 = var_bytes(Z, Y, X, g.element_size())
                 flops = 2 * 9 * neighbour_terms(Z, Y, X)
-                bound27, _ = bound(spec["dtype"], b27, flops)
-                bound_ms, bound_by = bound(spec["dtype"], b14, flops)
-                bound_m, _ = bound(spec["dtype"], var_bytes(Z, Y, X, g.element_size(), masked=True)[1], flops)
-                gbs = b14 / (ms * 1e-3) / 1e9
-                say(f"  {spec['name']} {CURV} ({3 * Z * Y * X} DOF): card {ms:.4f} ms ({gbs:.1f} GB/s on the "
-                    f"14-block bytes, {bound_ms / ms * 100:.0f}% of the 14-block bound), "
-                    f"host pace {host_ms:.4f} ms; masked card {masked_ms:.4f} ms (the unfused expression "
-                    f"{unfused_ms:.4f} ms); plain version {plain_ms:.4f} ms, CSR SpMV {lib_ms:.4f} ms; bound "
-                    f"{bound_ms:.4f} ms on 14 blocks ({bound_by}; masked {bound_m:.4f}), {bound27:.4f} ms on 27")
-                report[key].update(ms=ms, host_ms=host_ms, masked_ms=masked_ms, unfused_ms=unfused_ms,
-                                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
-                                   bound_27_ms=bound27, bound_masked_ms=bound_m, gb_per_s=gbs)
+                bound_ms, bound_by = bound(spec["dtype"], b27, flops)
+                bound14, _ = bound(spec["dtype"], b14, flops)
+                bound14_m, _ = bound(spec["dtype"], var_bytes(Z, Y, X, g.element_size(), masked=True)[1], flops)
+                gbs, gbs14 = b27 / (ms * 1e-3) / 1e9, b14 / (dev_ms * 1e-3) / 1e9
+                say(f"  {spec['name']} {CURV} ({3 * Z * Y * X} DOF): host pace {ms:.4f} ms, card {dev_ms:.4f} ms "
+                    f"({gbs14:.1f} GB/s on the 14-block bytes, {bound14 / dev_ms * 100:.0f}% of the 14-block bound); "
+                    f"masked card {dev_masked_ms:.4f} ms (the unfused expression {dev_unfused_ms:.4f} ms); plain "
+                    f"version {plain_ms:.4f} ms, CSR SpMV {lib_ms:.4f} ms; bound {bound_ms:.4f} ms on 27 blocks "
+                    f"({bound_by}), {bound14:.4f} ms on 14 (masked {bound14_m:.4f})")
+                report[key].update(ms=ms, device_ms=dev_ms, masked_device_ms=dev_masked_ms,
+                                   unfused_device_ms=dev_unfused_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                   bound_ms=bound_ms, bound_by=bound_by, bound_14_ms=bound14,
+                                   masked_bound_14_ms=bound14_m, gb_per_s=gbs, gb_per_s_14=gbs14)
             del w, g, F, got, got_m
         del want, want_m
     return report
@@ -806,17 +798,17 @@ def check_var_kernels(ftt, cuda_varstencil) -> dict:
 
 def var_summary(report: dict, launches: dict) -> None:
     """K4, K5, K4-slab and K5-slab side by side at the 811,923-DOF grid
-    (the slab rows one apply over SHARDS slabs): card ms, host pace, the
+    (the slab rows one apply over SHARDS slabs): host pace, card ms, the
     masked form, CSR, both bounds, GB/s and share of the 14-block bound,
     launches a solve ([6] for K4/K5, [18.5] for the slab forms)."""
     say("  K4/K5 at the 811,923-DOF grid (card: graph replays; bounds at 3.35 TB/s; launches in one solve):")
     for key in VAR_KEYS + VAR_SLAB_KEYS:
         r = report[key]
         lib = "not built" if r.get("library_ms") is None else f"{r['library_ms']:.4f}"
-        say(f"    {KERNELS[key]['name']}: card {r['ms']:.4f} ms, host pace {r['host_ms']:.4f} ms, masked "
-            f"{r['masked_ms']:.4f} ms, CSR {lib} ms, bound {r['bound_27_ms']:.4f} ms (27 blocks) / {r['bound_ms']:.4f} "
-            f"ms (14 blocks), {r['gb_per_s']:.1f} GB/s, {r['bound_ms'] / r['ms'] * 100:.0f}% of the 14-block bound, "
-            f"{launches[key]} launches a solve")
+        say(f"    {KERNELS[key]['name']}: host pace {r['ms']:.4f} ms, card {r['device_ms']:.4f} ms, masked card "
+            f"{r['masked_device_ms']:.4f} ms, CSR {lib} ms, bound {r['bound_ms']:.4f} ms (27 blocks) / "
+            f"{r['bound_14_ms']:.4f} ms (14 blocks), {r['gb_per_s_14']:.1f} GB/s on the card, "
+            f"{r['bound_14_ms'] / r['device_ms'] * 100:.0f}% of the 14-block bound, {launches[key]} launches a solve")
 
 
 def flagship_scene(ftt, dims=None):
@@ -2140,18 +2132,17 @@ def check_embedded_field(cuda_varstencil, op) -> dict:
         plain_ms = event_ms(lambda: curv_apply_grid(w, g))
         lib_ms = library_ms(w, g, want)
         nbytes = (9 * nnz_blocks + 2 * g.numel()) * g.element_size()
-        bound27, _ = bound(spec["dtype"], nbytes, 2 * 9 * nnz_blocks)
-        bound_ms, bound_by = bound(spec["dtype"], (9 * least_blocks + 2 * g.numel()) * g.element_size(),
-                                   2 * 9 * nnz_blocks)
+        bound_ms, bound_by = bound(spec["dtype"], nbytes, 2 * 9 * nnz_blocks)
+        bound14, _ = bound(spec["dtype"], (9 * least_blocks + 2 * g.numel()) * g.element_size(), 2 * 9 * nnz_blocks)
         say(f"  {spec['name']} on the void-masked {(X - 1, Y - 1, Z - 1)} field ({int(void.sum())} void nodes of "
             f"{Z * Y * X}, {nnz_blocks} nonzero blocks of {27 * Z * Y * X}): max abs err {err:.3e}, rel {rel:.3e} "
             f"(tol {spec['tol']:g}), void rows exactly 0: {void_zero}; card {ms:.4f} ms, host pace {host_ms:.4f} ms, "
-            f"plain version {plain_ms:.4f} ms, CSR SpMV {lib_ms:.4f} ms, bound {bound_ms:.4f} ms on the nonzero blocks "
-            f"a symmetric field stores once ({bound_by}), {bound27:.4f} ms on every nonzero block")
+            f"plain version {plain_ms:.4f} ms, CSR SpMV {lib_ms:.4f} ms, bound {bound_ms:.4f} ms on every nonzero block "
+            f"({bound_by}), {bound14:.4f} ms on the nonzero blocks a symmetric field stores once")
         require({f"{spec['name']} within {spec['tol']:g}": rel <= spec["tol"], "void rows exactly 0": void_zero},
                 "K4/K5 on the void-masked field")
         report[key] = dict(max_abs_err=err, ms=ms, host_ms=host_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                           bound_ms=bound_ms, bound_by=bound_by, bound_27_ms=bound27)
+                           bound_ms=bound_ms, bound_by=bound_by, bound_14_ms=bound14)
         del w, g, got
     return report
 
@@ -2818,8 +2809,8 @@ def check_var_slab_kernels(cuda_varstencil) -> dict:
             report[key]["max_rel_err"] = max(report[key]["max_rel_err"], rel, rel_m)
             if dims != fine:
                 continue
-            host_ms, dev_ms = event_ms(shards), graph_ms(shards)
-            masked_ms = graph_ms(shards_masked)
+            ms, dev_ms = event_ms(shards), graph_ms(shards)
+            dev_masked_ms = graph_ms(shards_masked)
             whole_ms = event_ms(lambda: cuda_varstencil.var_apply(whole_w, whole_g))
             whole_dev_ms = graph_ms(lambda: cuda_varstencil.var_apply(whole_w, whole_g))
             plain_ms = event_ms(lambda: [curv_apply_slab_grid(w, e) for w, e in zip(ws, ext)], runs=5, reps=2)
@@ -2833,8 +2824,8 @@ def check_var_slab_kernels(cuda_varstencil) -> dict:
             esize = whole_g.element_size()
             state = sum(e.numel() for e in ext) + SHARDS * zl * Y * X * 3
             nbytes, nbytes14 = (9 * terms + state) * esize, (9 * least + state) * esize
-            bound27, _ = bound(dt, nbytes, 2 * 9 * terms)
-            bound_ms, bound_by = bound(dt, nbytes14, 2 * 9 * terms)
+            bound_ms, bound_by = bound(dt, nbytes, 2 * 9 * terms)
+            bound14, _ = bound(dt, nbytes14, 2 * 9 * terms)
             fits, why = csr_fits(SHARDS * zl * Y * X, dt)
             lib_ms = None
             if fits:
@@ -2844,17 +2835,17 @@ def check_var_slab_kernels(cuda_varstencil) -> dict:
                 require({"CSR SpMV agrees with the plain version (1e-5)": lib_rel <= 1e-5}, "slab CSR")
                 lib_ms = event_ms(lambda: [torch.mv(A, e.reshape(-1)) for A, e in zip(csrs, ext)])
                 del csrs, lib
-            gbs = nbytes14 / (dev_ms * 1e-3) / 1e9
-            say(f"  {spec['name']} {dims} ({3 * Z * Y * X} DOF) over {SHARDS} shards: {dev_ms:.4f} ms on the card "
-                f"(graph replay; {gbs:.1f} GB/s on the 14-block bytes, {bound_ms / dev_ms * 100:.0f}% of the 14-block "
-                f"bound), {host_ms:.4f} ms at the host's pace; masked {masked_ms:.4f} ms on the card; unsharded "
-                f"{spec['name'].split('-')[0]} {whole_ms:.4f} / {whole_dev_ms:.4f} ms; plain version {plain_ms:.4f} "
-                f"ms; "
+            gbs14 = nbytes14 / (dev_ms * 1e-3) / 1e9
+            say(f"  {spec['name']} {dims} ({3 * Z * Y * X} DOF) over {SHARDS} shards: {ms:.4f} ms at the host's pace "
+                f"({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s), {dev_ms:.4f} ms on the card (graph replay; {gbs14:.1f} GB/s "
+                f"on the 14-block bytes, {bound14 / dev_ms * 100:.0f}% of the 14-block bound); masked "
+                f"{dev_masked_ms:.4f} ms on the card; unsharded {spec['name'].split('-')[0]} {whole_ms:.4f} / "
+                f"{whole_dev_ms:.4f} ms; plain version {plain_ms:.4f} ms; "
                 f"CSR SpMV of the shards' rows " + (f"{lib_ms:.4f} ms" if fits else f"not built ({why})")
-                + f"; bound {bound_ms:.4f} ms on 14 blocks ({bound_by}), {bound27:.4f} ms on 27")
-            report[key].update(ms=dev_ms, host_ms=host_ms, masked_ms=masked_ms, plain_ms=plain_ms,
-                               library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by, bound_27_ms=bound27,
-                               gb_per_s=gbs, whole_ms=whole_ms, whole_device_ms=whole_dev_ms, shards=SHARDS,
+                + f"; bound {bound_ms:.4f} ms on 27 blocks ({bound_by}), {bound14:.4f} ms on 14")
+            report[key].update(ms=ms, device_ms=dev_ms, masked_device_ms=dev_masked_ms, plain_ms=plain_ms,
+                               library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by, bound_14_ms=bound14,
+                               gb_per_s_14=gbs14, whole_ms=whole_ms, whole_device_ms=whole_dev_ms, shards=SHARDS,
                                shard_planes=zl)
         del w64, g64, f64, w_sh, ext64, fext64, want, want_m
     return report

@@ -15,9 +15,14 @@ for f32, K5 / K5-slab for f64) or raises: nothing falls back to the plain
 version on the card.
 
 The kernels read 14 of the 27 weight blocks a node and take the other 13
-as their mirrors, so their input contract is an exactly block-symmetric
-field (``curvilinear.symmetrize_field``), which every producer of the
-port hands them. The kernels are built at first use by
+as their mirrors, so every wrapper's input contract is an exactly
+block-symmetric field, ``W_{26-d}[n + d] = W_d[n]^T`` wherever n + d is
+inside the grid (``curvilinear.symmetrize_field``). On another field the
+card computes a different product than the CPU's plain version, which
+reads all 27 blocks. The wrappers do not check it (a pass over the field
+at every apply); every producer of the port makes such fields, and
+``CurvilinearOperator`` and ``build_curv_multigrid`` refuse any other
+(``curvilinear.mirror_defect``). The kernels are built at first use by
 :mod:`fea_tpu_torch.ops.nvcc`.
 """
 from __future__ import annotations
@@ -112,7 +117,8 @@ def var_apply(weights: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     g (Z, Y, X, 3) -> (Z, Y, X, 3).
 
     f32 runs K4 and f64 runs K5 on a CUDA tensor; a CPU tensor takes the
-    plain torch version. ``weights`` must match ``g`` in dtype and device.
+    plain torch version. ``weights`` must match ``g`` in dtype and device,
+    and be exactly block-symmetric (the module's contract; not checked).
     """
     out = _launch("var_apply", _ENTRY, weights, g, 0)
     if out is None:
@@ -131,7 +137,10 @@ def var_apply_slab(weights: torch.Tensor, g_ext: torch.Tensor) -> torch.Tensor:
     one above (zeros past the grid's ends). The weights toward a plane
     past the grid are zero, and so are those of padding planes, as the
     assembled field has them. f32 runs K4-slab and f64 runs K5-slab on a
-    CUDA tensor; a CPU tensor takes the plain torch version.
+    CUDA tensor; a CPU tensor takes the plain torch version. The slab must
+    be cut from an exactly block-symmetric field (the module's contract;
+    not checked): on its first plane the kernel reads the slab's own dz = -1
+    blocks, elsewhere the mirrors of its upper blocks.
     """
     out = _launch("var_apply_slab", _SLAB_ENTRY, weights, g_ext, 2)
     if out is None:
@@ -146,7 +155,8 @@ def var_apply_masked(weights: torch.Tensor, free: torch.Tensor, g: torch.Tensor)
     one launch: weights (27, 3, 3, Z, Y, X), the 0/1 mask ``free`` and g
     both (Z, Y, X, 3) -> (Z, Y, X, 3). On the card it is, value for value,
     that expression around :func:`var_apply` (the products by a 0/1 mask
-    are exact); a CPU tensor takes the expression itself."""
+    are exact); a CPU tensor takes the expression itself. ``weights`` must
+    be exactly block-symmetric (the module's contract; not checked)."""
     out = _launch("var_apply_masked", _MASKED_ENTRY, weights, g, 0, free)
     if out is None:
         from .curvilinear import curv_apply_grid
@@ -160,7 +170,8 @@ def var_apply_slab_masked(weights: torch.Tensor, free_ext: torch.Tensor, g_ext: 
     (27, 3, 3, Zl, Y, X), and its mask and state between the neighbours'
     edge planes, both (Zl + 2, Y, X, 3) -> (Zl, Y, X, 3). The neighbours'
     edge planes enter as ``free_ext * g_ext``, the slab's own rows as
-    ``F * K(F g) + (1 - F) g`` with F and g the middle Zl planes."""
+    ``F * K(F g) + (1 - F) g`` with F and g the middle Zl planes. The
+    weights are under :func:`var_apply_slab`'s contract (not checked)."""
     out = _launch("var_apply_slab_masked", _SLAB_MASKED_ENTRY, weights, g_ext, 2, free_ext)
     if out is None:
         from .curvilinear import curv_apply_slab_grid

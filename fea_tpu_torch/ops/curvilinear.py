@@ -15,8 +15,8 @@ K5-slab). The stiffness is symmetric, so the field is block-symmetric,
 ``W_{-d}[n + d] = W_d[n]^T``; every field made here leaves through
 :func:`symmetrize_field`, which makes that hold exactly (it holds to
 rounding before), and the kernels read 14 of the 27 blocks and mirror
-the rest (:func:`curv_apply_grid_sym` is the plain twin of that read
-pattern, for the tests). The weight field of a level
+the rest. :class:`CurvilinearOperator` and :func:`build_curv_multigrid`
+refuse a field that is not (:func:`mirror_defect`). The weight field of a level
 is stored once, in the kernels' plane-major layout (27, 3, 3, Z, Y, X);
 :func:`grid_view` gives the (27, Z, Y, X, 3, 3) layout of the JAX package
 as a view of the same storage; host fields in that layout come in through
@@ -61,12 +61,11 @@ __all__ = [
     "build_curv_operator",
     "coarsen_dims_partial",
     "curv_apply_grid",
-    "curv_apply_grid_sym",
     "curv_apply_slab_grid",
-    "curv_apply_slab_grid_sym",
     "curv_coarsenable",
     "grid_view",
     "infer_topo_dims",
+    "mirror_defect",
     "rap_coeffs",
     "rap_dev",
     "symmetrize_field",
@@ -121,6 +120,34 @@ def symmetrize_field(w: torch.Tensor) -> torch.Tensor:
     return w
 
 
+def mirror_defect(w: torch.Tensor) -> float:
+    """max |W_d[n] - W_{26-d}[n + d]^T| of a (27, 3, 3, Z, Y, X) field over
+    the 13 lower offsets d and the nodes whose neighbour n + d is inside
+    the grid: 0.0 for the exactly block-symmetric field K4/K5 take (what
+    :func:`symmetrize_field` leaves)."""
+    Z, Y, X = w.shape[3:]
+    worst = 0.0
+    for d in range(_CENTRE):
+        at, nb = zip(*(_in_grid(o, n) for o, n in zip(_OFFSETS[d], (Z, Y, X))))
+        lower = w[(d, slice(None), slice(None)) + at]
+        if lower.numel():
+            upper = w[(26 - d, slice(None), slice(None)) + nb].transpose(0, 1)
+            worst = max(worst, float((lower - upper).abs().max()))
+    return worst
+
+
+def _require_block_symmetric(w: torch.Tensor, what: str) -> None:
+    """Raise ValueError unless ``w`` is exactly block-symmetric: on the card
+    K4/K5 read 14 of its 27 blocks and mirror the rest, so any other field
+    would be applied as a different matrix there than on the CPU."""
+    defect = mirror_defect(w)
+    if defect != 0.0:
+        raise ValueError(
+            f"{what}: the weight field is not exactly block-symmetric (largest mirror defect {defect:.3e}); "
+            "K4/K5 read 14 of its 27 blocks. A stiffness field symmetric to rounding takes symmetrize_field first."
+        )
+
+
 def infer_topo_dims(scene: Scene) -> Optional[tuple[int, int, int]]:
     """(nx, ny, nz) if the scene's CONNECTIVITY is the box_hex_mesh grid
     (node positions unconstrained), else None. Pure index arithmetic and
@@ -153,38 +180,16 @@ def infer_topo_dims(scene: Scene) -> Optional[tuple[int, int, int]]:
 # -- apply ---------------------------------------------------------------------
 
 
-def _apply_padded(blocks, gp: torch.Tensor) -> torch.Tensor:
-    """27 shifted multiply-adds of the (3, 3, Z, Y, X) blocks of the 27
-    offsets, in offset order (a (27, 3, 3, Z, Y, X) field, or what
-    :func:`_upper_read` yields), over the state gp (3, Z + 2, Y + 2, X + 2),
-    which holds one plane, row and column beyond the nodes on each side:
-    -> (Z, Y, X, 3)."""
-    Z, Y, X = (n - 2 for n in gp.shape[1:])
-    out = torch.zeros((3, Z, Y, X), dtype=gp.dtype, device=gp.device)
-    for (dz, dy, dx), wd in zip(_OFFSETS, blocks):
-        xs = gp[:, 1 + dz : 1 + dz + Z, 1 + dy : 1 + dy + Y, 1 + dx : 1 + dx + X]
-        out += (wd * xs[None]).sum(dim=1)
-    return out.permute(1, 2, 3, 0).contiguous()
-
-
-def _upper_read(w: torch.Tensor, slab: bool):
-    """The 27 blocks of w (27, 3, 3, Z, Y, X) as K4/K5 read them: an
-    upper block (index >= 13) as stored, a lower block d at n as the
-    transpose of block 26 - d at n + d (zero toward a neighbour outside the
-    grid, which the state's padding meets anyway), and, for a slab, the
-    dz = -1 blocks of its first plane as stored (their mirrors lie on the
-    neighbouring shard)."""
+def _apply_padded(w: torch.Tensor, gp: torch.Tensor) -> torch.Tensor:
+    """27 shifted multiply-adds of w (27, 3, 3, Z, Y, X) over the state
+    gp (3, Z + 2, Y + 2, X + 2), which holds one plane, row and column
+    beyond the nodes on each side: -> (Z, Y, X, 3)."""
     Z, Y, X = w.shape[3:]
-    for d in range(27):
-        if d >= _CENTRE:
-            yield w[d]
-            continue
-        m = torch.zeros_like(w[d])
-        at, nb = zip(*(_in_grid(o, n) for o, n in zip(_OFFSETS[d], (Z, Y, X))))
-        m[(slice(None), slice(None)) + at] = w[(26 - d, slice(None), slice(None)) + nb].transpose(0, 1)
-        if slab and _OFFSETS[d][0] == -1:
-            m[:, :, 0] = w[d][:, :, 0]
-        yield m
+    out = torch.zeros((3, Z, Y, X), dtype=gp.dtype, device=gp.device)
+    for d, (dz, dy, dx) in enumerate(_OFFSETS):
+        xs = gp[:, 1 + dz : 1 + dz + Z, 1 + dy : 1 + dy + Y, 1 + dx : 1 + dx + X]
+        out += (w[d] * xs[None]).sum(dim=1)
+    return out.permute(1, 2, 3, 0).contiguous()
 
 
 def curv_apply_grid(w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -204,22 +209,6 @@ def curv_apply_slab_grid(w: torch.Tensor, g_ext: torch.Tensor) -> torch.Tensor:
     The halo planes take the place of the zero padding along z: the same
     multiply-adds as :func:`curv_apply_grid` on the slab's planes."""
     return _apply_padded(w, F_nn.pad(g_ext.permute(3, 0, 1, 2), (1, 1, 1, 1)))
-
-
-def curv_apply_grid_sym(w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """:func:`curv_apply_grid` reading what K4/K5 read: the 14 upper blocks
-    and the transposes of those for the 13 lower offsets, summed in
-    :func:`curv_apply_grid`'s offset order (the kernels sum the same terms
-    in pairs). On a block-symmetric field it is, value for value,
-    :func:`curv_apply_grid`; a lower block does not reach it."""
-    return _apply_padded(_upper_read(w, slab=False), F_nn.pad(g.permute(3, 0, 1, 2), (1, 1, 1, 1, 1, 1)))
-
-
-def curv_apply_slab_grid_sym(w: torch.Tensor, g_ext: torch.Tensor) -> torch.Tensor:
-    """:func:`curv_apply_slab_grid` reading what K4-slab/K5-slab read: the
-    upper blocks, their transposes, and the slab's own dz = -1 blocks on its
-    first plane."""
-    return _apply_padded(_upper_read(w, slab=True), F_nn.pad(g_ext.permute(3, 0, 1, 2), (1, 1, 1, 1)))
 
 
 # -- assembly ------------------------------------------------------------------
@@ -295,9 +284,12 @@ class CurvilinearOperator:
     rhs / free / dims), so the FCG solver and certification take it as
     they stand."""
 
-    w: torch.Tensor  # (27, 3, 3, Zn, Yn, Xn) weight field, kernel layout
+    w: torch.Tensor  # (27, 3, 3, Zn, Yn, Xn) weight field, kernel layout, exactly block-symmetric
     free: torch.Tensor  # (N, 3) free-DOF mask (flat node order)
     dims: tuple[int, int, int]
+
+    def __post_init__(self):
+        _require_block_symmetric(self.w, "CurvilinearOperator")
 
     @classmethod
     def from_numpy(cls, w: np.ndarray, free: np.ndarray, *, device) -> "CurvilinearOperator":
@@ -614,13 +606,15 @@ def build_curv_multigrid(
     f64_below_dof: int = 50_000,
 ) -> CurvMultigrid:
     """Galerkin (RAP) multigrid over the fine weight field ``w0``
-    (27, 3, 3, Z, Y, X), on its device.
+    (27, 3, 3, Z, Y, X), on its device; ``w0`` must be exactly
+    block-symmetric (ValueError otherwise, as for CurvilinearOperator).
 
     Each coarser level is :func:`rap_dev` of the one above, chained in
     f64 from the resident fine field. Levels under ``f64_below_dof`` DOFs
     keep f64; bigger ones are cast to f32. Only the coarsest level's
     weights go to the host, for the dense masked inverse.
     """
+    _require_block_symmetric(w0, "build_curv_multigrid")
     nx, ny, nz = dims
     device = w0.device
     f = np.asarray(free_np, np.float64).reshape(nz + 1, ny + 1, nx + 1, 3)

@@ -23,6 +23,7 @@ import fea_tpu_torch as ftt
 from fea_tpu_torch.ops import amg
 
 from test_torch_embed import MAT, TOL, dense_u, l_arrays, scene_of, true_rel
+from torch_pin import one_torch_thread  # noqa: F401
 
 SOLVE = sys.modules["fea_tpu_torch.solve"]
 CACHE = sys.modules["fea_tpu_torch.solve.cache"]
@@ -30,17 +31,6 @@ CACHE = sys.modules["fea_tpu_torch.solve.cache"]
 # 100 and FEA_TPU_NO_EMBED=1, JAX on the CPU in f64, the AMG route: 25
 # iterations (its first pass runs to 0.3 tol), relative residual 1.43e-9
 AMG_JAX_ITERS = 25
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """This file's CPU work runs on one torch thread: beside the suite's
-    other workers, torch's thread pool contends and the file takes many
-    times longer (the JAX reference keeps its own threads)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def both_hosts(nx=6, nz=20):

@@ -19,17 +19,7 @@ from fea_tpu_torch.ops.curvilinear import curv_coarsenable, infer_topo_dims
 from fea_tpu_torch.ops.extruded import infer_extruded
 
 from test_torch_curvilinear import MAT, TOL, distorted, true_rel_residual
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """This file's CPU work runs on one torch thread: beside the suite's
-    other workers, torch's thread pool contends and the file takes many
-    times longer (the JAX reference keeps its own threads)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_pin import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

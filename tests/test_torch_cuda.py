@@ -68,9 +68,9 @@ def test_var_kernels_match_plain_version_on_card(dims):
     f64, on symmetrized random weights (the kernels' input contract: they
     read 14 of the 27 blocks and mirror the rest) and random input. The
     last three shapes: the fine curvilinear grid, whose 1,681-node planes
-    are no multiple of the kernel's 128-node tile, and rows longer than a
-    tile. The masked launch is, value for value, F K(F g) + (1 - F) g
-    around the raw launch (exact for a 0/1 mask)."""
+    are no multiple of the kernel's block of 256 nodes (one thread a node),
+    and rows longer than a block. The masked launch is, value for value,
+    F K(F g) + (1 - F) g around the raw launch (exact for a 0/1 mask)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: K4 and K5 have no CPU mode")
     from fea_tpu_torch.ops import cuda_varstencil

@@ -21,20 +21,10 @@ from fea_tpu.ops import curvilinear as jcv
 import fea_tpu_torch as ftt
 from fea_tpu_torch.ops import curvilinear as cv
 from fea_tpu_torch.ops.cuda_varstencil import var_apply
+from torch_pin import one_torch_thread  # noqa: F401
 
 MAT = dict(E=1e7, nu=0.3)
 TOL = 1e-8
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """This file's CPU work runs on one torch thread: beside the suite's
-    other workers, torch's thread pool contends and the file takes many
-    times longer (the JAX reference keeps its own threads)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

@@ -25,6 +25,7 @@ from fea_tpu_torch.ops.canonical import infer_subgrid_embedding
 from fea_tpu_torch.solve import embed
 
 from oracle import assemble_sparse, solve_reduced
+from torch_pin import one_torch_thread  # noqa: F401
 
 SOLVE = sys.modules["fea_tpu_torch.solve"]
 CACHE = sys.modules["fea_tpu_torch.solve.cache"]
@@ -34,17 +35,6 @@ TOL = 1e-8
 # 100, JAX on the CPU in f64, the embedded route: 18 iterations, relative
 # residual 3.83e-9 (the scene and call of test_solve_routes_to_the_embedding)
 EMBED_JAX_ITERS = 18
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """This file's CPU work runs on one torch thread: beside the suite's
-    other workers, torch's thread pool contends and the file takes many
-    times longer (the JAX reference keeps its own threads)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def l_arrays(nx, nz, *, seed=7, distort=0.2, presc=False):

@@ -24,20 +24,10 @@ import pytest
 import torch
 
 from fea_tpu_torch.examples import NAMES
+from torch_pin import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 ARGS = {"tube": ["--layers", "12"]}  # a shorter tube than the demo's 50 layers, on both sides
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """This file's small CPU solves run on one torch thread: beside the
-    suite's other workers, torch's thread pool contends (as in
-    tests/test_torch_sharding.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _run_jax(name, monkeypatch) -> str:

@@ -31,21 +31,11 @@ from fea_tpu_torch.ops import extruded as ex
 from fea_tpu_torch.ops import extruded_mg as mg
 
 from oracle import assemble_sparse
+from torch_pin import one_torch_thread  # noqa: F401
 
 MAT = dict(E=2e6, nu=0.3)
 SOLVE = sys.modules["fea_tpu_torch.solve"]
 CACHE = sys.modules["fea_tpu_torch.solve.cache"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """This file's CPU work runs on one torch thread: beside the suite's
-    other workers, torch's thread pool contends and the file takes many
-    times longer (the JAX reference keeps its own threads)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def tube_arrays(nseg, nlay, r_in, r_out, length, *, load="tip"):

@@ -33,22 +33,12 @@ from fea_tpu_torch.ops import cuda_stencil
 from fea_tpu_torch.ops.multigrid import _prolong, _restrict, build_multigrid
 from fea_tpu_torch.ops.structured import build_structured_operator
 from fea_tpu_torch.parallel import build_zsharded_solver, halo, shard_geometry
+from torch_pin import one_torch_thread  # noqa: F401
 
 TOL = 1e-8
 MAT = dict(E=6.9e10, nu=0.3)
 # (elements per axis, box lengths) of the two sharded scenes
 SCENES = {"2x2x12": ((2, 2, 12), (0.1, 0.1, 1.0)), "4x4x32": ((4, 4, 32), (0.05, 0.05, 1.0))}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """This file's CPU work runs on one torch thread: beside the suite's
-    other workers, torch's thread pool contends and the file takes many
-    times longer (the JAX reference keeps its own threads)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _ke(dims):

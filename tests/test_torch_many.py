@@ -19,22 +19,12 @@ import fea_tpu as ft
 
 import fea_tpu_torch as ftt
 from test_torch_curvilinear import distorted
+from torch_pin import one_torch_thread  # noqa: F401
 
 CACHE = sys.modules["fea_tpu_torch.solve.cache"]
 CURV = sys.modules["fea_tpu_torch.solve.curv"]
 MAT = dict(E=1e7, nu=0.3)
 TOL = 1e-10
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """This file's CPU work runs on one torch thread: beside the suite's
-    other workers, torch's thread pool contends and the file takes many
-    times longer (the JAX reference keeps its own threads)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _batch_loads(nodes, k, seed=0):

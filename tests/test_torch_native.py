@@ -17,19 +17,9 @@ import fea_tpu_torch as ftt
 import fea_tpu_torch.native as nat
 from fea_tpu_torch.ops.curvilinear import assemble_curv_weights, curv_apply_grid, grid_view
 from fea_tpu_torch.ops.structured import build_structured_operator, stencil_apply_np, structured_scene
+from torch_pin import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.skipif(not nat.available(), reason="no host toolchain for the native kernel")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """This file's CPU work runs on one torch thread: beside the suite's
-    other workers, torch's thread pool contends and the file takes many
-    times longer (the JAX reference keeps its own threads)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _random_sym_ke(seed: int = 0) -> np.ndarray:

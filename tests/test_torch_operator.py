@@ -31,20 +31,10 @@ from fea_tpu_torch.ops import cuda_apply
 from fea_tpu_torch.scene import dof_ids
 
 from oracle import assemble_sparse
+from torch_pin import one_torch_thread  # noqa: F401
 
 MAT = dict(E=1e7, nu=0.3)
 F64 = 1e-12
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """This file's CPU work runs on one torch thread: beside the suite's
-    other workers, torch's thread pool contends and the file takes many
-    times longer (the JAX reference keeps its own threads)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def close(got, want, rel=F64):

@@ -30,22 +30,12 @@ from fea_tpu_torch.ops.structured import build_structured_operator, stencil_diag
 from fea_tpu_torch.solve import solve_operator_refined_host
 from fea_tpu_torch.solvers import pcg, pcg_refined
 from fea_tpu_torch.solvers.refine import pcg_refined_host
+from torch_pin import one_torch_thread  # noqa: F401
 
 sys.path.insert(0, __file__.rsplit("/", 1)[0])
 from test_refine import slender_case  # noqa: E402
 
 REFINED = dict(tol=1e-9, inner_tol=1e-2, inner_iters=3000)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """This file's small CPU solves run on one torch thread: beside the
-    suite's other workers, torch's thread pool contends (as in
-    tests/test_torch_sharding.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _port_scene(scene):

@@ -12,17 +12,7 @@ import torch
 
 import fea_tpu_torch as ftt
 from fea_tpu_torch import sanitize
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """This file's small CPU solves run on one torch thread: beside the
-    suite's other workers, torch's thread pool contends (as in
-    tests/test_torch_sharding.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_pin import one_torch_thread  # noqa: F401
 
 
 def small_case(nx=2, ny=2, nz=6, lz=0.6):

@@ -16,19 +16,9 @@ from fea_tpu.ops.structured import infer_box_dims as jax_infer_box_dims
 import fea_tpu_torch as ftt
 from fea_tpu_torch.elements.hex8 import CORNER_SIGNS, stiffness_matrix_np
 from fea_tpu_torch.ops.structured import infer_box_dims
+from torch_pin import one_torch_thread  # noqa: F401
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """This file's CPU work runs on one torch thread: beside the suite's
-    other workers, torch's thread pool contends and the file takes many
-    times longer (the JAX reference keeps its own threads)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _both_scenes(nodes, elements, fixed, loads, E=1e7, nu=0.3):

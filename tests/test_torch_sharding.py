@@ -59,20 +59,10 @@ from fea_tpu_torch.parallel import (
 from fea_tpu_torch.parallel import curv as pcurv
 from fea_tpu_torch.parallel import extruded as pext
 from fea_tpu_torch.solve import solve_displacements, solve_operator, solve_operator_fpcg
+from torch_pin import one_torch_thread  # noqa: F401
 
 TOL = 1e-8
 BOUND = {torch.float64: 1e-12, torch.float32: 1e-5}  # f64 rounding, f32 rounding of the f32 operator
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """This file's many small CPU applies run on one torch thread: beside
-    the suite's other workers, torch's thread pool contends and the file
-    takes ~4x longer (the JAX reference keeps its own threads)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(got, want) -> float:

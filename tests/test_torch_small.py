@@ -24,20 +24,10 @@ from fea_tpu_torch.elements import truss
 
 from oracle import assemble_sparse, solve_reduced
 from test_integration import cubebeam_scene, tube_scene
+from torch_pin import one_torch_thread  # noqa: F401
 
 ANCHOR = 3.0504e-4  # cubebeam max|u| (tests/test_integration.py)
 SOLVE = sys.modules["fea_tpu_torch.solve"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """This file's CPU work runs on one torch thread: beside the suite's
-    other workers, torch's thread pool contends and the file takes many
-    times longer (the JAX reference keeps its own threads)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def port(jsc, dtype=torch.float64):

@@ -23,20 +23,10 @@ from fea_tpu.ops.structured import stencil_apply_np
 
 import fea_tpu_torch as ftt
 from fea_tpu_torch.elements.hex8 import stiffness_matrix_np
+from torch_pin import one_torch_thread  # noqa: F401
 
 DIMS = (8, 8, 64)
 TOL = 1e-8
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """This file's CPU work runs on one torch thread: beside the suite's
-    other workers, torch's thread pool contends and the file takes many
-    times longer (the JAX reference keeps its own threads)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

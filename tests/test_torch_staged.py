@@ -29,21 +29,11 @@ import fea_tpu_torch as ftt
 from fea_tpu_torch.ops.multigrid import build_multigrid
 from fea_tpu_torch.ops.structured import build_structured_operator
 from fea_tpu_torch.solve import solve_operator_fpcg, solve_operator_fpcg_staged
+from torch_pin import one_torch_thread  # noqa: F401
 
 STAGED = sys.modules["fea_tpu_torch.solve.staged"]
 MAT = dict(E=1e7, nu=0.3)
 TOL = 1e-6
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """This file's CPU work runs on one torch thread: beside the suite's
-    other workers, torch's thread pool contends and the file takes many
-    times longer (the JAX reference keeps its own threads)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _reference_case():

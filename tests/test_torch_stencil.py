@@ -23,19 +23,9 @@ from fea_tpu_torch.materials import Material
 from fea_tpu_torch.ops import cuda_stencil
 from fea_tpu_torch.ops.cuda_stencil import region_weight_table, stencil_apply, stencil_weights
 from fea_tpu_torch.ops.structured import stencil_apply_grid, stencil_apply_np
+from torch_pin import one_torch_thread  # noqa: F401
 
 DIMS = [(3, 2, 5), (1, 1, 1), (4, 4, 8)]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """This file's CPU work runs on one torch thread: beside the suite's
-    other workers, torch's thread pool contends and the file takes many
-    times longer (the JAX reference keeps its own threads)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _ke(dims):

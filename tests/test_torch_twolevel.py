@@ -25,6 +25,7 @@ from fea_tpu_torch.ops import twolevel as tl
 from test_torch_amg import twisted
 from oracle import assemble_sparse
 from test_torch_embed import MAT, TOL, dense_u, l_arrays, scene_of, true_rel
+from torch_pin import one_torch_thread  # noqa: F401
 
 SOLVE = sys.modules["fea_tpu_torch.solve"]
 CACHE = sys.modules["fea_tpu_torch.solve.cache"]
@@ -34,17 +35,6 @@ CACHE = sys.modules["fea_tpu_torch.solve.cache"]
 TWO_LEVEL_JAX_ITERS = 24
 # ... and of l_arrays(16, 48) (32,691 DOF): 26 iterations, relative residual 1.87e-9
 TWO_LEVEL_JAX_ITERS_32K = 26
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """This file's CPU work runs on one torch thread: beside the suite's
-    other workers, torch's thread pool contends and the file takes many
-    times longer (the JAX reference keeps its own threads)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def both_ops(nx=6, nz=12):

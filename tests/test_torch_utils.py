@@ -15,17 +15,7 @@ import fea_tpu as ft
 import fea_tpu_torch as ftt
 from fea_tpu_torch.ops import nvcc
 from fea_tpu_torch.utils import cache
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """This file's CPU work runs on one torch thread: beside the suite's
-    other workers, torch's thread pool contends and the file takes many
-    times longer (the JAX reference keeps its own threads)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_pin import one_torch_thread  # noqa: F401
 
 
 def _cubebeam(pkg, **kw):

@@ -5,9 +5,10 @@ K4/K5 read the 14 upper blocks of a curvilinear weight field and take the
 W_d[n]^T``). Here, on the CPU: ``symmetrize_field`` moves an assembled
 field by rounding only and makes the mirror exact; every producer of the
 port hands the kernels an exactly mirrored field; the plain twin of the
-kernels' read pattern (``curv_apply_grid_sym`` and its slab form) is the
-plain version value for value on such fields, agrees with JAX's Pallas
-kernels in interpret mode, and never reads a lower block; the masked
+kernels' read pattern (``curv_apply_grid_sym`` and its slab form, kept
+here) is the plain version value for value on such fields, agrees with
+JAX's Pallas kernels in interpret mode, and never reads a lower block;
+the operator and the hierarchy refuse a field that is not mirrored; the masked
 apply (``var_apply_masked``, the entry the operators now call) is JAX's
 masked curvilinear apply.
 """
@@ -27,35 +28,56 @@ from fea_tpu_torch.parallel import curv as pcurv
 from fea_tpu_torch.solve import embed
 
 from test_torch_curvilinear import MAT, distorted
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """This file's CPU work runs on one torch thread: beside the suite's
-    other workers, torch's thread pool contends and the file takes many
-    times longer (the JAX reference keeps its own threads)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_pin import one_torch_thread  # noqa: F401
 
 
 DIMS = (3, 4, 6)
 
 
-def mirror_defect(w: torch.Tensor) -> float:
-    """max |W_d[n] - W_{26-d}[n + d]^T| over the lower offsets d and the
-    nodes whose neighbour n + d is inside the grid (0 for an exactly
-    block-symmetric field)."""
+def _upper_read(w: torch.Tensor, slab: bool):
+    """The 27 blocks of w (27, 3, 3, Z, Y, X) as K4/K5 read them: an upper
+    block (index >= 13) as stored, a lower block d at n as the transpose of
+    block 26 - d at n + d (zero toward a neighbour outside the grid, which
+    the state's padding meets anyway), and, for a slab, the dz = -1 blocks
+    of its first plane as stored (their mirrors lie on the neighbouring
+    shard)."""
     Z, Y, X = w.shape[3:]
-    worst = 0.0
-    for d in range(13):
+    for d in range(27):
+        if d >= 13:
+            yield w[d]
+            continue
+        m = torch.zeros_like(w[d])
         at, nb = zip(*(cv._in_grid(o, n) for o, n in zip(cv._OFFSETS[d], (Z, Y, X))))
-        lower = w[(d, slice(None), slice(None)) + at]
-        upper = w[(26 - d, slice(None), slice(None)) + nb].transpose(0, 1)
-        if lower.numel():
-            worst = max(worst, float((lower - upper).abs().max()))
-    return worst
+        m[(slice(None), slice(None)) + at] = w[(26 - d, slice(None), slice(None)) + nb].transpose(0, 1)
+        if slab and cv._OFFSETS[d][0] == -1:
+            m[:, :, 0] = w[d][:, :, 0]
+        yield m
+
+
+def _apply_blocks(blocks, gp: torch.Tensor) -> torch.Tensor:
+    """``curvilinear._apply_padded`` over the 27 (3, 3, Z, Y, X) blocks
+    ``blocks`` yields, in offset order, and the padded state gp."""
+    Z, Y, X = (n - 2 for n in gp.shape[1:])
+    out = torch.zeros((3, Z, Y, X), dtype=gp.dtype)
+    for (dz, dy, dx), wd in zip(cv._OFFSETS, blocks):
+        out += (wd * gp[None, :, 1 + dz : 1 + dz + Z, 1 + dy : 1 + dy + Y, 1 + dx : 1 + dx + X]).sum(dim=1)
+    return out.permute(1, 2, 3, 0).contiguous()
+
+
+def curv_apply_grid_sym(w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The plain twin of K4/K5's read pattern: ``curv_apply_grid`` reading
+    the 14 upper blocks and the transposes of those for the 13 lower
+    offsets, summed in ``curv_apply_grid``'s offset order (the kernels sum
+    the same terms in pairs). It checks the mirrored index arithmetic, not
+    the kernels' rounding."""
+    return _apply_blocks(_upper_read(w, slab=False), torch.nn.functional.pad(g.permute(3, 0, 1, 2), (1,) * 6))
+
+
+def curv_apply_slab_grid_sym(w: torch.Tensor, g_ext: torch.Tensor) -> torch.Tensor:
+    """``curv_apply_slab_grid`` reading what K4-slab/K5-slab read: the upper
+    blocks, their transposes, and the slab's own dz = -1 blocks on its
+    first plane."""
+    return _apply_blocks(_upper_read(w, slab=True), torch.nn.functional.pad(g_ext.permute(3, 0, 1, 2), (1,) * 4))
 
 
 def random_symmetric(rng, Z, Y, X, *, zero_z_ends=False) -> torch.Tensor:
@@ -80,8 +102,8 @@ def test_symmetrize_moves_assembled_field_by_rounding(chunk_elems, monkeypatch):
     monkeypatch.setattr(cv, "symmetrize_field", lambda w: w)
     raw, _ = cv.assemble_curv_weights(torch.as_tensor(nodes), DIMS, ftt.Material(**MAT), chunk_elems=chunk_elems)
     scale = float(raw.abs().max())
-    assert 0.0 < mirror_defect(raw) <= 1e-14 * scale
-    assert mirror_defect(sym) == 0.0
+    assert 0.0 < cv.mirror_defect(raw) <= 1e-14 * scale
+    assert cv.mirror_defect(sym) == 0.0
     assert float((sym - raw).abs().max()) <= 1e-14 * scale
     assert torch.equal(sym[13:], raw[13:])
 
@@ -93,8 +115,8 @@ def test_symmetrize_moves_the_reference_field_by_rounding():
     raw = torch.as_tensor(np.ascontiguousarray(w_np.transpose(0, 4, 5, 1, 2, 3)))
     op = cv.CurvilinearOperator.from_numpy(w_np, np.ones((raw[0, 0, 0].numel(), 3)), device="cpu")
     scale = float(raw.abs().max())
-    assert mirror_defect(raw) <= 1e-14 * scale
-    assert mirror_defect(op.w) == 0.0 and float((op.w - raw).abs().max()) <= 1e-14 * scale
+    assert cv.mirror_defect(raw) <= 1e-14 * scale
+    assert cv.mirror_defect(op.w) == 0.0 and float((op.w - raw).abs().max()) <= 1e-14 * scale
 
 
 def _producer_fields(name: str) -> list[torch.Tensor]:
@@ -145,7 +167,7 @@ def test_every_producer_hands_the_kernels_a_mirrored_field(name):
     fields = _producer_fields(name)
     assert fields
     for w in fields:
-        assert mirror_defect(w) == 0.0, (name, tuple(w.shape), w.dtype)
+        assert cv.mirror_defect(w) == 0.0, (name, tuple(w.shape), w.dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
@@ -164,7 +186,7 @@ def test_sym_twin_is_the_plain_version_and_jax(dtype):
     for w in (random_symmetric(rng, nz + 1, ny + 1, nx + 1),
               cv.assemble_curv_weights(torch.as_tensor(distorted(*DIMS)[0]), DIMS, ftt.Material(**MAT))[0]):
         wt = w.to(dtype)
-        got = cv.curv_apply_grid_sym(wt, g)
+        got = curv_apply_grid_sym(wt, g)
         assert torch.equal(got, cv.curv_apply_grid(wt, g))
     w64 = cv.grid_view(w).numpy()
     want = jcv.curv_apply_np(w64, g64)
@@ -203,11 +225,11 @@ def test_sym_slab_twin_is_the_plain_slab_version(n, dtype):
     got = []
     for i, s in enumerate(slabs):
         ext = g_pad[i * zl : i * zl + zl + 2]
-        got.append(cv.curv_apply_slab_grid_sym(s, ext))
+        got.append(curv_apply_slab_grid_sym(s, ext))
         assert torch.equal(got[-1], cv.curv_apply_slab_grid(s, ext)), (n, i)
     got = torch.cat(got)
     assert torch.count_nonzero(got[Z:]) == 0
-    assert torch.equal(got[:Z], cv.curv_apply_grid_sym(w, g))
+    assert torch.equal(got[:Z], curv_apply_grid_sym(w, g))
 
 
 def test_sym_twin_never_reads_a_lower_block():
@@ -221,14 +243,14 @@ def test_sym_twin_never_reads_a_lower_block():
     g = torch.as_tensor(rng.standard_normal((Z, Y, X, 3)))
     bent = w.clone()
     bent[:13] += torch.as_tensor(rng.standard_normal((13, 3, 3, Z, Y, X)))
-    assert torch.equal(cv.curv_apply_grid_sym(bent, g), cv.curv_apply_grid_sym(w, g))
+    assert torch.equal(curv_apply_grid_sym(bent, g), curv_apply_grid_sym(w, g))
     assert not torch.equal(cv.curv_apply_grid(bent, g), cv.curv_apply_grid(w, g))
     ext = torch.cat([torch.as_tensor(rng.standard_normal((1, Y, X, 3))), g,
                      torch.as_tensor(rng.standard_normal((1, Y, X, 3)))])
     bent[:9, :, :, 0] = w[:9, :, :, 0]
-    assert torch.equal(cv.curv_apply_slab_grid_sym(bent, ext), cv.curv_apply_slab_grid_sym(w, ext))
+    assert torch.equal(curv_apply_slab_grid_sym(bent, ext), curv_apply_slab_grid_sym(w, ext))
     bent[:9, :, :, 0] += 1.0
-    assert not torch.equal(cv.curv_apply_slab_grid_sym(bent, ext), cv.curv_apply_slab_grid_sym(w, ext))
+    assert not torch.equal(curv_apply_slab_grid_sym(bent, ext), curv_apply_slab_grid_sym(w, ext))
 
 
 @pytest.fixture(scope="module")
@@ -296,3 +318,58 @@ def test_masked_entries_check_their_arguments():
     got = vs.var_apply_slab_masked(w, F, ext)
     want = F[1:-1] * cv.curv_apply_slab_grid(w, F * ext) + (1.0 - F[1:-1]) * ext[1:-1]
     assert torch.equal(got, want)
+
+
+def test_mirror_defect_reads_every_pair():
+    """``mirror_defect`` against a node-by-node loop over every (node,
+    lower offset) pair with its neighbour inside the grid, on a random
+    field and on that field with one block bent at a grid corner; 0 after
+    ``symmetrize_field``."""
+    Z, Y, X = 3, 2, 4
+    rng = np.random.default_rng(49)
+    w = torch.as_tensor(rng.standard_normal((27, 3, 3, Z, Y, X)))
+
+    def by_loop(w):
+        worst = 0.0
+        for d in range(13):
+            dz, dy, dx = cv._OFFSETS[d]
+            for z, y, x in np.ndindex(Z, Y, X):
+                if 0 <= z + dz < Z and 0 <= y + dy < Y and 0 <= x + dx < X:
+                    diff = w[d, :, :, z, y, x] - w[26 - d, :, :, z + dz, y + dy, x + dx].T
+                    worst = max(worst, float(diff.abs().max()))
+        return worst
+
+    assert cv.mirror_defect(w) == by_loop(w) > 0.0
+    cv.symmetrize_field(w)
+    assert cv.mirror_defect(w) == by_loop(w) == 0.0
+    corner = w[0, 1, 2, Z - 1, Y - 1, X - 1].clone()
+    w[0, 1, 2, Z - 1, Y - 1, X - 1] += 0.5  # toward (-1, -1, -1): its neighbour is inside
+    assert cv.mirror_defect(w) == by_loop(w) > 0.25
+    w[0, 1, 2, Z - 1, Y - 1, X - 1] = corner
+    w[0, 1, 2, 0, 0, 0] += 0.5  # toward a neighbour outside the grid: no pair, no defect
+    assert cv.mirror_defect(w) == by_loop(w) == 0.0
+
+
+@pytest.mark.parametrize("entry", ["operator", "multigrid"])
+def test_a_field_that_is_not_mirrored_is_refused(entry):
+    """``CurvilinearOperator`` and ``build_curv_multigrid`` raise on a field
+    whose lower blocks are not the mirrors of its upper ones (K4/K5 would
+    apply another matrix on the card than the plain version on the CPU),
+    and take the same field once symmetrized."""
+    nx, ny, nz = DIMS
+    Z, Y, X = nz + 1, ny + 1, nx + 1
+    w = random_symmetric(np.random.default_rng(50), Z, Y, X)
+    free = np.ones((Z * Y * X, 3))
+    free[: Y * X] = 0.0
+
+    def make(field):
+        if entry == "operator":
+            return cv.CurvilinearOperator(w=field, free=torch.as_tensor(free), dims=DIMS)
+        return cv.build_curv_multigrid(field, DIMS, free)
+
+    make(w)
+    bent = w.clone()
+    bent[4, 0, 1, 1, 1, 1] += 1e-9
+    with pytest.raises(ValueError, match="not exactly block-symmetric"):
+        make(bent)
+    make(cv.symmetrize_field(bent))

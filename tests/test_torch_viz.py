@@ -21,6 +21,7 @@ from fea_tpu_torch.viz.mpl import (  # noqa: E402
     plot_nodes,
     plot_truss,
 )
+from torch_pin import one_torch_thread  # noqa: E402, F401
 
 try:
     import pyvista as _pv
@@ -30,17 +31,6 @@ except Exception:
 
 
 T = torch.as_tensor
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """This file's CPU work runs on one torch thread: beside the suite's
-    other workers, torch's thread pool contends and the file takes many
-    times longer (the JAX reference keeps its own threads)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture()
