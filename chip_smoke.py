@@ -187,7 +187,14 @@ Phases, in order:
      ``utils`` (a Timer, a record, a trace holding K2's kernel); each demo
      of ``fea_tpu_torch.examples`` in this process, its printed anchors
      against the CPU's;
- 20. one JSON line of the kernels (K1, K2, K6, K7 with their launches in
+ 20. the benchmark: ``python bench_torch.py --repeats 2`` as a child
+     process at its default shapes, with its six families: rc 0, its final
+     line (printed here) at most 1,500 bytes, the flagship converged with
+     a host f64 true residual <= 1e-8, a tip ratio in (0.70, 1.30), at
+     most 13 iterations (the reference's BENCH_r04 count) and its f64 apply
+     within 1e-12 of the host's exact one, and every family converged at
+     its JAX tool's DOF count;
+ 21. one JSON line of the kernels (K1, K2, K6, K7 with their launches in
      [19]'s refined solves as ``refined_launches``), one of the compute with
      no TPU kernel, the card's line, then the last line
      ``{"ok": true, "device": {...}}``.
@@ -201,6 +208,7 @@ import dataclasses
 import gc
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -215,6 +223,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
+
+from fea_tpu_torch.bench import scenes  # noqa: E402
+from fea_tpu_torch.bench._family import graph_ms, host_check, host_ku  # noqa: E402
 
 DEV = "cuda"
 FLAGSHIP = (32, 32, 320)
@@ -340,32 +351,6 @@ def event_ms(fn, runs: int = 20, reps: int = 5) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
-
-
-def graph_ms(fn, calls: int = 20, runs: int = 10) -> float:
-    """The card's time of one call of ``fn``: ``calls`` calls captured in one
-    CUDA graph, the median over ``runs`` replays of the CUDA-event time of a
-    replay, over ``calls``. A replay costs the host one launch, so this is
-    the kernels' own time where ``event_ms`` reads the host's pace."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    del graph
     return statistics.median(times)
 
 
@@ -714,11 +699,7 @@ def var_cases(ftt, rng):
         F = torch.as_tensor((rng.random((Z, Y, X, 3)) < 0.8).astype(np.float64), device=DEV)
         yield f"random {dims}", w, g, F
         del w, g, F
-    nodes, elements, _ = distorted_scene_arrays(ftt, CURV)
-    fixed, loads, _ = cantilever_bcs(ftt, nodes)
-    scene = ftt.make_scene(nodes, elements, fixed, loads, ftt.Material(E=10_000_000 * ftt.units.psi, nu=0.3),
-                           dtype=torch.float64)
-    op, mg = ftt.build_curvilinear(scene)
+    op, mg = ftt.build_curvilinear(scenes.distorted(CURV, device=DEV)[0])
     Z, Y, X = op.grid_shape
     real = [(f"operator {CURV} f64", op.w, op.free.reshape(Z, Y, X, 3))]
     real += [(f"level {i} {lv.dims} {str(lv.dtype).replace('torch.', '')}", lv.w, lv.free)
@@ -811,23 +792,12 @@ def var_summary(report: dict, launches: dict) -> None:
             f"{r['bound_14_ms'] / r['device_ms'] * 100:.0f}% of the 14-block bound, {launches[key]} launches a solve")
 
 
-def flagship_scene(ftt, dims=None):
-    """bench.py's cantilever at ``dims`` voxels (the flagship when None,
-    or the capacity grid), on the card."""
-    nx, ny, nz = dims or FLAGSHIP
-    lx = ly = 0.1
-    lz = 1.0
-    nodes, elements = ftt.mesh.box_hex_mesh(nx, ny, nz, lx, ly, lz)
-    fixed = ftt.fix_where(nodes, lambda p: p[:, 2] == 0.0, 3)
-    loads = np.zeros_like(nodes)
-    tip = nodes[:, 2] == lz
-    total_load = 100.0 * ftt.units.lbf / ftt.units.ft * lz
-    loads[tip, 1] = total_load / tip.sum()
-    mat = ftt.Material(E=10_000_000 * ftt.units.psi, nu=0.3)
-    scene = ftt.make_scene(nodes, elements, fixed, loads, mat, dtype=torch.float64)
-    I = lx * ly**3 / 12.0
-    tip_exact = total_load * lz**3 / (3 * mat.E * I)
-    return scene, (nodes, elements, fixed, loads, tip, tip_exact)
+def flagship_scene(dims=None):
+    """bench.py's cantilever at ``dims`` voxels (the flagship when None) on
+    the card (``scenes.cantilever``): the scene and (nodes, elements,
+    fixed, loads, tip, tip_exact)."""
+    scene, h = scenes.cantilever(dims or FLAGSHIP, device=DEV)
+    return scene, tuple(h[k] for k in ("nodes", "elements", "fixed", "loads", "tip", "tip_exact"))
 
 
 def kept_gb(before: int, sol) -> float:
@@ -875,7 +845,7 @@ def run_slice(ftt, cuda_stencil, cuda_varstencil) -> tuple[dict, dict]:
     from fea_tpu_torch.ops.structured import build_structured_operator, stencil_apply_np
     from fea_tpu_torch.solve import solve_operator_fpcg_staged
 
-    scene, (nodes, elements, fixed, loads, tip, tip_exact) = flagship_scene(ftt)
+    scene, (nodes, elements, fixed, loads, tip, tip_exact) = flagship_scene()
     say(f"  scene: {FLAGSHIP} voxels, {scene.n_dof} DOF on {scene.device}")
 
     zero_counts(cuda_stencil.LAUNCHES, cuda_varstencil.LAUNCHES)
@@ -948,86 +918,6 @@ def run_slice(ftt, cuda_stencil, cuda_varstencil) -> tuple[dict, dict]:
     freeze_checks(op_hi, mg, scene.loads, scene.prescribed_or_zero(torch.float64))
     return launches, dict(scene=scene, op_hi=op_hi, mg=mg, u=u, iterations=st.iterations, tip=tip,
                           tip_exact=tip_exact, dims=dims, ke=ke)
-
-
-def distorted_scene_arrays(ftt, dims, lz=1.0):
-    """tools/curv_bench.py's scene: a 0.1 x 0.1 x lz box, interior nodes
-    moved by 0.25 h U(-1, 1) (seed 7, h = 0.1 / nx), z = 0 fixed, a total
-    +y load of 1.0 on the tip face. Returns the arrays and the generator,
-    which tools/canon_bench.py goes on drawing from."""
-    nx, ny, nz = dims
-    nodes, elements = ftt.mesh.box_hex_mesh(nx, ny, nz, 0.1, 0.1, lz)
-    rng = np.random.default_rng(7)
-    h = 0.1 / nx
-    interior = (nodes[:, 2] > 0) & (nodes[:, 2] < lz)
-    nodes = nodes + 0.25 * h * rng.uniform(-1, 1, nodes.shape) * interior[:, None]
-    return nodes, elements, rng
-
-
-def cantilever_bcs(ftt, nodes, lz=1.0):
-    fixed = ftt.fix_where(nodes, lambda q: np.isclose(q[:, 2], 0.0), 3)
-    loads = np.zeros_like(nodes)
-    tip = np.isclose(nodes[:, 2], lz)
-    loads[tip, 1] = 1.0 / tip.sum()
-    return fixed, loads, tip
-
-
-# Natural coordinates of the hex8 corners (bottom face counter-clockwise,
-# then the top face), written out here rather than taken from the package
-_HEX_SIGNS = np.array([[-1, -1, -1], [1, -1, -1], [1, 1, -1], [-1, 1, -1],
-                       [-1, -1, 1], [1, -1, 1], [1, 1, 1], [-1, 1, 1]], np.float64)
-
-
-def host_ku(nodes, elements, E, nu, u, chunk=32_768):
-    """K u in NumPy f64, element by element through the connectivity.
-
-    At each 2x2x2 Gauss point of each element the displacement gradient
-    gives the stress sigma = lam tr(eps) I + 2 mu eps, which goes back to
-    corner a as detJ sigma grad N_a; the corner forces are summed into
-    their nodes. The Jacobian is inverted by its cofactors. No weight
-    field, stencil, B matrix or Voigt order: this shares no code with the
-    package's assembly or its kernels. Chunks of elements run on the
-    host's cores; their forces are summed in chunk order.
-    """
-    lam = E * nu / ((1.0 + nu) * (1.0 - 2.0 * nu))
-    mu = E / (2.0 * (1.0 + nu))
-
-    def forces(e0):
-        el = elements[e0 : e0 + chunk]
-        X, U = nodes[el], u[el]  # (E, 8, 3)
-        f = np.zeros_like(U)
-        for q in _HEX_SIGNS / np.sqrt(3.0):
-            t = 1.0 + q * _HEX_SIGNS  # (8, 3)
-            dN = _HEX_SIGNS / 8.0 * np.stack([t[:, 1] * t[:, 2], t[:, 0] * t[:, 2], t[:, 0] * t[:, 1]], 1)
-            J = np.transpose(X, (0, 2, 1)) @ dN  # J[e, j, i] = dx_j / dxi_i
-            # row i of J^-1 is (column i+1 x column i+2) / det
-            cof = np.stack([np.cross(J[:, :, (i + 1) % 3], J[:, :, (i + 2) % 3]) for i in range(3)], 1)
-            det = np.einsum("ej,ej->e", J[:, :, 0], cof[:, 0])
-            G = dN @ (cof / det[:, None, None])  # dN_a / dx_j
-            H = np.transpose(U, (0, 2, 1)) @ G  # du_i / dx_j
-            eps = 0.5 * (H + np.transpose(H, (0, 2, 1)))
-            sig = 2.0 * mu * eps
-            sig[:, [0, 1, 2], [0, 1, 2]] += lam * np.trace(eps, axis1=1, axis2=2)[:, None]
-            f += det[:, None, None] * (G @ sig)
-        return f
-
-    Ku = np.zeros_like(u)
-    starts = range(0, elements.shape[0], chunk)
-    with ThreadPoolExecutor(max_workers=os.cpu_count()) as pool:
-        for e0, f in zip(starts, pool.map(forces, starts)):
-            el = elements[e0 : e0 + chunk]
-            for c in range(3):
-                Ku[:, c] += np.bincount(el.ravel(), weights=f[..., c].ravel(), minlength=u.shape[0])
-    return Ku
-
-
-def host_check(nodes, elements, mat, fixed, loads, u):
-    """(Ku, true relative residual) of the masked system in NumPy f64,
-    from :func:`host_ku`: independent of the device assembly and of the
-    kernels."""
-    Ku = host_ku(nodes, elements, float(mat.E), float(mat.nu), u)
-    F = 1.0 - fixed.astype(np.float64)
-    return Ku, float(np.linalg.norm(F * (loads - Ku)) / np.linalg.norm(F * loads))
 
 
 # the runtime calls by which the host puts work on the card
@@ -1138,10 +1028,8 @@ def time_detectors(scene, renumbered: bool = False) -> list[str]:
 def run_curvilinear(ftt, cuda_stencil, cuda_varstencil) -> dict:
     from fea_tpu_torch.ops.curvilinear import infer_topo_dims
 
-    nodes, elements, _ = distorted_scene_arrays(ftt, CURV)
-    fixed, loads, tip = cantilever_bcs(ftt, nodes)
-    mat = ftt.Material(E=10_000_000 * ftt.units.psi, nu=0.3)
-    scene = ftt.make_scene(nodes, elements, fixed, loads, mat, dtype=torch.float64)
+    scene, h = scenes.distorted(CURV, device=DEV)
+    nodes, elements, fixed, loads, tip, mat = (h[k] for k in ("nodes", "elements", "fixed", "loads", "tip", "mat"))
     if scene.device.type != DEV or infer_topo_dims(scene) != CURV:
         raise AssertionError(f"scene on {scene.device}, topology {infer_topo_dims(scene)}")
     say(f"  scene: {CURV} distorted grid, {scene.n_dof} DOF on {scene.device}")
@@ -1256,17 +1144,10 @@ def cached_second_solve(ftt, scene, new_loads, first_wall: float, host_rel, chec
 
 
 def run_canonical(ftt, cuda_stencil, cuda_varstencil) -> None:
-    nodes, elements, rng = distorted_scene_arrays(ftt, CANON)
-    N = nodes.shape[0]
-    pi = rng.permutation(N)  # original node k is node pi[k] of the renumbered scene
-    inv = np.empty_like(pi)
-    inv[pi] = np.arange(N)
-    nodes_r = nodes[inv]
-    el_r = pi[elements]
-    el_r = el_r[rng.permutation(el_r.shape[0])]
-    fixed_r, loads_r, _ = cantilever_bcs(ftt, nodes_r)
-    mat = ftt.Material(E=10_000_000 * ftt.units.psi, nu=0.3)
-    scene = ftt.make_scene(nodes_r, el_r, fixed_r, loads_r, mat, dtype=torch.float64)
+    scene, h = scenes.renumbered(CANON, device=DEV)
+    # the original mesh; its node k is node pi[k] of the renumbered scene
+    nodes, elements, pi = h["orig_nodes"], h["orig_elements"], h["pi"]
+    nodes_r, fixed_r, loads_r, mat = h["nodes"], h["fixed"], h["loads"], h["mat"]
     say(f"  scene: {CANON} distorted grid renumbered, {scene.n_dof} DOF on {scene.device}")
     say("  set-up before the solve: " + ", ".join(time_detectors(scene, renumbered=True)))
     zero_counts(cuda_stencil.LAUNCHES, cuda_varstencil.LAUNCHES)
@@ -1473,7 +1354,7 @@ def run_cubebeam(ftt, counters) -> dict:
 
 def run_voxel_ebe(ftt, counters) -> dict:
     nodes, elements = ftt.mesh.box_hex_mesh(*EBE_BOX, 0.1, 0.1, EBE_LZ)
-    fixed, loads, tip = cantilever_bcs(ftt, nodes, EBE_LZ)
+    fixed, loads, tip = scenes.cantilever_bcs(nodes, EBE_LZ)
     mat = ftt.Material(E=10_000_000 * ftt.units.psi, nu=0.3)
     scene = ftt.make_scene(nodes, elements, fixed, loads, mat, dtype=torch.float64)
     say(f"  scene: {EBE_BOX} voxels, 0.1 x 0.1 x {EBE_LZ}, {scene.n_dof} DOF on {scene.device}")
@@ -1531,8 +1412,8 @@ def run_voxel_ebe(ftt, counters) -> dict:
 
 
 def run_distorted_ebe(ftt, counters) -> dict:
-    nodes, elements, _ = distorted_scene_arrays(ftt, EBE_BOX, EBE_LZ)
-    fixed, loads, _ = cantilever_bcs(ftt, nodes, EBE_LZ)
+    nodes, elements, _ = scenes.distorted_arrays(EBE_BOX, EBE_LZ)
+    fixed, loads, _ = scenes.cantilever_bcs(nodes, EBE_LZ)
     mat = ftt.Material(E=10_000_000 * ftt.units.psi, nu=0.3)
     scene = ftt.make_scene(nodes, elements, fixed, loads, mat, dtype=torch.float64)
     say(f"  scene: {EBE_BOX} distorted, {scene.n_dof} DOF")
@@ -1833,7 +1714,7 @@ def run_capacity(ftt, counters) -> dict:
     from fea_tpu_torch.solve import solve_operator_fpcg_staged
 
     t0 = time.perf_counter()
-    scene, (nodes, elements, fixed, loads, tip, tip_exact) = flagship_scene(ftt, CAPACITY)
+    scene, (nodes, elements, fixed, loads, tip, tip_exact) = flagship_scene(CAPACITY)
     say(f"  scene: {CAPACITY} voxels, {scene.n_dof} DOF on {scene.device} (mesh and scene "
         f"{time.perf_counter() - t0:.2f} s)")
     torch.cuda.empty_cache()
@@ -1996,7 +1877,7 @@ def run_many(ftt, counters) -> dict:
     x U(-1, 1), each times 100 / tip nodes). Every case must converge with a
     host f64 true residual (``host_ku``) <= 1e-8, and case 0 must agree with
     a single ``solve()`` of it within 10 tol. Returns the batch's launches."""
-    scene, (nodes, elements, fixed, _, tip, _) = flagship_scene(ftt)
+    scene, (nodes, elements, fixed, _, tip, _) = flagship_scene()
     rng = np.random.default_rng(17)
     batch = np.zeros((MANY_CASES,) + nodes.shape)
     for i in range(MANY_CASES):
@@ -2032,26 +1913,6 @@ def run_many(ftt, counters) -> dict:
         "K2 launched": counts["f64"] > 0,
     }, "solve_many")
     return counts
-
-
-def arbitrary_scene(ftt, dims):
-    """tools/arbitrary_bench.py's scene at ``dims``: the L-domain
-    ``l_hex_mesh(nx, ny, nz, 0.1, 0.1, 0.1 nz / nx)``, interior nodes moved
-    by 0.2 h U(-1, 1) (seed 7, h = 0.1 / nx), z = 0 fixed, a +y load of
-    1 / n_tip on the tip face, E = 10e6 psi, nu = 0.3; on the card."""
-    nx, ny, nz = dims
-    lz = 0.1 * nz / nx
-    nodes, elements = ftt.mesh.l_hex_mesh(nx, ny, nz, 0.1, 0.1, lz)
-    rng = np.random.default_rng(7)
-    interior = (nodes[:, 2] > 1e-12) & (nodes[:, 2] < lz - 1e-12)
-    nodes = nodes + 0.2 * (0.1 / nx) * rng.uniform(-1, 1, nodes.shape) * interior[:, None]
-    fixed = ftt.fix_where(nodes, lambda q: np.isclose(q[:, 2], 0.0), 3)
-    loads = np.zeros_like(nodes)
-    tip = np.isclose(nodes[:, 2], lz)
-    loads[tip, 1] = 1.0 / tip.sum()
-    mat = ftt.Material(E=10_000_000 * ftt.units.psi, nu=0.3)
-    scene = ftt.make_scene(nodes, elements, fixed, loads, mat, dtype=torch.float64, device=DEV)
-    return scene, dict(nodes=nodes, elements=elements, fixed=fixed, loads=loads, tip=tip, mat=mat)
 
 
 def timed(fn):
@@ -2156,7 +2017,7 @@ def run_embedded(ftt, counters) -> dict:
     from fea_tpu_torch.solve import embed, staged
 
     solve_mod = sys.modules["fea_tpu_torch.solve"]
-    scene, a = arbitrary_scene(ftt, ARBITRARY)
+    scene, a = scenes.l_domain(ARBITRARY, device=DEV)
     nodes, elements, fixed, mat = a["nodes"], a["elements"], a["fixed"], a["mat"]
     say(f"  scene: {ARBITRARY} L-domain, {scene.n_dof} DOF, {scene.n_elements} elements on {scene.device}")
     ftt.clear_build_cache()
@@ -2284,7 +2145,7 @@ def run_amg(ftt, counters) -> dict:
     from fea_tpu_torch.solve import cache, staged
 
     solve_mod = sys.modules["fea_tpu_torch.solve"]
-    scene, a = arbitrary_scene(ftt, ARBITRARY)
+    scene, a = scenes.l_domain(ARBITRARY, device=DEV)
     nodes, elements, fixed, mat = a["nodes"], a["elements"], a["fixed"], a["mat"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2377,7 +2238,7 @@ def run_two_level(ftt, counters) -> dict:
     from fea_tpu_torch.solve import staged
 
     solve_mod = sys.modules["fea_tpu_torch.solve"]
-    scene, a = arbitrary_scene(ftt, TWO_LEVEL_L)
+    scene, a = scenes.l_domain(TWO_LEVEL_L, device=DEV)
     nodes, elements, fixed, mat = a["nodes"], a["elements"], a["fixed"], a["mat"]
     say(f"  scene: {TWO_LEVEL_L} L-domain, {scene.n_dof} DOF, {scene.n_elements} elements")
     ftt.clear_build_cache()
@@ -2446,31 +2307,8 @@ TUBE = (256, 384)  # tools/tube_bench.py's defaults: 591,360 DOF, 512 nodes and 
 # iterations of the JAX package on its TPU on that scene (As = 64, degree 3), a
 # count, not a time: docs/PERF.md:617-630, 889
 TUBE_REF_ITERS = 26
-TUBE_LOAD = 1000.0  # lbf, tools/tube_bench.py's cosine tip load
+TUBE_LOAD = scenes.TUBE_LOAD  # lbf, tools/tube_bench.py's cosine tip load
 TUBE_CASES = 4
-
-
-def tube_scene(ftt):
-    """tools/tube_bench.py's scene on the card: a 256-segment annulus of 4 in
-    and 3.9 in radii, 2 ft long, 384 element layers, z = 0 fixed, E = 10e6
-    psi, nu = 0.3, a cosine-weighted 1000 lbf downward load on the lower
-    outer tip ring. Returns the scene and its host arrays (``w``: the load's
-    weights, summing to 1)."""
-    units = ftt.units
-    r_out, r_in, length = 4 * units.inch, 3.9 * units.inch, 2 * units.ft
-    nodes2d, quads = ftt.mesh.annulus_section(TUBE[0], r_in, r_out)
-    nodes, elements = ftt.mesh.extrude_quads(nodes2d, quads, np.linspace(0.0, length, TUBE[1] + 1))
-    fixed = ftt.fix_where(nodes, lambda p: p[:, 2] == 0.0, 3)
-    tip = nodes[:, 2] == nodes[:, 2].max()
-    sel = tip & (np.abs(np.hypot(nodes[:, 0], nodes[:, 1]) - r_out) < 1e-9) & (nodes[:, 1] < 0)
-    w = np.zeros(nodes.shape[0])
-    w[sel] = np.cos(0.5 * np.pi * nodes[sel, 0] / r_out)
-    w /= w.sum()
-    loads = np.zeros_like(nodes)
-    loads[:, 1] = -TUBE_LOAD * w
-    mat = ftt.Material(E=10_000_000 * units.psi, nu=0.3)
-    scene = ftt.make_scene(nodes, elements, fixed, loads, mat, dtype=torch.float64, device=DEV)
-    return scene, dict(nodes=nodes, elements=elements, fixed=fixed, loads=loads, w=w, mat=mat)
 
 
 def tensor_bytes(*objs) -> int:
@@ -2528,7 +2366,7 @@ def run_extruded(ftt, counters) -> dict:
     from fea_tpu_torch.solve import staged
 
     solve_mod = sys.modules["fea_tpu_torch.solve"]
-    scene, a = tube_scene(ftt)
+    scene, _, a = scenes.tube(*TUBE, device=DEV)
     nodes, elements, fixed, mat, loads = a["nodes"], a["elements"], a["fixed"], a["mat"], a["loads"]
     say(f"  scene: {TUBE[0]}-segment annulus x {TUBE[1]} layers, {scene.n_dof} DOF, {scene.n_elements} elements "
         f"on {scene.device}; TF32 for matmul {torch.backends.cuda.matmul.allow_tf32}")
@@ -2882,10 +2720,10 @@ def run_sharded_modes(ftt, counters, flagship_ref: dict, curv_ref: dict, cuda_va
 
     say(f"  [18.2] shard_operator: the {EBE_BOX} box (K7 f64) and its distorted twin's stored operator (K6 f64)")
     nodes, elements = ftt.mesh.box_hex_mesh(*EBE_BOX, 0.1, 0.1, EBE_LZ)
-    fixed, loads, tip = cantilever_bcs(ftt, nodes, EBE_LZ)
+    fixed, loads, tip = scenes.cantilever_bcs(nodes, EBE_LZ)
     mat = ftt.Material(E=10_000_000 * ftt.units.psi, nu=0.3)
     box = ftt.make_scene(nodes, elements, fixed, loads, mat, dtype=torch.float64)
-    dnodes, _, _ = distorted_scene_arrays(ftt, EBE_BOX, EBE_LZ)
+    dnodes, _, _ = scenes.distorted_arrays(EBE_BOX, EBE_LZ)
     twin = ftt.make_scene(dnodes, elements, fixed, loads, mat, dtype=torch.float64)
     mf = ftt.build_operator(twin, dtype=torch.float64)
     stored = dataclasses.replace(mf, kind="stored", ke=mf.element_matrices().contiguous(), geom=None, material=None)
@@ -3019,7 +2857,7 @@ def run_sharded_modes(ftt, counters, flagship_ref: dict, curv_ref: dict, cuda_va
     del op_s, mg_s, sol
 
     say("  [18.6] shard_extruded on [17]'s tube through solve_extruded")
-    tube, a = tube_scene(ftt)
+    tube, _, a = scenes.tube(*TUBE, device=DEV)
     det = infer_extruded(tube)
     op, pc = ftt.build_extruded(tube, det)
     presc = tube.prescribed_or_zero(torch.float64)
@@ -3209,7 +3047,7 @@ def run_debug_nans(ftt, cuda_stencil, flagship_ref: dict) -> None:
         f"{du:.3e}; host f64 true residual {rel_host:.3e}")
 
     nodes, elements = ftt.mesh.box_hex_mesh(*EBE_BOX, 0.1, 0.1, EBE_LZ)
-    fixed_b, loads_b, tip = cantilever_bcs(ftt, nodes, EBE_LZ)
+    fixed_b, loads_b, tip = scenes.cantilever_bcs(nodes, EBE_LZ)
     loads_b[np.nonzero(tip)[0][0], 1] = np.nan
     bad = ftt.make_scene(nodes, elements, fixed_b, loads_b, ftt.Material(E=10_000_000 * ftt.units.psi, nu=0.3),
                          dtype=torch.float64)
@@ -3363,7 +3201,7 @@ def run_rest(ftt, counters, cuda_stencil, flagship_ref: dict) -> dict:
 
     mat = ftt.Material(E=10_000_000 * ftt.units.psi, nu=0.3)
     say(f"  [19.1] refinement on the {REFINE_VOXEL} voxel cantilever: K2 outside, K1 inside, Jacobi")
-    scene, (nodes, elements, fixed, loads, _, _) = flagship_scene(ftt, REFINE_VOXEL)
+    scene, (nodes, elements, fixed, loads, _, _) = flagship_scene(REFINE_VOXEL)
     op_hi = build_structured_operator(scene, REFINE_VOXEL, dtype=torch.float64)
     plain = ftt.solve(scene, tol=REFINE_TOL)
     voxel = run_refined_case(ftt, counters, "voxel", op_hi, scene, (nodes, elements, mat, fixed, loads),
@@ -3372,12 +3210,12 @@ def run_rest(ftt, counters, cuda_stencil, flagship_ref: dict) -> dict:
 
     say(f"  [19.2] refinement on the {EBE_BOX} box (K7) and its distorted twin's stored operator (K6)")
     box_nodes, box_el = ftt.mesh.box_hex_mesh(*EBE_BOX, 0.1, 0.1, EBE_LZ)
-    dist_nodes, _, _ = distorted_scene_arrays(ftt, EBE_BOX, EBE_LZ)
+    dist_nodes, _, _ = scenes.distorted_arrays(EBE_BOX, EBE_LZ)
     for label, nd, kind, keys, jax_iters in (("box", box_nodes, "uniform", ("uniform_f32", "uniform_f64"),
                                               EBE_JAX_ITERS),
                                              ("stored", dist_nodes, "stored", ("stored_f32", "stored_f64"),
                                               EBE_DISTORTED_JAX_ITERS)):
-        fx, ld, _ = cantilever_bcs(ftt, nd, EBE_LZ)
+        fx, ld, _ = scenes.cantilever_bcs(nd, EBE_LZ)
         sc = ftt.make_scene(nd, box_el, fx, ld, mat, dtype=torch.float64)
         op = build_operator(sc, dtype=torch.float64)
         if kind == "stored":
@@ -3403,6 +3241,60 @@ def run_rest(ftt, counters, cuda_stencil, flagship_ref: dict) -> dict:
     say("  [19.7] the demos, in this process, on the card")
     run_demos(ftt, counters)
     return launches
+
+
+# bench_torch.py's run in [20]: its budgets keep every child it starts
+# inside this script's time
+BENCH_ARGS = ["--repeats", "2", "--budget-s", "800", "--family-timeout-s", "240"]
+BENCH_TIMEOUT_S = 850
+BENCH_REF_ITERS = 13  # BENCH_r04's flagship (the JAX package on its TPU): a count, not a time
+# n_dof of each family as the JAX tools build it (bench.py:541-597)
+BENCH_FAMILY_DOF = {"extruded": 591_360, "curvilinear": 181_875, "canonicalized": 181_875, "arbitrary": 554_115,
+                    "curvilinear_812k": 811_923, "capacity_8m": 8_124_675}
+
+
+def run_bench() -> None:
+    """Phase [20]: bench_torch.py in a child process (its own process
+    group, killed whole on a timeout), gated on its final line."""
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, str(ROOT / "bench_torch.py"), *BENCH_ARGS]
+    say(f"  {' '.join(cmd[1:])}")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+    wall = time.perf_counter() - t0
+    for line in err.splitlines():
+        if any(w in line for w in ("warm-up done", "repeat ", "family ", "FAILED", "Error")):
+            say("  " + line)
+    lines = out.strip().splitlines()
+    last = lines[-1] if lines else ""
+    say(f"  rc {proc.returncode} after {wall:.1f} s; its final line ({len(last.encode())} bytes):")
+    say(last)
+    try:
+        rec = json.loads(last)
+    except json.JSONDecodeError:
+        rec = {}
+    fam = rec.get("families") or {}
+    checks = {
+        "rc 0": proc.returncode == 0,
+        "final line <= 1,500 bytes": 0 < len(last.encode()) <= 1500,
+        "metric assemble_solve_dof_per_s": rec.get("metric") == "assemble_solve_dof_per_s",
+        "flagship converged": rec.get("converged") is True,
+        "flagship n_dof 1,048,707": rec.get("n_dof") == 1_048_707,
+        "flagship host true residual <= 1e-8": (rec.get("relative_residual") or 1.0) <= 1e-8,
+        f"flagship tip ratio in {TIP_BAND}": TIP_BAND[0] < (rec.get("tip_ratio") or 0.0) < TIP_BAND[1],
+        f"flagship iterations <= {BENCH_REF_ITERS}": (rec.get("iterations") or 10**9) <= BENCH_REF_ITERS,
+        "numerics check <= 1e-12": (rec.get("numerics_check") or 1.0) <= 1e-12,
+    }
+    for name, n_dof in BENCH_FAMILY_DOF.items():
+        entry = fam.get(name) or {}
+        checks[f"{name} converged at {n_dof:,} DOF"] = entry.get("converged") is True and entry.get("n_dof") == n_dof
+    require(checks, "bench_torch.py")
 
 
 def main() -> None:
@@ -3498,6 +3390,9 @@ def main() -> None:
     for key, n in run_rest(ftt, counters, cuda_stencil, flagship_ref).items():
         report[key]["refined_launches"] = n
     del flagship_ref
+
+    phase("[20] the benchmark: bench_torch.py with its families, in a child process")
+    run_bench()
 
     say(json.dumps({"kernels": [
         dict(name=spec["name"], route="cuda", source=spec["source"], replaces=spec["replaces"],

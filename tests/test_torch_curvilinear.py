@@ -238,16 +238,18 @@ def test_curvilinear_solve_matches_jax(prescribed, large_routes_for_small_scenes
 
 
 def test_smoke_oracle_matches_jax(rng):
-    """chip_smoke.py's host K u, element by element and sharing no code
-    with either package's assembly, against the reference's host field."""
-    import chip_smoke
+    """The benchmark's host K u (``fea_tpu_torch.bench._family.host_ku``,
+    which chip_smoke.py's host checks use too), element by element and
+    sharing no code with either package's assembly, against the
+    reference's host field."""
+    from fea_tpu_torch.bench._family import host_ku
 
     dims = (3, 4, 6)
     nodes, elements, _, _ = distorted(*dims)
     u = rng.standard_normal(nodes.shape)
     w = jcv.assemble_curv_weights_np(nodes, dims, ft.Material(**MAT))
     want = jcv.curv_apply_np(w, u.reshape(7, 5, 4, 3)).reshape(-1, 3)
-    got = chip_smoke.host_ku(nodes, elements, MAT["E"], MAT["nu"], u, chunk=20)  # several chunks
+    got = host_ku(nodes, elements, MAT["E"], MAT["nu"], u, chunk=20)  # several chunks
     assert np.max(np.abs(got - want)) <= 1e-12 * np.max(np.abs(want))
 
 

@@ -133,11 +133,13 @@ def test_import_leaves_jax_out():
     from fea_tpu_torch.examples import NAMES
 
     examples = ", ".join(f"fea_tpu_torch.examples.{n}" for n in NAMES)
+    benches = ", ".join(f"fea_tpu_torch.bench.{n}"
+                        for n in ("scenes", "_family", "tube", "curv", "canon", "arbitrary"))
     code = (
         "import sys, fea_tpu_torch, fea_tpu_torch.ops.multigrid, fea_tpu_torch.solve.fpcg, "
         "fea_tpu_torch.utils, fea_tpu_torch.utils.cache, fea_tpu_torch.native, fea_tpu_torch.viz.mpl, "
-        f"fea_tpu_torch.sanitize, fea_tpu_torch.solvers.refine, {examples}; "
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'fea_tpu')]; "
+        f"fea_tpu_torch.sanitize, fea_tpu_torch.solvers.refine, {examples}, {benches}, bench_torch, chip_smoke; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'fea_tpu', 'tools')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
     proc = subprocess.run(

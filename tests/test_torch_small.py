@@ -20,6 +20,7 @@ import fea_tpu as ft
 from fea_tpu.elements import beam as jbeam
 
 import fea_tpu_torch as ftt
+from fea_tpu_torch.bench import scenes
 from fea_tpu_torch.elements import truss
 
 from oracle import assemble_sparse, solve_reduced
@@ -474,7 +475,7 @@ def test_smoke_yardstick_of_the_voxel_box_matches_jax():
     nx, ny, nz = chip_smoke.EBE_BOX
     lz = chip_smoke.EBE_LZ
     nodes, elements = ft.mesh.box_hex_mesh(nx, ny, nz, 0.1, 0.1, lz)
-    fixed, loads, _ = chip_smoke.cantilever_bcs(ftt, nodes, lz)
+    fixed, loads, _ = scenes.cantilever_bcs(nodes, lz)
     mat = dict(E=10_000_000 * ft.units.psi, nu=0.3)
     jsc = ft.make_scene(nodes, elements, fixed, loads, ft.Material(**mat), dtype=jnp.float64)
     assert 2000 <= jsc.n_dof < SOLVE._STRUCTURED_MIN_DOF
@@ -494,8 +495,8 @@ def test_smoke_yardstick_of_the_distorted_box_matches_jax():
     scene; fea_tpu solves it here on the CPU."""
     import chip_smoke
 
-    nodes, elements, _ = chip_smoke.distorted_scene_arrays(ft, chip_smoke.EBE_BOX, chip_smoke.EBE_LZ)
-    fixed, loads, _ = chip_smoke.cantilever_bcs(ft, nodes, chip_smoke.EBE_LZ)
+    nodes, elements, _ = scenes.distorted_arrays(chip_smoke.EBE_BOX, chip_smoke.EBE_LZ)
+    fixed, loads, _ = scenes.cantilever_bcs(nodes, chip_smoke.EBE_LZ)
     jsc = ft.make_scene(nodes, elements, fixed, loads, ft.Material(E=10_000_000 * ft.units.psi, nu=0.3),
                         dtype=jnp.float64)
     assert 2000 <= jsc.n_dof < SOLVE._STRUCTURED_MIN_DOF
