@@ -52,7 +52,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 from fea_tpu_torch.bench import scenes  # noqa: E402
-from fea_tpu_torch.bench._family import device_label, graph_ms, peak_gb, reset_peak, sync  # noqa: E402
+from fea_tpu_torch.bench._family import (device_label, graph_ms, host_stencil_residual, peak_gb,  # noqa: E402
+                                         reset_peak, sync)
 
 BASELINE_DOF_PER_S = 218.0  # BASELINE.md end-to-end reference measurement
 TIP_BAND = (0.70, 1.30)  # acceptable FEM/beam-theory tip-deflection ratio
@@ -61,20 +62,26 @@ HBM_BYTES_PER_S = 3.35e12  # NVIDIA H100 SXM data sheet, at the full 700 W
 FINAL_LINE_BYTES = 1500
 OUT_DIR = ROOT / "bench_torch_out"
 
-# bench.py's family list (bench.py:541-597), in its order: (name, the
-# child's arguments after the interpreter). The last two are escalations
-# and run only with more headroom.
+# bench.py's family list (bench.py:541-597), in its order, with the
+# records of tools/many_bench.py and tools/unstructured_bench.py after
+# ``arbitrary``: (name, the child's arguments after the interpreter). The
+# last three are escalations and run only with more headroom.
 FAMILIES = (
     ("extruded", ["-m", "fea_tpu_torch.bench.tube", "--segments", "256", "--layers", "384", "--repeats", "1"]),
     ("curvilinear", ["-m", "fea_tpu_torch.bench.curv", "--nx", "24", "--ny", "24", "--nz", "96", "--repeats", "2"]),
     ("canonicalized", ["-m", "fea_tpu_torch.bench.canon", "--nx", "24", "--ny", "24", "--nz", "96", "--repeats", "2"]),
     ("arbitrary", ["-m", "fea_tpu_torch.bench.arbitrary", "--nx", "40", "--ny", "40", "--nz", "144", "--repeats", "2"]),
+    ("many", ["-m", "fea_tpu_torch.bench.many", "--nx", "32", "--ny", "32", "--nz", "320", "--cases", "8"]),
+    ("unstructured", ["-m", "fea_tpu_torch.bench.unstructured", "--nx", "24", "--ny", "24", "--nz", "96",
+                      "--repeats", "2"]),
     ("curvilinear_812k", ["-m", "fea_tpu_torch.bench.curv", "--nx", "40", "--ny", "40", "--nz", "160",
                           "--repeats", "2"]),
+    ("unstructured_812k", ["-m", "fea_tpu_torch.bench.unstructured", "--nx", "40", "--ny", "40", "--nz", "160",
+                           "--repeats", "2"]),
     ("capacity_8m", [str(ROOT / "bench_torch.py"), "--nx", "64", "--ny", "64", "--nz", "640", "--repeats", "1",
                      "--no-families", "--skip-numerics-check", "--budget-s", "400"]),
 )
-ESCALATIONS = ("curvilinear_812k", "capacity_8m")
+ESCALATIONS = ("curvilinear_812k", "unstructured_812k", "capacity_8m")
 _T0 = time.perf_counter()
 
 
@@ -110,17 +117,6 @@ def parse(argv=None) -> argparse.Namespace:
     p.add_argument("--no-families", action="store_true", help="skip the family benches")
     p.add_argument("--family-timeout-s", type=float, default=480.0, help="per-family child process timeout")
     return p.parse_args(argv)
-
-
-def host_relative_residual(ke: np.ndarray, dims, fixed: np.ndarray, loads: np.ndarray, u: np.ndarray) -> float:
-    """The true relative residual ||F (f - K u)|| / ||F f|| in NumPy f64,
-    K u by the host's exact stencil (``native.stencil_apply_host``)."""
-    from fea_tpu_torch.native import stencil_apply_host
-
-    nx, ny, nz = dims
-    Ku = stencil_apply_host(ke, u.reshape(nz + 1, ny + 1, nx + 1, 3), dims).reshape(-1, 3)
-    F = 1.0 - fixed.astype(np.float64)
-    return float(np.linalg.norm(F * (loads - Ku)) / np.linalg.norm(F * loads))
 
 
 def numerics_check(op_hi, device) -> float:
@@ -210,7 +206,7 @@ def run_flagship(args, device) -> dict:
     best = min(times) if times else first_wall
 
     u = sol.displacements.cpu().numpy()
-    rel = host_relative_residual(op_hi.ke.cpu().numpy(), dims, h["fixed"], h["loads"], u)
+    rel = host_stencil_residual(op_hi.ke.cpu().numpy(), dims, h["fixed"], h["loads"], u)
     tip_fem = float(u[h["tip"], 1].mean())
     dof_per_s = scene.n_dof / best
     result = {
@@ -264,11 +260,15 @@ def family_summary(rec: dict) -> dict:
     this script's own for the capacity child)."""
     if "dof_per_s" not in rec and "value" in rec:  # a bench_torch.py child
         rec = dict(rec, dof_per_s=rec["value"], t_solve=rec.get("wall_s"))
+    if "worst_relative_residual" in rec:  # the many child: its worst case and its batch
+        rec = dict(rec, relative_residual=rec["worst_relative_residual"], t_solve=rec.get("t_batch_warm"),
+                   iterations=max(rec["iterations"], default=None))
     out = {k: rec.get(k) for k in ("n_dof", "iterations", "converged", "relative_residual")}
-    out["wall_s"] = rec.get("t_solve", rec.get("value"))
+    out["wall_s"] = rec.get("t_solve", rec.get("solve_s_best", rec.get("value")))
     out["dof_per_s"] = rec.get("dof_per_s")
-    if "route" in rec:
-        out["route"] = rec["route"]
+    for key in ("route", "cases", "per_case_s", "amortized_ratio", "n_aggregates"):
+        if key in rec:
+            out[key] = rec[key]
     return out
 
 
@@ -339,7 +339,15 @@ FINAL_KEYS = ("metric", "value", "vs_baseline", "converged", "n_dof", "n_element
               "relative_residual", "wall_s", "first_wall_s", "spread_s", "stage_s", "tip_deflection_m",
               "tip_beam_theory_m", "tip_ratio", "solver", "numerics_check", "f64_apply_ms", "hbm_share",
               "peak_mem_gb", "device", "error")
-DROPPABLE = ("spread_s", "stage_s", "peak_mem_gb", "first_wall_s")
+# The flagship's droppables, then every family entry's (the full records
+# keep them all): the route's name, the two-level aggregates, the batch's
+# wall a case (its wall over its cases), DOF/s (DOF over the wall), the
+# batch's cases and its amortized ratio; last the flagship's beam theory
+# (its tip deflection over its tip ratio).
+DROPPABLE = (*(("flagship", k) for k in ("spread_s", "stage_s", "peak_mem_gb", "first_wall_s")),
+             *(("family", k) for k in ("route", "n_aggregates", "per_case_s", "dof_per_s", "cases",
+                                       "amortized_ratio")),
+             ("flagship", "tip_beam_theory_m"))
 
 
 def _short(v):
@@ -363,10 +371,11 @@ def final_line(result: dict) -> str:
                                                                                          "stage_reached")}
                             for name, entry in result["families"].items()}
     text = json.dumps(line, separators=(",", ":"))
-    for key in DROPPABLE:
+    for scope, key in DROPPABLE:
         if len(text.encode()) <= FINAL_LINE_BYTES:
             break
-        line.pop(key, None)
+        for entry in [line] if scope == "flagship" else (line.get("families") or {}).values():
+            entry.pop(key, None)
         text = json.dumps(line, separators=(",", ":"))
     for width in (80, 40, 0):
         if len(text.encode()) <= FINAL_LINE_BYTES:

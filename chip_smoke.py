@@ -114,8 +114,9 @@ Phases, in order:
      the shards, K1/K2 only on the replicated coarse levels); wall time,
      launches an iteration and busy share (device time over the profiled
      run's wall) of both solves from a torch.profiler trace;
- 13. ``solve_many``: tools/many_bench.py's 8 tip-load cases on the
-     flagship grid, each host-checked by ``host_ku``, case 0 against a
+ 13. ``solve_many``: tools/many_bench.py's 8 tip-load cases
+     (``fea_tpu_torch.bench.many.tip_loads``) on the flagship grid, each
+     host-checked by ``host_ku``, case 0 against a
      single ``solve()``, the batch's wall a case beside one warm solve,
      peak memory;
  14. embedded slice: bench.py's ``arbitrary`` cell (tools/arbitrary_bench.py:
@@ -188,13 +189,25 @@ Phases, in order:
      of ``fea_tpu_torch.examples`` in this process, its printed anchors
      against the CPU's;
  20. the benchmark: ``python bench_torch.py --repeats 2`` as a child
-     process at its default shapes, with its six families: rc 0, its final
+     process at its default shapes, with its nine families: rc 0, its final
      line (printed here) at most 1,500 bytes, the flagship converged with
      a host f64 true residual <= 1e-8, a tip ratio in (0.70, 1.30), at
      most 13 iterations (the reference's BENCH_r04 count) and its f64 apply
      within 1e-12 of the host's exact one, and every family converged at
-     its JAX tool's DOF count;
- 21. one JSON line of the kernels (K1, K2, K6, K7 with their launches in
+     its JAX tool's DOF count (``many``: every one of its 8 cases;
+     ``unstructured`` at 181,875 and ``unstructured_812k`` at 811,923 DOF);
+ 21. the measurement tools of ``fea_tpu_torch.bench``, each a child process
+     with its own timeout, each gated on rc 0: ``spmv`` at the flagship
+     (every operator mode within 2e-5 of the f64 plain apply, timed at the
+     host's pace and by graph replay, K1, K6 and K7 launched),
+     ``microbench`` (its kept keys finite, by graph replay, K1/K2
+     launched), ``profile`` (every piece timed, the staged solve converged
+     with a host residual <= 1e-8 in at most 13 iterations),
+     ``scipy_compare`` at 8x8x320 (78,003 DOF: the voxel route, K1/K2,
+     within 1e-8 of SuperLU's displacements), ``prewarm`` (the kernels
+     built, the flagship converged); the kernels each child launched go
+     into the kernels line as ``tools_launches``;
+ 22. one JSON line of the kernels (K1, K2, K6, K7 with their launches in
      [19]'s refined solves as ``refined_launches``), one of the compute with
      no TPU kernel, the card's line, then the last line
      ``{"ok": true, "device": {...}}``.
@@ -225,7 +238,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 from fea_tpu_torch.bench import scenes  # noqa: E402
-from fea_tpu_torch.bench._family import graph_ms, host_check, host_ku  # noqa: E402
+from fea_tpu_torch.bench._family import (graph_ms, host_check, host_ku, region_field,  # noqa: E402
+                                         stencil_csr)
 
 DEV = "cuda"
 FLAGSHIP = (32, 32, 320)
@@ -478,35 +492,6 @@ class FieldSpy:
         self.fields.clear()
 
 
-def stencil_csr(w: torch.Tensor) -> torch.Tensor:
-    """The (3N, 3N) CSR matrix of a (27, 3, 3, Z, Y, X) block stencil
-    (neighbours outside the grid dropped), built on w's device with int32
-    indices, rows in order so that no sort is needed."""
-    from fea_tpu_torch.ops.curvilinear import _OFFSETS
-
-    Z, Y, X = w.shape[3:]
-    N = Z * Y * X
-    dev = w.device
-    z, y, x = torch.meshgrid(*(torch.arange(n, device=dev) for n in (Z, Y, X)), indexing="ij")
-    valid = torch.stack([
-        (z + dz >= 0) & (z + dz < Z) & (y + dy >= 0) & (y + dy < Y) & (x + dx >= 0) & (x + dx < X)
-        for dz, dy, dx in _OFFSETS
-    ], dim=-1).reshape(N, 27)
-    off = torch.tensor([(dz * Y + dy) * X + dx for dz, dy, dx in _OFFSETS], device=dev)
-    n = torch.arange(N, device=dev)
-    # entry (row 3n + r, column 3(n + off_d) + c), ordered (n, r, d, c)
-    col = 3 * (n[:, None, None, None] + off[None, None, :, None]) + torch.arange(3, device=dev)
-    col = col.expand(N, 3, 27, 3)
-    val = w.reshape(27, 3, 3, N).permute(3, 1, 0, 2)
-    keep = valid[:, None, :, None].expand(N, 3, 27, 3)
-    per_row = (3 * valid.sum(dim=1)).repeat_interleave(3)
-    crow = torch.zeros(3 * N + 1, dtype=torch.int64, device=dev)
-    crow[1:] = torch.cumsum(per_row, 0)
-    return torch.sparse_csr_tensor(
-        crow.to(torch.int32), col[keep].to(torch.int32), val[keep], size=(3 * N, 3 * N), check_invariants=False
-    )
-
-
 def library_ms(w: torch.Tensor, g: torch.Tensor, want: torch.Tensor) -> float:
     """CUDA-event time of one cuSPARSE SpMV (torch.mv of a CSR matrix) of
     the operator of the field ``w`` on ``g``, the matrix built once
@@ -531,17 +516,6 @@ def flagship_ke(ftt):
     corners = np.array([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0],
                         [0, 0, 1], [1, 0, 1], [1, 1, 1], [0, 1, 1]], np.float64) * h
     return stiffness_matrix_np(corners, ftt.Material(E=10_000_000 * ftt.units.psi, nu=0.3))
-
-
-def region_field(table: torch.Tensor, Z: int, Y: int, X: int) -> torch.Tensor:
-    """The (27, 3, 3, Z, Y, X) weight field of a voxel region table
-    (27 regions, 27 offsets, 3, 3): K1/K2's operator in K4/K5's form."""
-    def cls(n):
-        i = torch.arange(n, device=table.device)
-        return torch.where(i == 0, 0, torch.where(i == n - 1, 2, 1))
-
-    region = (cls(Z)[:, None, None] * 3 + cls(Y)[None, :, None]) * 3 + cls(X)[None, None, :]
-    return table[region].permute(3, 4, 5, 0, 1, 2).contiguous()
 
 
 def flagship_level_grids() -> list[tuple[int, int, int]]:
@@ -1877,12 +1851,10 @@ def run_many(ftt, counters) -> dict:
     x U(-1, 1), each times 100 / tip nodes). Every case must converge with a
     host f64 true residual (``host_ku``) <= 1e-8, and case 0 must agree with
     a single ``solve()`` of it within 10 tol. Returns the batch's launches."""
+    from fea_tpu_torch.bench.many import tip_loads
+
     scene, (nodes, elements, fixed, _, tip, _) = flagship_scene()
-    rng = np.random.default_rng(17)
-    batch = np.zeros((MANY_CASES,) + nodes.shape)
-    for i in range(MANY_CASES):
-        batch[i, tip, 1] = rng.uniform(0.5, 2.0) * 100.0 / tip.sum()
-        batch[i, tip, 0] = rng.uniform(-1.0, 1.0) * 100.0 / tip.sum()
+    batch = tip_loads(nodes, tip, MANY_CASES)
     one = dataclasses.replace(scene, loads=torch.as_tensor(batch[0], device=DEV))
     ftt.solve(one, tol=1e-8)  # warm
     single, _, single_wall = counted(counters, lambda: ftt.solve(one, tol=1e-8))
@@ -3248,40 +3220,52 @@ def run_rest(ftt, counters, cuda_stencil, flagship_ref: dict) -> dict:
 BENCH_ARGS = ["--repeats", "2", "--budget-s", "800", "--family-timeout-s", "240"]
 BENCH_TIMEOUT_S = 850
 BENCH_REF_ITERS = 13  # BENCH_r04's flagship (the JAX package on its TPU): a count, not a time
-# n_dof of each family as the JAX tools build it (bench.py:541-597)
+# n_dof of each family as the JAX tools build it (bench.py:541-597,
+# tools/many_bench.py, tools/unstructured_bench.py)
 BENCH_FAMILY_DOF = {"extruded": 591_360, "curvilinear": 181_875, "canonicalized": 181_875, "arbitrary": 554_115,
-                    "curvilinear_812k": 811_923, "capacity_8m": 8_124_675}
+                    "many": 1_048_707, "unstructured": 181_875, "curvilinear_812k": 811_923,
+                    "unstructured_812k": 811_923, "capacity_8m": 8_124_675}
 
 
-def run_bench() -> None:
-    """Phase [20]: bench_torch.py in a child process (its own process
-    group, killed whole on a timeout), gated on its final line."""
+def run_child(args: list, timeout_s: float, keep=("Error",)) -> tuple[int, dict, str]:
+    """``python <args>`` from the repository root in a child process (its
+    own process group, killed whole on a timeout): (return code, its last
+    stdout line as JSON or {}, that line). Its stderr lines holding one of
+    ``keep`` are printed here."""
     torch.cuda.empty_cache()
-    cmd = [sys.executable, str(ROOT / "bench_torch.py"), *BENCH_ARGS]
+    cmd = [sys.executable, *args]
     say(f"  {' '.join(cmd[1:])}")
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                             start_new_session=True)
     try:
-        out, err = proc.communicate(timeout=BENCH_TIMEOUT_S)
+        out, err = proc.communicate(timeout=timeout_s)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         out, err = proc.communicate()
     wall = time.perf_counter() - t0
     for line in err.splitlines():
-        if any(w in line for w in ("warm-up done", "repeat ", "family ", "FAILED", "Error")):
+        if any(w in line for w in keep):
             say("  " + line)
     lines = out.strip().splitlines()
     last = lines[-1] if lines else ""
-    say(f"  rc {proc.returncode} after {wall:.1f} s; its final line ({len(last.encode())} bytes):")
+    say(f"  rc {proc.returncode} after {wall:.1f} s; its last line ({len(last.encode())} bytes):")
     say(last)
     try:
         rec = json.loads(last)
     except json.JSONDecodeError:
         rec = {}
+    return proc.returncode, rec if isinstance(rec, dict) else {}, last
+
+
+def run_bench() -> None:
+    """Phase [20]: bench_torch.py in a child process, gated on its final
+    line."""
+    rc, rec, last = run_child([str(ROOT / "bench_torch.py"), *BENCH_ARGS], BENCH_TIMEOUT_S,
+                              keep=("warm-up done", "repeat ", "family ", "FAILED", "Error"))
     fam = rec.get("families") or {}
     checks = {
-        "rc 0": proc.returncode == 0,
+        "rc 0": rc == 0,
         "final line <= 1,500 bytes": 0 < len(last.encode()) <= 1500,
         "metric assemble_solve_dof_per_s": rec.get("metric") == "assemble_solve_dof_per_s",
         "flagship converged": rec.get("converged") is True,
@@ -3293,8 +3277,84 @@ def run_bench() -> None:
     }
     for name, n_dof in BENCH_FAMILY_DOF.items():
         entry = fam.get(name) or {}
-        checks[f"{name} converged at {n_dof:,} DOF"] = entry.get("converged") is True and entry.get("n_dof") == n_dof
+        what = "every case converged" if name == "many" else "converged"
+        checks[f"{name} {what} at {n_dof:,} DOF"] = entry.get("converged") is True and entry.get("n_dof") == n_dof
     require(checks, "bench_torch.py")
+
+
+# [21]: the measurement tools of fea_tpu_torch.bench, each a child process
+# with its own timeout: (name, arguments, timeout s)
+TOOLS = (
+    ("spmv", ["-m", "fea_tpu_torch.bench.spmv"], 300),
+    ("microbench", ["-m", "fea_tpu_torch.bench.microbench"], 240),
+    ("profile", ["-m", "fea_tpu_torch.bench.profile"], 240),
+    # 8x8x320 voxels, 78,003 DOF: over 50,000, so solve() takes the voxel
+    # route (K1/K2), and the slender bar keeps SuperLU's fill small
+    ("scipy_compare", ["-m", "fea_tpu_torch.bench.scipy_compare", "--nx", "8", "--ny", "8", "--nz", "320"], 300),
+    ("prewarm", ["-m", "fea_tpu_torch.bench.prewarm"], 300),
+)
+SCIPY_DOF = 78_003
+SPMV_MODES = ("structured_stencil", "uniform_plain", "uniform_kernel", "matfree", "stored_plain", "stored_kernel",
+              "csr")
+MICROBENCH_KEYS = ("f64_axpy_ms", "f32_axpy_ms", "f64_dot_ms", "f64_apply_flat_ms", "f32_level_apply_ms", "vcycle_ms")
+PROFILE_PIECES = ("dd_masked_apply", "f32_level_apply", "vcycle", "fcg_vector_algebra")
+
+
+def finite(rec: dict, keys) -> bool:
+    return all(isinstance(rec.get(k), (int, float)) and np.isfinite(rec[k]) for k in keys)
+
+
+def run_tools() -> dict:
+    """Phase [21]: every tool of ``TOOLS`` in a child process, each gated
+    on rc 0, its keys and its checks. Returns each kernel's launches by
+    tool, as each child counted them over its run."""
+    launches: dict = {}
+    for name, args, timeout_s in TOOLS:
+        say(f"  [21] {name}")
+        rc, rec, _ = run_child(args, timeout_s)
+        flagship = rec.get("n_dof") == 1_048_707
+        counts = rec.get("launches") or {}
+        k1k2 = counts.get("f32", 0) > 0 and counts.get("f64", 0) > 0
+        if name == "spmv":
+            checks = {
+                "n_dof 1,048,707, stored_n_elements 40,960": flagship and rec.get("stored_n_elements") == 40_960,
+                "every mode within 2e-5 of the f64 plain apply": rec.get("checks_passed") is True,
+                "every mode timed, host pace and graph": finite(rec, [f"{m}_{t}ms" for m in SPMV_MODES
+                                                                    for t in ("", "graph_")]),
+                "stencil_hbm_gbps_min and its share": finite(rec, ("stencil_hbm_gbps_min", "stencil_hbm_share")),
+                "K1, K6 and K7 launched (f32)": all(counts.get(k, 0) > 0 for k in ("f32", "stored_f32",
+                                                                                    "uniform_f32")),
+            }
+        elif name == "microbench":
+            checks = {"n_dof 1,048,707": flagship, "the kept keys finite": finite(rec, MICROBENCH_KEYS),
+                      "timed by graph replay": rec.get("timing") == "graph replay of k calls",
+                      "K1 and K2 launched": k1k2}
+        elif name == "profile":
+            checks = {
+                "n_dof 1,048,707": flagship,
+                "every piece timed, host and graph": finite(rec, [f"{p}_{t}ms" for p in PROFILE_PIECES
+                                                                  for t in ("", "graph_")]),
+                "the staged solve converged, host residual <= 1e-8": rec.get("fpcg_converged") is True
+                and (rec.get("fpcg_relative_residual") or 1.0) <= 1e-8,
+                f"at most {BENCH_REF_ITERS} iterations": (rec.get("fpcg_iterations") or 10**9) <= BENCH_REF_ITERS,
+                "K1 and K2 launched": k1k2,
+            }
+        elif name == "scipy_compare":
+            checks = {
+                f"n_dof {SCIPY_DOF:,}": rec.get("n_dof") == SCIPY_DOF,
+                "displacements within 1e-8 of SuperLU's": (rec.get("displacement_rel_diff") or 1.0) <= 1e-8,
+                "the voxel route, K1 and K2 launched": rec.get("route") == "voxel" and k1k2,
+            }
+        else:
+            bench = rec.get("bench") or {}
+            checks = {"kernels built": finite(rec, ("build_s",)),
+                      "the flagship converged": bench.get("converged") is True and bench.get("n_dof") == 1_048_707}
+        checks["rc 0"] = rc == 0
+        require(checks, name)
+        for key, n in counts.items():
+            if n:
+                launches.setdefault(key, {})[name] = n
+    return launches
 
 
 def main() -> None:
@@ -3394,6 +3454,11 @@ def main() -> None:
     phase("[20] the benchmark: bench_torch.py with its families, in a child process")
     run_bench()
 
+    phase("[21] the measurement tools: spmv, microbench, profile, scipy_compare and prewarm, each a child process")
+    for key, by_tool in run_tools().items():
+        report[key]["tools_launches"] = by_tool
+
+    phase("[22] the JSON lines")
     say(json.dumps({"kernels": [
         dict(name=spec["name"], route="cuda", source=spec["source"], replaces=spec["replaces"],
              launches=launches[key], **report[key])

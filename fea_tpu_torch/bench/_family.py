@@ -1,5 +1,6 @@
 """What the family benches share: the stage harness, the device's
-bookkeeping, the host's independent K u, and the card timer.
+bookkeeping, the host's independent K u, the card timer, and the voxel
+stencil's CSR matrix (the library line of the tools that time an apply).
 
 The harness (:class:`Stages`, counterpart of ``tools/_family_util.py``)
 prints a heartbeat on stderr at each stage's start and end, holds a wall
@@ -24,8 +25,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-__all__ = ["FamilyDeadline", "Stages", "add_common_args", "best_of", "cli", "device_label", "failed", "graph_ms",
-           "host_check", "host_ku", "peak_gb", "reset_peak", "sync"]
+__all__ = ["FamilyDeadline", "Stages", "add_common_args", "best_of", "cli", "device_label", "failed",
+           "graph_ms", "host_check", "host_ku", "host_stencil_residual", "peak_gb", "region_field", "reset_peak",
+           "stencil_csr", "sync"]
 
 
 class FamilyDeadline(Exception):
@@ -184,10 +186,10 @@ def failed(rec: dict) -> bool:
     return bool(rec.get("partial")) or not rec.get("converged") or res is None or not res <= rec["tol"]
 
 
-def cli(main) -> None:
+def cli(main, failed=failed) -> None:
     """Run a family's ``main(argv)``, print its record as one JSON line,
-    and exit 0; 3 for a partial record (the tools' code), 1 for a solve
-    that failed its gates (:func:`failed`)."""
+    and exit 0; 3 for a partial record (the tools' code), 1 for a run
+    that failed its gates (``failed(record)``, by default :func:`failed`)."""
     rec = main(sys.argv[1:])
     print(json.dumps(rec), flush=True)
     sys.exit(3 if rec.get("partial") else 1 if failed(rec) else 0)
@@ -249,6 +251,58 @@ def host_check(nodes, elements, mat, fixed, loads, u):
     Ku = host_ku(nodes, elements, float(mat.E), float(mat.nu), u)
     F = 1.0 - fixed.astype(np.float64)
     return Ku, float(np.linalg.norm(F * (loads - Ku)) / np.linalg.norm(F * loads))
+
+
+def host_stencil_residual(ke: np.ndarray, dims, fixed: np.ndarray, loads: np.ndarray, u: np.ndarray) -> float:
+    """The true relative residual ||F (f - K u)|| / ||F f|| of a voxel box
+    of ``dims`` elements in NumPy f64, K u by the host's exact stencil
+    (``native.stencil_apply_host``), which shares no code with the kernels."""
+    from ..native import stencil_apply_host
+
+    nx, ny, nz = dims
+    Ku = stencil_apply_host(ke, u.reshape(nz + 1, ny + 1, nx + 1, 3), dims).reshape(-1, 3)
+    F = 1.0 - fixed.astype(np.float64)
+    return float(np.linalg.norm(F * (loads - Ku)) / np.linalg.norm(F * loads))
+
+
+def region_field(table: torch.Tensor, Z: int, Y: int, X: int) -> torch.Tensor:
+    """The (27, 3, 3, Z, Y, X) weight field of a voxel region table
+    (27 regions, 27 offsets, 3, 3): K1/K2's operator in K4/K5's form."""
+    def cls(n):
+        i = torch.arange(n, device=table.device)
+        return torch.where(i == 0, 0, torch.where(i == n - 1, 2, 1))
+
+    region = (cls(Z)[:, None, None] * 3 + cls(Y)[None, :, None]) * 3 + cls(X)[None, None, :]
+    return table[region].permute(3, 4, 5, 0, 1, 2).contiguous()
+
+
+def stencil_csr(w: torch.Tensor) -> torch.Tensor:
+    """The (3N, 3N) CSR matrix of a (27, 3, 3, Z, Y, X) block stencil
+    (neighbours outside the grid dropped), built on w's device with int32
+    indices, rows in order so that no sort is needed."""
+    from ..ops.curvilinear import _OFFSETS
+
+    Z, Y, X = w.shape[3:]
+    N = Z * Y * X
+    dev = w.device
+    z, y, x = torch.meshgrid(*(torch.arange(n, device=dev) for n in (Z, Y, X)), indexing="ij")
+    valid = torch.stack([
+        (z + dz >= 0) & (z + dz < Z) & (y + dy >= 0) & (y + dy < Y) & (x + dx >= 0) & (x + dx < X)
+        for dz, dy, dx in _OFFSETS
+    ], dim=-1).reshape(N, 27)
+    off = torch.tensor([(dz * Y + dy) * X + dx for dz, dy, dx in _OFFSETS], device=dev)
+    n = torch.arange(N, device=dev)
+    # entry (row 3n + r, column 3(n + off_d) + c), ordered (n, r, d, c)
+    col = 3 * (n[:, None, None, None] + off[None, None, :, None]) + torch.arange(3, device=dev)
+    col = col.expand(N, 3, 27, 3)
+    val = w.reshape(27, 3, 3, N).permute(3, 1, 0, 2)
+    keep = valid[:, None, :, None].expand(N, 3, 27, 3)
+    per_row = (3 * valid.sum(dim=1)).repeat_interleave(3)
+    crow = torch.zeros(3 * N + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(per_row, 0)
+    return torch.sparse_csr_tensor(
+        crow.to(torch.int32), col[keep].to(torch.int32), val[keep], size=(3 * N, 3 * N), check_invariants=False
+    )
 
 
 def graph_ms(fn, calls: int = 20, runs: int = 10) -> float:

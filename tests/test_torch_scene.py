@@ -1,6 +1,7 @@
 """Port parity: mesh, scene, element stiffness and voxel detection of
 fea_tpu_torch against fea_tpu, and the port's independence from JAX."""
 import os
+import pkgutil
 import subprocess
 import sys
 
@@ -130,11 +131,14 @@ def test_scene_from_numpy_round_trips_a_jax_scene():
 
 
 def test_import_leaves_jax_out():
+    import fea_tpu_torch.bench
     from fea_tpu_torch.examples import NAMES
 
     examples = ", ".join(f"fea_tpu_torch.examples.{n}" for n in NAMES)
-    benches = ", ".join(f"fea_tpu_torch.bench.{n}"
-                        for n in ("scenes", "_family", "tube", "curv", "canon", "arbitrary"))
+    # every module of the bench package, so that a later one cannot be missed
+    bench_names = sorted(m.name for m in pkgutil.iter_modules(fea_tpu_torch.bench.__path__))
+    assert {"many", "unstructured", "scipy_compare", "spmv", "microbench", "profile", "prewarm"} <= set(bench_names)
+    benches = ", ".join(f"fea_tpu_torch.bench.{n}" for n in bench_names)
     code = (
         "import sys, fea_tpu_torch, fea_tpu_torch.ops.multigrid, fea_tpu_torch.solve.fpcg, "
         "fea_tpu_torch.utils, fea_tpu_torch.utils.cache, fea_tpu_torch.native, fea_tpu_torch.viz.mpl, "
