@@ -25,7 +25,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-__all__ = ["FamilyDeadline", "Stages", "add_common_args", "best_of", "cli", "device_label", "failed",
+__all__ = ["FamilyDeadline", "Stages", "add_common_args", "add_solve_args", "best_of", "cli", "device_label", "failed",
            "graph_ms", "host_check", "host_ku", "host_stencil_residual", "peak_gb", "region_field", "reset_peak",
            "stencil_csr", "sync"]
 
@@ -65,12 +65,18 @@ def device_label(device: torch.device) -> str:
 
 
 def add_common_args(p: argparse.ArgumentParser) -> None:
+    """``--device`` and ``--deadline-s``, which every harnessed module reads."""
     p.add_argument("--device", default=None, help="torch device (default: the CUDA card; 'cpu' to run on the CPU)")
-    p.add_argument("--tol", type=float, default=1e-8)
-    p.add_argument("--repeats", type=int, default=2)
     p.add_argument("--deadline-s", type=float, default=420.0,
                    help="wall deadline (SIGALRM): on expiry a partial record with the stages completed is printed; "
                    "0 for none")
+
+
+def add_solve_args(p: argparse.ArgumentParser, repeats: bool = True) -> None:
+    """``--tol`` and, where the module repeats its timed solve, ``--repeats``."""
+    p.add_argument("--tol", type=float, default=1e-8)
+    if repeats:
+        p.add_argument("--repeats", type=int, default=2)
 
 
 def _launch_counters() -> tuple[dict, ...]:

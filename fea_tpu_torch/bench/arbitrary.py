@@ -21,7 +21,7 @@ from ..ops.canonical import infer_renumbered_grid
 from ..scene import resolve_device
 from ..solve import solve
 from . import scenes
-from ._family import Stages, add_common_args, best_of, cli, host_check
+from ._family import Stages, add_common_args, add_solve_args, best_of, cli, host_check
 
 
 def parse(argv=None) -> argparse.Namespace:
@@ -30,6 +30,7 @@ def parse(argv=None) -> argparse.Namespace:
     p.add_argument("--ny", type=int, default=20)
     p.add_argument("--nz", type=int, default=72)
     add_common_args(p)
+    add_solve_args(p)
     return p.parse_args(argv)
 
 

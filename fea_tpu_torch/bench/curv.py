@@ -21,7 +21,7 @@ from ..ops.curvilinear import build_curv_multigrid, build_curv_operator, infer_t
 from ..scene import resolve_device
 from ..solve import solve_curvilinear
 from . import scenes
-from ._family import Stages, add_common_args, best_of, cli, host_check
+from ._family import Stages, add_common_args, add_solve_args, best_of, cli, host_check
 
 
 def parse(argv=None) -> argparse.Namespace:
@@ -31,6 +31,7 @@ def parse(argv=None) -> argparse.Namespace:
     p.add_argument("--nz", type=int, default=96)
     p.add_argument("--degree", type=int, default=2, help="Chebyshev smoother degree")
     add_common_args(p)
+    add_solve_args(p)
     return p.parse_args(argv)
 
 

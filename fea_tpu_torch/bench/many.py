@@ -38,7 +38,7 @@ import torch
 
 from ..scene import resolve_device
 from . import scenes
-from ._family import Stages, add_common_args, cli, host_stencil_residual, sync
+from ._family import Stages, add_common_args, add_solve_args, cli, host_stencil_residual, sync
 
 __all__ = ["main", "tip_loads"]
 
@@ -62,6 +62,7 @@ def parse(argv=None) -> argparse.Namespace:
     p.add_argument("--nz", type=int, default=320)
     p.add_argument("--cases", type=int, default=8)
     add_common_args(p)
+    add_solve_args(p, repeats=False)
     return p.parse_args(argv)
 
 
@@ -109,13 +110,13 @@ def run(args, st: Stages) -> dict:
 
     with st.stage("batch_first"):
         solve_many(scene, batch, tol=args.tol, max_iters=300)
-    cuda_stencil.LAUNCHES.update(dict.fromkeys(cuda_stencil.LAUNCHES, 0))
+    before = {k: cuda_stencil.LAUNCHES[k] for k in ("f32", "f64")}
     with st.stage("batch_warm"):
         t0 = time.perf_counter()
         solm = solve_many(scene, batch, tol=args.tol, max_iters=300)
         sync(st.device)
         t_batch = time.perf_counter() - t0
-    launches = {k: cuda_stencil.LAUNCHES[k] for k in ("f32", "f64")}
+    launches = {k: cuda_stencil.LAUNCHES[k] - n for k, n in before.items()}
     per_case = t_batch / args.cases
     st.say(f"batch warm: {t_batch:.3f} s = {per_case:.3f} s a case ({per_case / t_single:.3f}x the warm single); "
            f"iterations {solm.stats.iterations.tolist()}")

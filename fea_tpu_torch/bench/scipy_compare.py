@@ -17,8 +17,8 @@ Prints one JSON line, the tool's keys (``n_dof``, ``scipy_assembly_s``,
 ``scipy_spsolve_s``, ``scipy_total_s``, ``fea_tpu_total_s``,
 ``speedup_vs_scipy``, ``displacement_rel_diff`` = max |u - u_scipy| over
 max |u_scipy|, ``backend``), unrounded, and ``device`` (the card's name
-and power limit), ``route`` (the grid route ``solve()`` detects, or the
-small-scene method it takes), ``iterations``, ``converged``,
+and power limit), ``route`` (the route the timed ``solve()`` took, as its
+``Solution`` names it), ``iterations``, ``converged``,
 ``launches`` (the K1/K2 launches of the timed call), and the true
 relative residuals of both solutions recomputed on the host in NumPy f64
 by the exact stencil (``relative_residual``, ``scipy_relative_residual``).
@@ -31,7 +31,6 @@ size took 1,342 s of ``spsolve`` on the JAX repo's host.
 from __future__ import annotations
 
 import argparse
-import importlib
 import json
 import sys
 import time
@@ -62,17 +61,6 @@ def parse(argv=None) -> argparse.Namespace:
 
 def say(msg: str) -> None:
     print(f"[scipy_compare] {msg}", file=sys.stderr, flush=True)
-
-
-def route_of(scene) -> str:
-    """The route ``solve()`` takes for ``scene`` at its defaults: the grid
-    route's name from the same detector, or the small-scene method."""
-    solve_mod = importlib.import_module("..solve", __package__)  # the module: ``fea_tpu_torch.solve`` is the function
-    if scene.n_dof >= solve_mod._STRUCTURED_MIN_DOF:
-        route, _ = solve_mod._grid_route(scene)
-        if route is not None:
-            return route
-    return "dense" if scene.n_dof < 2000 else "cg"
 
 
 def main(argv=None) -> dict:
@@ -107,7 +95,6 @@ def main(argv=None) -> dict:
     u_sp[free] = u_free
     scipy_s = t_asm + t_solve
 
-    route = route_of(scene)
     solve(scene, tol=1e-10)  # warm-up: builds the kernels, captures
     cuda_stencil.LAUNCHES.update(dict.fromkeys(cuda_stencil.LAUNCHES, 0))
     t0 = time.perf_counter()
@@ -115,7 +102,7 @@ def main(argv=None) -> dict:
     sync(device)
     ours_s = time.perf_counter() - t0
     launches = {k: cuda_stencil.LAUNCHES[k] for k in ("f32", "f64")}
-    say(f"fea_tpu_torch.solve {ours_s:.4f} s ({route}, {sol.stats.iterations} iterations)")
+    say(f"fea_tpu_torch.solve {ours_s:.4f} s ({sol.route}, {sol.stats.iterations} iterations)")
 
     u = sol.displacements.cpu().numpy().reshape(-1)
     agree = float(np.max(np.abs(u - u_sp)) / np.max(np.abs(u_sp)))
@@ -132,7 +119,7 @@ def main(argv=None) -> dict:
         "displacement_rel_diff": agree,
         "backend": device.type,
         "device": device_label(device),
-        "route": route,
+        "route": sol.route,
         "iterations": sol.stats.iterations,
         "converged": sol.stats.converged,
         "relative_residual": rel,

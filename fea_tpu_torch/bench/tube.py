@@ -17,7 +17,7 @@ import time
 from ..scene import resolve_device
 from ..solve import build_extruded, solve_extruded
 from . import scenes
-from ._family import Stages, add_common_args, cli, host_check, sync
+from ._family import Stages, add_common_args, add_solve_args, cli, host_check, sync
 
 
 def parse(argv=None) -> argparse.Namespace:
@@ -28,6 +28,7 @@ def parse(argv=None) -> argparse.Namespace:
     p.add_argument("--no-section-coarse", action="store_true")
     p.add_argument("--section-aggregates", type=int, default=64)
     add_common_args(p)
+    add_solve_args(p)
     return p.parse_args(argv)
 
 

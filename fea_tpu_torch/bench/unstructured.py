@@ -38,7 +38,7 @@ from ..ops.twolevel import build_two_level_cheb
 from ..scene import resolve_device
 from ..solve import _solve_unstructured_two_level
 from . import scenes
-from ._family import Stages, add_common_args, cli, device_label, host_check, sync
+from ._family import Stages, add_common_args, add_solve_args, cli, device_label, host_check, sync
 
 __all__ = ["main"]
 
@@ -51,6 +51,7 @@ def parse(argv=None) -> argparse.Namespace:
     p.add_argument("--aggregates", type=int, default=512)
     p.add_argument("--degree", type=int, default=2, help="Chebyshev smoother degree")
     add_common_args(p)
+    add_solve_args(p)
     return p.parse_args(argv)
 
 

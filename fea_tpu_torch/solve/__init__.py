@@ -228,7 +228,7 @@ def solve(
             if on_nonconverged == "raise":
                 raise RuntimeError(msg)
             warnings.warn(msg, RuntimeWarning, stacklevel=3)
-        return sol
+        return dataclasses.replace(sol, route=method_name)
 
     if debug_nans:
         # the first operation that makes a NaN raises FloatingPointError there,

@@ -14,12 +14,7 @@ arbitrary scenes are under the 50,000-DOF threshold of the grid and
 unstructured routes, so both packages' ``solve()`` take Jacobi PCG there.
 """
 import json
-import os
 import re
-import subprocess
-import sys
-from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 
 import pytest
 
@@ -28,8 +23,8 @@ import fea_tpu_torch.bench.canon
 import fea_tpu_torch.bench.curv
 import fea_tpu_torch.bench.tube
 from torch_pin import one_torch_thread  # noqa: F401
+from torch_tools import ROOT, run_all
 
-ROOT = Path(__file__).resolve().parents[1]
 TOL = 1e-8
 # family -> (port module, JAX tool, shape arguments, iteration margin over the tool's)
 CASES = {
@@ -44,23 +39,10 @@ CASES = {
 }
 
 
-def _run_tool(tool: str, shape: list) -> subprocess.CompletedProcess:
-    return subprocess.run([sys.executable, str(ROOT / "tools" / tool), "--cpu", *shape, "--repeats", "1"],
-                          cwd=ROOT, capture_output=True, text=True, timeout=600,
-                          env={**os.environ, "JAX_PLATFORMS": "cpu"})
-
-
 @pytest.fixture(scope="module")
 def tools():
     """Each tool's run, all at once: name -> (its record, its stderr)."""
-    with ThreadPoolExecutor(max_workers=len(CASES)) as pool:
-        procs = {name: pool.submit(_run_tool, tool, shape) for name, (_, tool, shape, _) in CASES.items()}
-        out = {}
-        for name, fut in procs.items():
-            proc = fut.result()
-            assert proc.returncode == 0, proc.stderr[-2000:]
-            out[name] = (json.loads(proc.stdout.strip().splitlines()[-1]), proc.stderr)
-        return out
+    return run_all({name: (f"tools/{tool}", [*shape, "--repeats", "1"]) for name, (_, tool, shape, _) in CASES.items()})
 
 
 @pytest.mark.parametrize("name", list(CASES))

@@ -1,24 +1,19 @@
 """Port parity, the measurement tools that time pieces: each of
 ``fea_tpu_torch.bench``'s ``spmv`` and ``microbench`` against its tool in
 the JAX package's ``tools/`` at a small shape, on the CPU, ``profile``'s
-solve against the port's own ``solve()``, and ``prewarm``'s run of the
-benchmark (``tests/test_torch_bench_tools.py`` holds the tools that
-solve).
+solve against ``bench.py``'s and the port's own ``solve()``, and
+``prewarm``'s run of the benchmark (``tests/test_torch_bench_tools.py``
+holds the tools that solve).
 
-The tools run as child processes, both at once (``--cpu``,
+The JAX scripts run as child processes, all at once (``--cpu``,
 ``JAX_PLATFORMS=cpu``); the port's modules in process through
 ``main(argv)`` with ``--device cpu``, where every kernel wrapper runs its
 plain version. Each pair builds the same scene (equal DOF and element
 counts); every mode or key of a tool's line has its counterpart in the
 port's, but for the keys a module's docstring names as dropped.
 """
-import json
 import math
-import os
-import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 
 import pytest
 
@@ -28,46 +23,33 @@ import fea_tpu_torch.bench.profile
 import fea_tpu_torch.bench.spmv
 from fea_tpu_torch.bench import scenes
 from torch_pin import one_torch_thread  # noqa: F401
+from torch_tools import CPU, no_kernel_ran, run_all
 
-ROOT = Path(__file__).resolve().parents[1]
 TOL = 1e-8
-# name -> (JAX tool, shape arguments of both)
+SHAPE = ["--nx", "8", "--ny", "8", "--nz", "32"]
+# name -> (JAX script, its arguments; the port module takes the same shape)
 TOOLS = {
-    "spmv": ("spmv_bench.py", ["--nx", "8", "--ny", "8", "--nz", "32"]),
-    "microbench": ("t_microbench.py", ["--nx", "8", "--ny", "8", "--nz", "32", "--k", "4"]),
+    "spmv": ("tools/spmv_bench.py", SHAPE),
+    "microbench": ("tools/t_microbench.py", [*SHAPE, "--k", "4"]),
+    # profile's witness: bench.py's staged solve of the same cantilever
+    "bench": ("bench.py", [*SHAPE, "--no-families", "--probe-timeout-s", "0", "--skip-numerics-check",
+                           "--repeats", "1"]),
 }
 # microbench's keys of the tool that measure TPU workarounds (its docstring)
 MICROBENCH_DROPPED = {"split_combine_ms", "f64_apply_T_ms", "f64_transpose_ms", "f32_transpose_ms",
                       "dd_masked_apply_ms", "dd_raw_apply_ms", "f32_pallas_raw_ms"}
-CPU = ["--device", "cpu", "--deadline-s", "0"]
-
-
-def _run_tool(tool: str, shape: list) -> subprocess.CompletedProcess:
-    return subprocess.run([sys.executable, str(ROOT / "tools" / tool), "--cpu", *shape], cwd=ROOT,
-                          capture_output=True, text=True, timeout=600, env={**os.environ, "JAX_PLATFORMS": "cpu"})
 
 
 @pytest.fixture(scope="module")
 def tools():
-    """Each tool's run, all at once: name -> (its record, its stderr)."""
-    with ThreadPoolExecutor(max_workers=len(TOOLS)) as pool:
-        procs = {name: pool.submit(_run_tool, tool, shape) for name, (tool, shape) in TOOLS.items()}
-        out = {}
-        for name, fut in procs.items():
-            proc = fut.result()
-            assert proc.returncode == 0, proc.stderr[-2000:]
-            out[name] = (json.loads(proc.stdout.strip().splitlines()[-1]), proc.stderr)
-        return out
-
-
-def no_kernel_ran(rec: dict) -> bool:
-    return rec["device"] == "cpu" and not any(rec["launches"].values())
+    """Each JAX script's run, all at once: name -> (its record, its stderr)."""
+    return run_all(TOOLS)
 
 
 def test_spmv_matches_its_tool(tools):
     ref, _ = tools["spmv"]
     spmv = fea_tpu_torch.bench.spmv
-    got = spmv.main([*TOOLS["spmv"][1], *CPU])
+    got = spmv.main([*SHAPE, *CPU])
     assert not got.get("partial"), got.get("error")
     for key in ("n_dof", "n_elements", "stored_n_elements"):
         assert got[key] == ref[key], key
@@ -94,21 +76,26 @@ def test_microbench_keeps_the_tools_keys(tools):
     assert got["timing"] == "host wall of k calls" and not mb.failed(got) and no_kernel_ran(got)
 
 
-def test_profile_solve_matches_the_ports_solve(monkeypatch):
+def test_profile_solve_matches_the_ports_solve(tools, monkeypatch):
     """The JAX tool raises on the CPU at its pair apply (a Pallas kernel
     with no interpret mode there), so ``profile``'s solve is held against
-    the port's own ``solve()`` of the same scene, the voxel route forced
-    at this size: the same iterations, and a host true residual <= 1e-8."""
+    the JAX package's staged solve of the same cantilever in ``bench.py``
+    (the same DOF count, no more iterations, both host true residuals
+    <= 1e-8), and against the port's own ``solve()`` of it, the voxel
+    route forced at this size (the same iterations)."""
     import fea_tpu_torch
 
+    ref, _ = tools["bench"]
     prof = fea_tpu_torch.bench.profile
-    got = prof.main(["--nx", "8", "--ny", "8", "--nz", "32", "--reps", "2", *CPU])
+    got = prof.main([*SHAPE, "--reps", "2", *CPU])
     assert not got.get("partial"), got.get("error")
     monkeypatch.setattr(sys.modules["fea_tpu_torch.solve"], "_STRUCTURED_MIN_DOF", 0)
     scene, _ = scenes.cantilever((8, 8, 32), device="cpu")
     sol = fea_tpu_torch.solve(scene, tol=1e-8)
-    assert got["n_dof"] == scene.n_dof == 8019
-    assert got["fpcg_converged"] and sol.stats.converged
+    assert got["n_dof"] == scene.n_dof == ref["n_dof"] == 8019
+    assert got["fpcg_converged"] and sol.stats.converged and ref["converged"]
+    assert sol.route == "fpcg-multigrid"
+    assert got["fpcg_iterations"] <= ref["iterations"] and ref["relative_residual"] <= TOL
     assert got["fpcg_iterations"] == sol.stats.iterations
     assert got["fpcg_relative_residual"] <= TOL
     assert got["fpcg_per_iter_ms"] == pytest.approx(got["fpcg_solve_ms"] / got["fpcg_iterations"])

@@ -16,12 +16,7 @@ keys a module's docstring names as dropped or renamed.
 """
 import importlib
 import json
-import os
 import re
-import subprocess
-import sys
-from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 
 import pytest
 
@@ -29,38 +24,21 @@ import fea_tpu_torch.bench.many
 import fea_tpu_torch.bench.scipy_compare
 import fea_tpu_torch.bench.unstructured
 from torch_pin import one_torch_thread  # noqa: F401
+from torch_tools import CPU, no_kernel_ran, run_all
 
-ROOT = Path(__file__).resolve().parents[1]
 TOL = 1e-8
 # name -> (JAX tool, shape arguments of both)
 TOOLS = {
-    "many": ("many_bench.py", ["--nx", "4", "--ny", "4", "--nz", "40", "--cases", "3"]),
-    "unstructured": ("unstructured_bench.py", ["--nx", "6", "--ny", "6", "--nz", "24", "--repeats", "1"]),
-    "scipy_compare": ("scipy_compare.py", ["--nx", "4", "--ny", "4", "--nz", "40"]),
+    "many": ("tools/many_bench.py", ["--nx", "4", "--ny", "4", "--nz", "40", "--cases", "3"]),
+    "unstructured": ("tools/unstructured_bench.py", ["--nx", "6", "--ny", "6", "--nz", "24", "--repeats", "1"]),
+    "scipy_compare": ("tools/scipy_compare.py", ["--nx", "4", "--ny", "4", "--nz", "40"]),
 }
-CPU = ["--device", "cpu", "--deadline-s", "0"]
-
-
-def _run_tool(tool: str, shape: list) -> subprocess.CompletedProcess:
-    return subprocess.run([sys.executable, str(ROOT / "tools" / tool), "--cpu", *shape], cwd=ROOT,
-                          capture_output=True, text=True, timeout=600, env={**os.environ, "JAX_PLATFORMS": "cpu"})
 
 
 @pytest.fixture(scope="module")
 def tools():
     """Each tool's run, all at once: name -> (its record, its stderr)."""
-    with ThreadPoolExecutor(max_workers=len(TOOLS)) as pool:
-        procs = {name: pool.submit(_run_tool, tool, shape) for name, (tool, shape) in TOOLS.items()}
-        out = {}
-        for name, fut in procs.items():
-            proc = fut.result()
-            assert proc.returncode == 0, proc.stderr[-2000:]
-            out[name] = (json.loads(proc.stdout.strip().splitlines()[-1]), proc.stderr)
-        return out
-
-
-def no_kernel_ran(rec: dict) -> bool:
-    return rec["device"] == "cpu" and not any(rec["launches"].values())
+    return run_all(TOOLS)
 
 
 def test_many_matches_its_tool(tools):
