@@ -31,11 +31,11 @@ version serves:
     loop around an f32 Jacobi PCG, on a structured operator (K2 outside,
     K1 inside) or an element operator (K7, or K6 when stored);
   * ``solve(debug_nans=True)``: the NaN sanitizer (``sanitize.py``);
-  * ``utils`` (solve records, timers, profiler traces, the build
-    directory), ``native`` (the host's exact f64 check in C++), ``viz``
-    (matplotlib, and pyvista where installed), ``Policy`` /
-    ``default_policy``, and the demos, ``python -m
-    fea_tpu_torch.examples.<name>``;
+  * ``utils`` (solve records, timers, profiler traces, the program's
+    spans and counters, the build directory), ``native`` (the host's
+    exact f64 check in C++), ``viz`` (matplotlib, and pyvista where
+    installed), ``Policy`` / ``default_policy``, and the demos,
+    ``python -m fea_tpu_torch.examples.<name>``;
   * ``bench``: the family benches that ``bench_torch.py`` (the
     repository's benchmark) runs, ``python -m fea_tpu_torch.bench.<name>``.
 

@@ -42,6 +42,7 @@ from .elements import truss as truss_el
 from .materials import Material
 from .ops.cuda_apply import batched_matvec_stored, batched_matvec_uniform
 from .scene import FAMILIES, Scene, resolve_device
+from .utils.profiling import span
 
 __all__ = ["StiffnessOperator", "build_operator", "operator_from_numpy"]
 
@@ -241,6 +242,7 @@ def _elements_congruent(nodes: np.ndarray, elements: np.ndarray, tol: float = 1e
     return bool(np.max(np.abs(rel - rel[0])) <= tol * scale)
 
 
+@span("fea.build.operator")
 def build_operator(
     scene: Scene,
     dtype: torch.dtype = torch.float32,

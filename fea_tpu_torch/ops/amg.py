@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..elements import hex8 as hex8_el
+from ..utils.profiling import span
 from .multigrid import chebyshev_smooth
 
 __all__ = [
@@ -91,6 +92,7 @@ def _pad_bcsr(rows_u: torch.Tensor, cols_u: torch.Tensor, sums: torch.Tensor, N:
     return nbr, W
 
 
+@span("fea.build.operator")
 def assemble_bcsr(nodes: torch.Tensor, elements: torch.Tensor, material, fixed: torch.Tensor, *,
                   chunk: int = 32_768) -> BCSRHost:
     """Assemble the hex8 stiffness into node-major BCSR in f64 on the
@@ -342,6 +344,7 @@ class AMGPrecond:
         return self._vcycle(0, r.to(torch.float32))
 
 
+@span("fea.build.hierarchy")
 def build_amg(
     nodes,
     host: BCSRHost,

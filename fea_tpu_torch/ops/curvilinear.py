@@ -49,6 +49,7 @@ from ..dtypes import torch_dtype
 from ..elements.hex8 import batched_ke
 from ..materials import Material
 from ..scene import Scene
+from ..utils.profiling import span
 from .cuda_varstencil import var_apply, var_apply_masked
 from .multigrid import _prolong, _restrict, chebyshev_smooth
 from .structured import _CORNERS, _expected_box_elements
@@ -339,6 +340,7 @@ class CurvilinearOperator:
         return F * (loads - self.apply_raw(xp)) + xp
 
 
+@span("fea.build.operator")
 def build_curv_operator(
     scene: Scene,
     dims: tuple[int, int, int],
@@ -597,6 +599,7 @@ class CurvMultigrid:
         return self._vcycle(0, g).reshape(r_flat.shape)
 
 
+@span("fea.build.hierarchy")
 def build_curv_multigrid(
     w0: torch.Tensor,
     dims: tuple[int, int, int],

@@ -32,6 +32,7 @@ import torch
 from ..dtypes import torch_dtype
 from ..elements import hex8 as hex8_el
 from ..scene import Scene
+from ..utils.profiling import span
 
 __all__ = [
     "ExtrudedOperator",
@@ -257,6 +258,7 @@ def integrate_section_kes(section: np.ndarray, quads: np.ndarray, h: float, mate
     return kes
 
 
+@span("fea.build.operator")
 def build_extruded_operator(
     scene: Scene,
     detected: Optional[tuple[np.ndarray, int, int]] = None,

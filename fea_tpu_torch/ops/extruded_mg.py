@@ -48,6 +48,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .extruded import ExtrudedOperator, _make, integrate_section_kes
 from .multigrid import _prolong, _restrict
 from .twolevel import _rbm_blocks, rigid_body_geometry
@@ -316,6 +317,7 @@ def _level_blocks(S_bb, S_tt, O, f_flat: np.ndarray, special: list, check: list)
     return x_int, minv_special, lam
 
 
+@span("fea.build.hierarchy")
 def build_extruded_multigrid(
     scene,
     detected,
@@ -517,6 +519,7 @@ def _decoupling(xrel_s: np.ndarray, agg_s: np.ndarray, As: int) -> Optional[np.n
     return decouple if decouple.any() else None
 
 
+@span("fea.build.hierarchy")
 def build_section_coarse(scene, detected, *, target_section_aggregates: int = 16) -> SectionCoarse:
     """Build the per-layer section-RBM coarse space of an extruded scene
     on its device: section aggregation (2D binning, on the host), the

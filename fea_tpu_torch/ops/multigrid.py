@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..dtypes import torch_dtype
+from ..utils.profiling import span
 from .cuda_stencil import StencilWeights, check_free_mask, stencil_apply, stencil_weights
 from .structured import StructuredOperator, corner_table_np, fill_regions_np
 
@@ -276,6 +277,7 @@ def _build_hierarchy_host(
     return levels, np.linalg.inv(A_c)
 
 
+@span("fea.build.hierarchy")
 def build_multigrid(
     op: StructuredOperator,
     *,

@@ -31,6 +31,7 @@ import torch
 from ..elements import hex8 as hex8_el
 from ..materials import Material
 from ..scene import Scene, fix_where, make_scene
+from ..utils.profiling import span
 from .cuda_stencil import StencilWeights, check_free_mask, stencil_apply, stencil_weights
 
 __all__ = [
@@ -366,6 +367,7 @@ def infer_box_dims(scene: Scene) -> Optional[tuple[int, int, int]]:
     return dims
 
 
+@span("fea.build.operator")
 def build_structured_operator(
     scene: Scene, dims: tuple[int, int, int], dtype: torch.dtype = torch.float32
 ) -> StructuredOperator:

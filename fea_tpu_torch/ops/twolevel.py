@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..elements import hex8 as hex8_el
+from ..utils.profiling import span
 
 __all__ = [
     "TwoLevelChebPrecond",
@@ -325,6 +326,7 @@ class TwoLevelChebPrecond:
         return chebyshev_smooth(apply, self.inv_diag, self.lam_max, self.lam_min_frac, self.degree, y, r32)
 
 
+@span("fea.build.hierarchy")
 def build_two_level_cheb(op, nodes, *, target_aggregates: Optional[int] = None, degree: int = 2,
                          lam_min_frac: float = 1.0 / 6.0, chunk: int = 8192,
                          ridge: float = 1e-7) -> TwoLevelChebPrecond:

@@ -70,6 +70,7 @@ from ..operator import StiffnessOperator, build_operator
 from ..scene import Scene
 from ..solvers.cg import SolveStats, pcg
 from ..solvers.dense import dense_solve
+from ..utils.profiling import span
 from . import staged
 from ._types import Solution
 from .cache import _cached_build, clear_build_cache
@@ -179,6 +180,7 @@ def solve_displacements(op: StiffnessOperator, loads, prescribed, *, tol: float 
     return solve_operator(op, loads, prescribed, method="cg", tol=tol, max_iters=max_iters).displacements
 
 
+@span("fea.solve")
 def solve(
     scene: Scene,
     *,
@@ -275,6 +277,7 @@ def _device_count(device: torch.device) -> int:
     return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
+@span("fea.route")
 def _grid_route(scene: Scene):
     """The grid route of a hex8 scene, the detectors run in the
     reference's order: ``("voxel", box dims)``, ``("extruded",
@@ -369,7 +372,8 @@ def _solve_large_hex8(
         from ..ops.canonical import canonicalize_scene, infer_renumbered_grid
         from ..ops.curvilinear import curv_coarsenable
 
-        det = infer_renumbered_grid(scene)
+        with span("fea.route"):
+            det = infer_renumbered_grid(scene)
         if det is not None and curv_coarsenable(det[0]):
             cdims, perm = det
             # the canonical scene is cached on this scene's mesh, so that

@@ -6,6 +6,8 @@ displacements, never by the recurrence. Counterpart of the contract of
 ``fea_tpu/solve/certify.py::_refine_true``: recompute ``F * (loads - K u)``
 in f64 (through K2 on the card), report it, and while it misses ``tol``
 run up to ``max_refine`` correction solves ``u += solve(A d = r)``.
+A certification is one ``fea.certify`` span, each correction pass a
+``fea.certify.pass`` span inside it and one count of ``certify.passes``.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Callable
 import torch
 
 from ..solvers.cg import SolveStats
+from ..utils.profiling import count, span
 from ._types import Solution
 
 __all__ = ["true_residual", "refine_true"]
@@ -27,6 +30,7 @@ def true_residual(op_hi, loads: torch.Tensor, u: torch.Tensor):
     return Au, r, float(torch.linalg.vector_norm(r))
 
 
+@span("fea.certify")
 def refine_true(
     op_hi,
     loads: torch.Tensor,
@@ -57,12 +61,14 @@ def refine_true(
         # the correction only needs ||r - A d|| <= tol * ||b||, a relative
         # reduction of tol * ||b|| / ||r|| on its own rhs
         tol_pass = min(1e-2, max(0.3 * tol * safe_b_norm / rn, tol))
-        d, st = correct(r, tol_pass)
-        iters += st.iterations
-        if not st.converged:
-            break
-        u = u + d
-        Au, r, rn = true_residual(op_hi, loads, u)
+        count("certify.passes")
+        with span("fea.certify.pass"):
+            d, st = correct(r, tol_pass)
+            iters += st.iterations
+            if not st.converged:
+                break
+            u = u + d
+            Au, r, rn = true_residual(op_hi, loads, u)
         passes += 1
     return Solution(
         displacements=u,

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..scene import Scene, make_scene
+from ..utils.profiling import span
 from ._types import Solution
 from .cache import _cached_build
 
@@ -57,16 +58,18 @@ def build_subgrid_embedded(scene: Scene, det, *, degree: int = 2, check_jacobian
     emb_fixed[lat] = fixed
 
     dev = scene.device
-    w, min_detj = assemble_curv_weights(torch.as_tensor(emb_nodes, device=dev), dims, scene.material, valid=valid)
-    if check_jacobians:
-        mdj = float(min_detj)
-        if mdj <= 0.0:
-            raise ValueError(
-                f"Non-positive Jacobian determinant (min detJ = {mdj:g}); "
-                "check element shapes / node ordering."
-            )
     free_np = 1.0 - emb_fixed
-    op = CurvilinearOperator(w=w, free=torch.as_tensor(free_np, device=dev), dims=dims)
+    with span("fea.build.operator"):
+        w, min_detj = assemble_curv_weights(torch.as_tensor(emb_nodes, device=dev), dims, scene.material,
+                                            valid=valid)
+        if check_jacobians:
+            mdj = float(min_detj)
+            if mdj <= 0.0:
+                raise ValueError(
+                    f"Non-positive Jacobian determinant (min detJ = {mdj:g}); "
+                    "check element shapes / node ordering."
+                )
+        op = CurvilinearOperator(w=w, free=torch.as_tensor(free_np, device=dev), dims=dims)
     mg = build_curv_multigrid(w, dims, free_np, degree=degree)
     carrier = make_scene(emb_nodes, lat[scene.host_elements], emb_fixed, np.zeros((M, 3)), scene.material,
                          dtype=torch.float64, device=dev)

@@ -23,6 +23,7 @@ import torch
 
 from ..scene import Scene
 from ..solvers.cg import SolveStats
+from ..utils.profiling import span
 from ._types import Solution
 from .curv import _cached_curvilinear
 from .embed import _cached_embedding, _to_lattice
@@ -61,6 +62,7 @@ def _build(scene: Scene):
     return (op64, _two_level(scene, op64)), None
 
 
+@span("fea.solve_many")
 def solve_many(
     scene: Scene,
     loads_batch,
@@ -96,7 +98,6 @@ def solve_many(
         prescribed_batch = _to_lattice(prescribed_batch, lat, op_hi.n_nodes)
     sols = _solve_cases(
         op_hi, mg, loads_batch, prescribed_batch, tol=tol, max_iters=max_iters, refine=True, max_refine=3,
-        say=lambda s: None,
     )
     if lat is not None:
         sols = [Solution(displacements=s.displacements[lat], reactions=s.reactions[lat], stats=s.stats)

@@ -52,7 +52,6 @@ from __future__ import annotations
 
 import functools
 import math
-import time
 import weakref
 from collections import deque
 from typing import Callable, Optional
@@ -64,6 +63,7 @@ from .. import sanitize
 from ..dtypes import precise_dot
 from ..ops import cuda_apply, cuda_stencil, cuda_varstencil
 from ..solvers.cg import SolveStats
+from ..utils.profiling import span
 from ._types import Solution
 from .certify import refine_true
 
@@ -73,7 +73,7 @@ __all__ = ["COUNTS", "solve_operator_fpcg_staged"]
 # before a solve, read them after): steps run (graph replays on the card,
 # eager steps on the CPU), live steps (iterations), the most steps run past
 # a case's halt in one pass, status readbacks, graphs captured and the host
-# ms of warm-up and capture.
+# ms of warm-up and capture (the ``fea.fcg.capture`` spans' time).
 COUNTS = {"steps": 0, "live": 0, "past": 0, "readbacks": 0, "captures": 0, "capture_ms": 0.0}
 
 _COUNTERS = (cuda_stencil.LAUNCHES, cuda_varstencil.LAUNCHES, cuda_apply.LAUNCHES)
@@ -205,20 +205,20 @@ class _Plan:
             self._capture(mg, device)
 
     def _capture(self, mg, device: torch.device) -> None:
-        t0 = time.perf_counter()
-        stream = _STREAMS.get(device)
-        if stream is None:
-            stream = _STREAMS[device] = torch.cuda.Stream(device)
-        stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(stream):
-            # warm-up: a fresh case has a zero budget, so the step is frozen
-            self.cases[0].step(self.op.apply, mg)
-        pool = torch.cuda.graph_pool_handle()  # steps of one plan never run at once
-        for case in self.cases:
-            case.capture(functools.partial(case.step, self.op.apply, mg), stream, pool)
-        torch.cuda.current_stream(device).wait_stream(stream)
+        with span("fea.fcg.capture") as capture:
+            stream = _STREAMS.get(device)
+            if stream is None:
+                stream = _STREAMS[device] = torch.cuda.Stream(device)
+            stream.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(stream):
+                # warm-up: a fresh case has a zero budget, so the step is frozen
+                self.cases[0].step(self.op.apply, mg)
+            pool = torch.cuda.graph_pool_handle()  # steps of one plan never run at once
+            for case in self.cases:
+                case.capture(functools.partial(case.step, self.op.apply, mg), stream, pool)
+            torch.cuda.current_stream(device).wait_stream(stream)
         COUNTS["captures"] += len(self.cases)
-        COUNTS["capture_ms"] += (time.perf_counter() - t0) * 1e3
+        COUNTS["capture_ms"] += capture.seconds * 1e3
 
     def _run_step(self, case: _Case, mg) -> None:
         if self.cuda:
@@ -243,12 +243,15 @@ class _Plan:
     def _read(self, token) -> np.ndarray:
         if not self.cuda:
             return token
-        self.events[token].synchronize()
+        with span("fea.fcg.wait"):
+            self.events[token].synchronize()
         return self.ring[token].numpy().copy()
 
-    def run(self, cases: list[_Case], mg, limit: int, say: Callable[[str], None]) -> np.ndarray:
+    @span("fea.fcg.run")
+    def run(self, cases: list[_Case], mg, limit: int, say: Optional[Callable[[str], None]] = None) -> np.ndarray:
         """Run steps of ``cases`` (started by :meth:`_Case.start`) until
-        each has halted or used ``limit``; the final status of every case."""
+        each has halted or used ``limit``; the final status of every case.
+        ``say``, where given, takes a line at each readback."""
         lag = 1 if self.cuda else 0  # rounds the host reads behind the card
         last = self._readback()
         pending = deque([last])
@@ -259,7 +262,7 @@ class _Plan:
                 status = self._read(pending.popleft())
                 live = [c for c in live if not (status[c.index, 2] or status[c.index, 3])]
                 reads += 1
-                if live:
+                if say is not None and live:
                     worst = max(status[c.index, 0] / max(status[c.index, 4], 1e-300) for c in live)
                     say(f"round {reads}: {len(live)} case(s) live, worst rel_res {math.sqrt(worst):.3e}")
             live = [c for c in live if c.steps < limit]
@@ -307,7 +310,7 @@ def _stats(row: np.ndarray) -> SolveStats:
 
 
 def _solve_cases(op, mg, loads: torch.Tensor, prescribed: torch.Tensor, *, tol: float, max_iters: int,
-                 refine: bool, max_refine: int, say: Callable[[str], None]) -> list[Solution]:
+                 refine: bool, max_refine: int, say: Optional[Callable[[str], None]] = None) -> list[Solution]:
     """FCG for every case of ``loads`` and ``prescribed`` (k, N, 3), the
     cases advancing together; then, case by case, the true-residual
     certification of ``certify.refine_true``, its correction passes
@@ -325,7 +328,8 @@ def _solve_cases(op, mg, loads: torch.Tensor, prescribed: torch.Tensor, *, tol: 
             continue
 
         def correct(r, tol_pass, case=case):
-            say(f"correction pass of case {case.index}")
+            if say is not None:
+                say(f"correction pass of case {case.index}")
             case.start(free, r, None, tol_pass, max_iters)
             return case.x.clone(), _stats(plan.run([case], mg, max_iters, say)[case.index])
 
@@ -360,12 +364,11 @@ def solve_operator_fpcg_staged(
     if not isinstance(op_hi.free, torch.Tensor):
         raise TypeError("solve_operator_fpcg_staged: the operator's vectors must be tensors on one device; "
                         "the sharded solve runs solve_operator_fpcg")
-    say = progress if progress is not None else (lambda s: None)
     hi = torch.float64
     loads = loads.to(hi)
     prescribed = torch.zeros_like(loads) if prescribed is None else prescribed.to(hi)
     (sol,) = _solve_cases(
         op_hi, mg, loads[None], prescribed[None], tol=tol, max_iters=max_iters, refine=refine_true,
-        max_refine=max_refine, say=say,
+        max_refine=max_refine, say=progress,
     )
     return sol
