@@ -104,8 +104,9 @@ Phases, in order:
      capacity_8m) through ``fea_tpu_torch.solve`` on the one card, K2
      unchunked: the host f64 true residual by ``host_ku``, the tip ratio,
      the iteration count beside the reference's, stage times, peak
-     memory with [6] and [7]'s builds still cached (allocated and
-     reserved; without what ``clear_build_cache`` then frees, <= 2.0 GB),
+     memory with [4], [6] and [7]'s builds still cached (allocated and
+     reserved; without what ``clear_build_cache`` then frees of those
+     meshes' entries, <= 2.0 GB),
      no slab launched, and ``loop_vs_staged``;
  12. z-sharded solve: ``build_zsharded_solver`` over four shards on the
      one card at the flagship and at 8,124,675 DOF, against the unsharded
@@ -117,8 +118,9 @@ Phases, in order:
  13. ``solve_many``: tools/many_bench.py's 8 tip-load cases
      (``fea_tpu_torch.bench.many.tip_loads``) on the flagship grid, each
      host-checked by ``host_ku``, case 0 against a
-     single ``solve()``, the batch's wall a case beside one warm solve,
-     peak memory;
+     single ``solve()``, the batch's wall a case beside one warm solve
+     (the build cache cleared before each, so both route, build and
+     capture), peak memory;
  14. embedded slice: bench.py's ``arbitrary`` cell (tools/arbitrary_bench.py:
      the 40x40x144 L-domain, 554,115 DOF in a 243,745-node box, interior
      nodes moved by 0.2 h U(-1, 1), seed 7) through ``fea_tpu_torch.solve``:
@@ -1695,14 +1697,16 @@ def run_capacity(ftt, counters) -> dict:
         f"{time.perf_counter() - t0:.2f} s)")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    held_gb = torch.cuda.memory_allocated() / 1e9
+    held = torch.cuda.memory_allocated()
+    held_gb = held / 1e9
     sol, counts, wall = counted(counters, lambda: ftt.solve(scene, tol=1e-8))
+    own_gb = kept_gb(held, sol)  # this mesh's own entry in the build cache, a part of the solve's peak
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     reserved_gb = torch.cuda.max_memory_reserved() / 1e9
     st = sol.stats
     say(f"  whole solve (fea_tpu_torch.solve): {wall:.3f} s, peak device memory {peak_gb:.3f} GB allocated, "
         f"{reserved_gb:.3f} GB reserved ({held_gb:.3f} GB held before the solve: the scene, the earlier phases' "
-        f"references and the build cache's [6]/[7] builds)")
+        f"references and the build cache's [4]/[6]/[7] builds)")
     say(f"  iterations {st.iterations} (the JAX package on its TPU: {CAPACITY_REF_ITERS}), reported true "
         f"relative residual {st.relative_residual:.3e}, converged {st.converged}")
     say(f"  launches in that solve: K1 {counts['f32']}, K2 {counts['f64']}, K1-halo {counts['slab_f32']}, "
@@ -1752,12 +1756,14 @@ def run_capacity(ftt, counters) -> dict:
     say("  FCG stage with certification, the Python loop beside the staged loop (one operator and hierarchy):")
     loop_vs_staged(op_hi, mg, scene.loads, scene.prescribed_or_zero(torch.float64), host_rel)
 
-    # what the cache held through the solve, freed by the public call
+    # what the cache held through the solve for the other meshes: what the
+    # public call frees, less this mesh's own entry
     cached = torch.cuda.memory_allocated()
     ftt.clear_build_cache()
     gc.collect()
-    cache_gb = (cached - torch.cuda.memory_allocated()) / 1e9
-    say(f"  clear_build_cache() freed {cache_gb:.3f} GB; the solve's peak without it {peak_gb - cache_gb:.3f} GB")
+    cache_gb = (cached - torch.cuda.memory_allocated()) / 1e9 - own_gb
+    say(f"  clear_build_cache() freed {cache_gb + own_gb:.3f} GB, {own_gb:.3f} GB of it this mesh's own entry; "
+        f"the solve's peak without the other meshes' entries {peak_gb - cache_gb:.3f} GB")
     require({"peak device memory, the build cache's aside, <= 2.0 GB": peak_gb - cache_gb <= 2.0}, "capacity")
     return dict(scene=scene, op_hi=op_hi, mg=mg, u=u, iterations=st.iterations, tip=tip, tip_exact=tip_exact,
                 dims=CAPACITY, ke=ke)
@@ -1859,7 +1865,11 @@ def run_many(ftt, counters) -> dict:
     batch = tip_loads(nodes, tip, MANY_CASES)
     one = dataclasses.replace(scene, loads=torch.as_tensor(batch[0], device=DEV))
     ftt.solve(one, tol=1e-8)  # warm
+    # the cache cleared before each timed call, so that both route, build
+    # and capture as a solve on a new mesh does
+    ftt.clear_build_cache()
     single, _, single_wall = counted(counters, lambda: ftt.solve(one, tol=1e-8))
+    ftt.clear_build_cache()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     sol, counts, wall = counted(counters, lambda: ftt.solve_many(scene, batch, tol=1e-8))
@@ -3008,6 +3018,7 @@ def run_debug_nans(ftt, cuda_stencil, flagship_ref: dict) -> None:
 
     scene, ke, dims = flagship_ref["scene"], flagship_ref["ke"], flagship_ref["dims"]
     plain, wall_plain = timed(lambda: ftt.solve(scene, tol=1e-8))
+    ftt.clear_build_cache()  # so that the routing and the builds run under the sanitizer too
     checked, wall_checked = timed(lambda: ftt.solve(scene, tol=1e-8, debug_nans=True))
     u_p, u_c = plain.displacements.cpu().numpy(), checked.displacements.cpu().numpy()
     du = float(np.abs(u_c - u_p).max() / np.abs(u_p).max())

@@ -13,8 +13,9 @@ the tool times ``build_structured_operator``, ``build_multigrid_t`` and
 detection (``_grid_route``) is outside it, as it is outside the tool's.
 Each call builds afresh, so each captures its step's graph anew.
 ``t_single_warm`` is the second of two such calls, builds included.
-``t_batch_warm`` is the second of two ``solve_many`` calls, which builds
-the same way and captures a graph a case.
+``t_batch_warm`` is the second of two ``solve_many`` calls, with the
+build cache cleared before it, so that it builds the same way (and routes)
+and captures a graph a case.
 
 Prints one JSON line, the tool's keys: ``per_case_s`` is
 ``t_batch_warm / cases`` and ``amortized_ratio`` that over
@@ -82,7 +83,7 @@ def main(argv=None) -> dict:
 
 def run(args, st: Stages) -> dict:
     from ..ops import cuda_stencil
-    from ..solve import _voxel_build, solve_many, solve_operator_fpcg_staged
+    from ..solve import _voxel_build, clear_build_cache, solve_many, solve_operator_fpcg_staged
 
     dims = (args.nx, args.ny, args.nz)
     with st.stage("scene"):
@@ -110,6 +111,7 @@ def run(args, st: Stages) -> dict:
 
     with st.stage("batch_first"):
         solve_many(scene, batch, tol=args.tol, max_iters=300)
+    clear_build_cache()  # the batch builds, as the single does
     before = {k: cuda_stencil.LAUNCHES[k] for k in ("f32", "f64")}
     with st.stage("batch_warm"):
         t0 = time.perf_counter()

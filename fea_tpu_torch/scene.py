@@ -9,7 +9,6 @@ layouts are the JAX package's.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Optional
 
 import numpy as np
@@ -92,17 +91,27 @@ class Scene:
         return self.n_nodes * self.element_family.dofs_per_node
 
     # The routing detectors read the mesh on the host; each host copy is
-    # taken once per scene, not once per detector. The package never
-    # writes a scene's tensors in place.
-    @functools.cached_property
+    # taken once per scene and tensor version, not once per detector, so a
+    # caller's in-place torch edit of the tensor is copied again (an
+    # inference tensor, which has no version, is copied once). The package
+    # never writes a scene's tensors in place.
+    @property
     def host_nodes(self) -> np.ndarray:
         """``nodes`` as a NumPy array."""
-        return self.nodes.cpu().numpy()
+        return self._host("nodes")
 
-    @functools.cached_property
+    @property
     def host_elements(self) -> np.ndarray:
         """``elements`` as a NumPy array."""
-        return self.elements.cpu().numpy()
+        return self._host("elements")
+
+    def _host(self, name: str) -> np.ndarray:
+        t = getattr(self, name)
+        version = tensor_version(t)
+        kept = self.__dict__.get("_host_" + name)  # frozen: set through __dict__, as cached_property does
+        if kept is None or kept[0] != version:
+            kept = self.__dict__["_host_" + name] = (version, t.cpu().numpy())
+        return kept[1]
 
     def free_mask(self, dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """1.0 on free DOFs, 0.0 on fixed."""
@@ -125,6 +134,12 @@ class Scene:
             prescribed=move(self.prescribed),
             section=move(self.section),
         )
+
+
+def tensor_version(t: torch.Tensor) -> Optional[int]:
+    """``t``'s version counter, which every in-place torch operation on it
+    or a view of it bumps; None for an inference tensor, which has none."""
+    return None if t.is_inference() else t._version
 
 
 def resolve_device(device) -> torch.device:

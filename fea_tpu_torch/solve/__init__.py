@@ -12,11 +12,13 @@ reference's order:
      ``operator=``: the element-by-element operator (``operator.py``,
      K6/K7) through :func:`solve_operator`, whatever the size;
   2. a hex8 scene of ``_STRUCTURED_MIN_DOF`` DOFs or more (or any hex8
-     scene under ``SolverConfig(sharded=True)``), auto-routed:
+     scene under ``SolverConfig(sharded=True)``), auto-routed (the
+     verdict kept per mesh in ``solve/cache.py``):
      a. a regular voxel box: the structured stencil operator (K1/K2) on
-        one device, or, when ``sharded=True`` asks for it and more than
-        one device is visible, its z-sharded solve over them
-        (``parallel/halo.py``, K1's halo form and K3);
+        one device, built once per mesh, or, when ``sharded=True`` asks
+        for it and more than one device is visible, its z-sharded solve
+        over them (``parallel/halo.py``, K1's halo form and K3), built
+        anew every call;
      b. an extruded mesh (a section extruded along z with uniform
         spacing): the semi-structured operator and the z-semicoarsened
         line-smoothed V-cycle with the section-RBM coarse space
@@ -322,17 +324,23 @@ def _solve_large_hex8(
     goes on to the routes of :func:`solve`'s tail (embedded, AMG,
     two-level, or dense/CG for a scene under ``_BLOCK_PRECOND_MIN_DOF``),
     as in the reference."""
-    route, dims = _grid_route(scene)
+    route, dims = _cached_build("route", scene, lambda: _grid_route(scene))
     if route == "voxel":
         # the z-sharded solve only when asked for (``sharded=True``) and more
         # than one device is visible; a scene it does not take falls through
-        # to the one-device route
+        # to the one-device route. On one device the build is kept for the
+        # mesh's repeat solves; the sharded branch builds every call and
+        # lets the whole-grid levels go
         n_dev = _device_count(scene.device)
-        shard = bool(cfg.sharded) and n_dev > 1 and dims[2] + 1 >= 16
+        sharded = bool(cfg.sharded) and n_dev > 1
+        shard = sharded and dims[2] + 1 >= 16
         # a small sharded scene still needs a >= 2-level hierarchy; where
         # this limit leaves one level, the default one leaves the same
         limit = min(3000, max(300, scene.n_dof // 8)) if shard else 3000
-        op_hi, mg = _voxel_build(scene, dims, limit)
+        if sharded:
+            op_hi, mg = _voxel_build(scene, dims, limit)
+        else:
+            op_hi, mg = _cached_build("voxel", scene, lambda: _voxel_build(scene, dims))
         if shard and len(mg.levels) >= 2:
             from ..parallel.halo import build_zsharded_solver
 

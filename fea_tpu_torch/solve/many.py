@@ -10,8 +10,8 @@ round. Each case is certified against its true f64 residual on its own
 follows the reference: a voxel box, then extruded, then curvilinear, then
 a box subset (embedded: the batch scattered into the lattice and gathered
 back), else arbitrary topology (the two-level preconditioner over the
-element-by-element f64 operator). Every build but the voxel one comes
-from the cache ``solve()`` uses.
+element-by-element f64 operator). Every build comes from the cache
+``solve()`` uses.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from ..scene import Scene
 from ..solvers.cg import SolveStats
 from ..utils.profiling import span
 from ._types import Solution
+from .cache import _cached_build
 from .curv import _cached_curvilinear
 from .embed import _cached_embedding, _to_lattice
 from .extruded import _cached_extruded
@@ -46,9 +47,9 @@ def _build(scene: Scene):
     caches); ``lat`` is the lattice map of the embedded route, else None."""
     from . import _grid_route, _operator_f64, _two_level, _voxel_build
 
-    route, dims = _grid_route(scene)
+    route, dims = _cached_build("route", scene, lambda: _grid_route(scene))
     if route == "voxel":
-        return _voxel_build(scene, dims), None
+        return _cached_build("voxel", scene, lambda: _voxel_build(scene, dims)), None
     if route == "extruded":
         return _cached_extruded(scene, dims), None
     if route == "curvilinear":

@@ -428,6 +428,51 @@ def test_staged_loop_graph_matches_the_eager_loop():
     assert float((card.displacements.cpu() - u).abs().max()) <= 1e-7 * float(u.abs().max())
 
 
+@pytest.mark.cuda
+def test_repeat_voxel_solve_takes_the_cached_build_and_its_graph(monkeypatch):
+    """Two ``solve()`` calls on one voxel scene on the card: the second takes
+    the build cache's entry and the plan captured over its hierarchy, so it
+    captures nothing and its displacements are the first's bit for bit. An
+    in-place edit of the nodes on the card misses: it builds anew from a new
+    host copy and matches a fresh scene of the edited mesh."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the staged loop captures on the card")
+    import dataclasses
+    import sys
+
+    import fea_tpu_torch as ftt
+    from fea_tpu_torch.mesh import box_hex_mesh
+    from fea_tpu_torch.scene import fix_where, make_scene
+    from fea_tpu_torch.solve import staged
+
+    monkeypatch.setattr(sys.modules["fea_tpu_torch.solve"], "_STRUCTURED_MIN_DOF", 0)
+    monkeypatch.setattr(sys.modules["fea_tpu_torch.solve.cache"], "_BUILD_CACHE", {})
+    nodes, elements = box_hex_mesh(8, 8, 64, 0.05, 0.05, 1.0)
+    fixed = fix_where(nodes, lambda p: p[:, 2] == 0.0, 3)
+    loads = np.zeros_like(nodes)
+    loads[nodes[:, 2] == 1.0, 1] = 1.0
+
+    def scene(xyz):
+        return make_scene(xyz, elements, fixed, loads, Material(E=1e7, nu=0.3), dtype=torch.float64, device="cuda")
+
+    sc = scene(nodes)
+    for key in staged.COUNTS:
+        staged.COUNTS[key] = 0
+    first = ftt.solve(sc, tol=1e-8)
+    again = ftt.solve(dataclasses.replace(sc, loads=sc.loads.clone()), tol=1e-8)
+    torch.cuda.synchronize()
+    assert first.route == again.route == "fpcg-multigrid" and first.stats.converged
+    assert staged.COUNTS["captures"] == 1
+    assert torch.equal(again.displacements, first.displacements)
+    sc.nodes.mul_(2.0)
+    edited = ftt.solve(sc, tol=1e-8)
+    fresh = ftt.solve(scene(2.0 * nodes), tol=1e-8)
+    torch.cuda.synchronize()
+    assert staged.COUNTS["captures"] == 3 and edited.stats.converged
+    u = fresh.displacements
+    assert float((edited.displacements - u).abs().max()) <= 1e-12 * float(u.abs().max())
+
+
 def _l_domain(nx, nz, device):
     """An L-domain with interior nodes moved by 0.2 h U(-1, 1) (seed 7),
     z = 0 fixed, a +y load on the tip face, on ``device``."""

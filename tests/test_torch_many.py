@@ -230,8 +230,8 @@ def test_a_third_mesh_evicts_the_least_recently_used(counted_builds):
     for scene in scenes:
         ftt.solve(scene, tol=1e-8)
     assert len(counted_builds) == 3
-    (kind,) = CACHE._BUILD_CACHE
-    assert len(CACHE._BUILD_CACHE[kind]) == 2
+    (kind,) = [k for k in CACHE._BUILD_CACHE if k != "route"]  # beside the route's verdicts
+    assert len(CACHE._BUILD_CACHE[kind]) == 2 and len(CACHE._BUILD_CACHE["route"]) == 2
     ftt.solve(scenes[2], tol=1e-8)  # still cached
     assert len(counted_builds) == 3
     ftt.solve(scenes[0], tol=1e-8)  # evicted: built again
@@ -275,7 +275,7 @@ def test_clear_build_cache_drops_the_builds_and_their_plans(counted_builds):
     nodes, elements, fixed, loads = distorted(4, 4, 16, seed=7)
     scene = _scene(nodes, elements, fixed, loads)
     ftt.solve(scene, tol=1e-8)
-    (kind,) = CACHE._BUILD_CACHE
+    (kind,) = [k for k in CACHE._BUILD_CACHE if k != "route"]  # beside the route's verdict
     (entry,) = CACHE._BUILD_CACHE[kind]
     key = id(entry[2][1])  # the cached hierarchy keys its captured plan
     del entry

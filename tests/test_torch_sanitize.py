@@ -52,6 +52,7 @@ def test_voxel_route_at_53k_dof_is_unchanged_under_the_sanitizer():
     plain = ftt.solve(scene, tol=1e-8)
     staged = sys.modules["fea_tpu_torch.solve.staged"]
     plans = dict(staged._PLANS)
+    ftt.clear_build_cache()  # so that the builds run under the sanitizer too
     checked = ftt.solve(scene, tol=1e-8, debug_nans=True)
     assert staged._PLANS.keys() <= plans.keys()
     assert checked.stats.converged and checked.stats == plain.stats

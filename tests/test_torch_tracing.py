@@ -186,6 +186,7 @@ def test_profiler_records_the_spans_as_user_annotations(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.profiler, "record_function", Counted)
     ftt.solve_many(scene, loads, tol=1e-8)
     assert entered == []  # no profiler recording: no record_function
+    scene, loads = _box(4, 4, 32, cases=2)  # a new mesh: the first one's repeat takes its cached build
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         ftt.solve_many(scene, loads, tol=1e-8)
     path = tmp_path / "trace.json"
@@ -231,7 +232,8 @@ def test_build_cache_counts_a_miss_then_hits(monkeypatch):
     for i in range(3):
         sol = ftt.solve(dataclasses.replace(scene, loads=scene.loads * (i + 1)), tol=1e-8)
         assert sol.route == "fpcg-curvilinear-multigrid"
-    assert utils.counters() == {"build_cache.miss.curvilinear": 1, "build_cache.hit.curvilinear": 2}
+    assert utils.counters() == {"build_cache.miss.route": 1, "build_cache.hit.route": 2,
+                                "build_cache.miss.curvilinear": 1, "build_cache.hit.curvilinear": 2}
     builds = [s for s in utils.spans() if s.name.startswith("fea.build.")]
     assert sorted(s.name for s in builds) == ["fea.build.hierarchy", "fea.build.operator"]  # the first call only
 
