@@ -227,6 +227,7 @@ def _scatter_blocks(wg, keg, z0: int, dims) -> None:
             wg[d, z0 + az : z0 + az + cz, ay : ay + ny, ax : ax + nx] += keg[:, :, :, a, :, b, :]
 
 
+@span("fea.build.curv.weights")
 def assemble_curv_weights(
     nodes: torch.Tensor,
     dims: tuple[int, int, int],
@@ -353,7 +354,8 @@ def build_curv_operator(
     determinant (distorted meshes are where inverted elements happen)."""
     w, min_detj = assemble_curv_weights(scene.nodes, dims, scene.material, dtype=dtype)
     if check_jacobians:
-        mdj = float(min_detj)
+        with span("fea.build.curv.jacobians"):  # reading the minimum waits for the assembly
+            mdj = float(min_detj)
         if mdj <= 0.0:
             raise ValueError(
                 f"Non-positive Jacobian determinant (min detJ = {mdj:g}); "
@@ -441,6 +443,7 @@ def _rap_slices(av, axes, cs) -> Optional[tuple[slice, slice, slice]]:
     return tuple(sl)
 
 
+@span("fea.build.curv.rap")
 def rap_dev(w: torch.Tensor, axes: tuple[int, ...]) -> torch.Tensor:
     """Galerkin RAP of a (27, 3, 3, Z, Y, X) block stencil -> the coarse
     (27, 3, 3, Zc, Yc, Xc) stencil, on the field's device: one
@@ -613,32 +616,20 @@ def build_curv_multigrid(
     block-symmetric (ValueError otherwise, as for CurvilinearOperator).
 
     Each coarser level is :func:`rap_dev` of the one above, chained in
-    f64 from the resident fine field. Levels under ``f64_below_dof`` DOFs
-    keep f64; bigger ones are cast to f32. Only the coarsest level's
-    weights go to the host, for the dense masked inverse.
+    f64 from the resident fine field. Then each level's certified
+    Gershgorin bound from its f64 field, and its cast (span
+    ``fea.build.curv.levels``): levels under ``f64_below_dof`` DOFs keep
+    f64; bigger ones are cast to f32. Last the dense masked inverse of the
+    coarsest level, whose weights alone go to the host (span
+    ``fea.build.curv.coarse``).
     """
     _require_block_symmetric(w0, "build_curv_multigrid")
     nx, ny, nz = dims
     device = w0.device
     f = np.asarray(free_np, np.float64).reshape(nz + 1, ny + 1, nx + 1, 3)
     d, w = dims, w0.to(torch.float64)
-    levels, coarsen_axes = [], []
-    while True:
-        n_dof = 3 * int(np.prod([s + 1 for s in d]))
-        lvl_dtype = torch.float64 if n_dof < f64_below_dof else torch.float32
-        f_dev = torch.as_tensor(f, device=device)
-        inv_diag, lam = _gershgorin_dev(w, f_dev)
-        levels.append(
-            _CurvLevel(
-                w=w.to(lvl_dtype),
-                free=f_dev.to(lvl_dtype),
-                inv_diag=inv_diag.to(lvl_dtype),
-                lam_max=lam,
-                dims=d,
-            )
-        )
-        if n_dof <= _MAX_COARSE_DOF:
-            break
+    fields, coarsen_axes = [(d, w, f)], []  # each level's dims, f64 field and free mask
+    while 3 * int(np.prod([s + 1 for s in d])) > _MAX_COARSE_DOF:
         step = coarsen_dims_partial(d)
         if step is None:
             break
@@ -646,9 +637,19 @@ def build_curv_multigrid(
         coarsen_axes.append(axes)
         w = rap_dev(w, axes)
         f = np.ascontiguousarray(f[tuple(slice(None, None, 2) if ax in axes else slice(None) for ax in range(3))])
+        fields.append((d, w, f))
 
-    K = _dense_from_w_np(grid_view(w).cpu().numpy(), f)
-    coarse_inv = torch.as_tensor(np.linalg.inv(K), device=device).to(levels[-1].dtype)
+    levels = []
+    with span("fea.build.curv.levels"):  # the first bound read waits for the RAP chain's card work
+        for d, w, f in fields:
+            lvl_dtype = torch.float64 if 3 * int(np.prod([s + 1 for s in d])) < f64_below_dof else torch.float32
+            f_dev = torch.as_tensor(f, device=device)
+            inv_diag, lam = _gershgorin_dev(w, f_dev)
+            levels.append(_CurvLevel(w=w.to(lvl_dtype), free=f_dev.to(lvl_dtype), inv_diag=inv_diag.to(lvl_dtype),
+                                     lam_max=lam, dims=d))
+    with span("fea.build.curv.coarse"):
+        K = _dense_from_w_np(grid_view(w).cpu().numpy(), f)
+        coarse_inv = torch.as_tensor(np.linalg.inv(K), device=device).to(levels[-1].dtype)
     return CurvMultigrid(
         levels=tuple(levels), coarse_inv=coarse_inv, coarsen_axes=tuple(coarsen_axes), degree=degree
     )

@@ -82,7 +82,8 @@ class Shards(list):
 
     ``+``, ``-``, ``*``, ``/`` and ``>`` act shard by shard, with another
     Shards or with a scalar (a 0-d tensor is copied to each shard's
-    device); ``.to`` converts every shard; ``torch.zeros_like``,
+    device); ``.add_`` adds another Shards in place; ``.to`` converts
+    every shard; ``torch.zeros_like``,
     ``torch.ones_like``, ``torch.where`` of Shards and
     ``torch.linalg.vector_norm`` accept it; ``dtypes.precise_dot`` of two
     Shards is :meth:`dot`. That is all the single-device solver code asks
@@ -129,6 +130,11 @@ class Shards(list):
 
     __radd__ = __iadd__ = __add__
     __rmul__ = __imul__ = __mul__
+
+    def add_(self, other: "Shards") -> "Shards":
+        for x, y in zip(self, other):
+            x.add_(y)
+        return self
 
     @property
     def dtype(self) -> torch.dtype:

@@ -322,8 +322,8 @@ def _solve_cases(op, mg, loads: torch.Tensor, prescribed: torch.Tensor, *, tol: 
     status = plan.run(plan.cases, mg, max_iters, say)
     sols = []
     for i, case in enumerate(plan.cases):
-        u = case.x.clone()
         if not refine:
+            u = case.x.clone()
             sols.append(Solution(displacements=u, reactions=op.apply_raw(u), stats=_stats(status[i])))
             continue
 
@@ -331,10 +331,12 @@ def _solve_cases(op, mg, loads: torch.Tensor, prescribed: torch.Tensor, *, tol: 
             if say is not None:
                 say(f"correction pass of case {case.index}")
             case.start(free, r, None, tol_pass, max_iters)
-            return case.x.clone(), _stats(plan.run([case], mg, max_iters, say)[case.index])
+            row = plan.run([case], mg, max_iters, say)[case.index]
+            return case.x.clone(), _stats(row)  # the correction once its pass has run
 
-        sols.append(refine_true(op, loads[i], math.sqrt(max(status[i, 4], 0.0)), u, _stats(status[i]), correct,
-                                tol=tol, max_refine=max_refine))
+        # refine_true corrects the clone in place
+        sols.append(refine_true(op, loads[i], math.sqrt(max(status[i, 4], 0.0)), case.x.clone(), _stats(status[i]),
+                                correct, tol=tol, max_refine=max_refine))
     return sols
 
 

@@ -20,12 +20,18 @@ The program opens them at its layer boundaries:
   ``fea.route``                      routing (the grid detectors)
   ``fea.build.operator``             the operator build of each route
   ``fea.build.hierarchy``            the preconditioner build of each route
+  ``fea.build.curv.*``               inside those, the curvilinear build's
+                                     stages on the card: ``jacobians``,
+                                     ``weights``, ``rap`` (one a level),
+                                     ``levels``, ``coarse``
   ``fea.fcg.capture``                the staged FCG's graph captures
   ``fea.fcg.run``, ``fea.fcg.wait``  a staged FCG pass; its waits for the card
   ``fea.certify``, ``fea.certify.pass``  certification of a case; a correction pass
 
 **Counters.** :func:`count` adds to a named counter, :func:`counters`
-reads them all: ``certify.passes`` (correction passes run) and
+reads them all: ``certify.passes`` (correction passes run),
+``certify.stalled`` (converged passes that left the true residual no
+lower), ``certify.uncertified`` (cases handed back above tol) and
 ``build_cache.hit.<kind>`` / ``build_cache.miss.<kind>``. :func:`reset`
 clears the ring and the counters.
 """

@@ -30,6 +30,7 @@ from fea_tpu_torch.ops.multigrid import build_multigrid
 from fea_tpu_torch.ops.structured import build_structured_operator
 from fea_tpu_torch.solve import solve_operator_fpcg, solve_operator_fpcg_staged
 from torch_pin import one_torch_thread  # noqa: F401
+from torch_tools import ShiftedRhs
 
 STAGED = sys.modules["fea_tpu_torch.solve.staged"]
 MAT = dict(E=1e7, nu=0.3)
@@ -170,6 +171,30 @@ def test_max_iters_is_exact(slender):
     assert counts["live"] == 5
 
 
+def test_a_first_pass_just_above_tol_is_certified_by_its_correction(slender):
+    """A case whose first pass lands at about 3 tol (true) is certified by
+    one correction pass: the correction's displacement is read after its
+    pass has run and takes the true residual down by the tenth the pass is
+    asked for. The reported residual is the true one, recomputed here from
+    u by the element-by-element operator (K7, not the stencil the solve
+    used)."""
+    sc, op, mg = slender
+    tol = 1e-8
+    b = op.rhs(sc.loads, torch.zeros_like(sc.loads))
+    v = op.free * torch.as_tensor(np.random.default_rng(3).standard_normal(tuple(b.shape)))
+    shifted = ShiftedRhs(op, 3 * tol * float(b.norm()) / float(v.norm()) * v)
+    utils = sys.modules["fea_tpu_torch.utils"]
+    utils.reset()
+    got = solve_operator_fpcg_staged(shifted, sc.loads, None, mg, tol=tol)
+    counts = utils.counters()
+    assert got.stats.converged and got.stats.relative_residual <= tol
+    assert counts["certify.passes"] == 1
+    assert "certify.stalled" not in counts and "certify.uncertified" not in counts
+    k = ftt.build_operator(sc, dtype=torch.float64)
+    true = float((op.free * (sc.loads - k.apply_raw(got.displacements))).norm()) / float(b.norm())
+    assert true <= tol and abs(true - got.stats.relative_residual) <= 1e-3 * tol
+
+
 def test_sharded_vectors_are_refused(slender):
     """The sharded solve keeps the Python loop: a capture of its shard
     vectors is never attempted."""
@@ -179,6 +204,30 @@ def test_sharded_vectors_are_refused(slender):
     solver = build_zsharded_solver(op, mg, ["cpu"] * 2)
     with pytest.raises(TypeError, match="sharded solve runs solve_operator_fpcg"):
         solve_operator_fpcg_staged(solver.op, solver.scatter(sc.loads), None, solver.precondition)
+
+
+def test_a_sharded_solve_certifies_through_a_correction_pass(slender):
+    """The z-sharded solve certifies its Shards through the same
+    ``refine_true``: a rhs shifted by 3 tol forces a correction pass, which
+    adds into u shard by shard, and the true residual recomputed from the
+    gathered u by the element-by-element operator meets tol."""
+    from fea_tpu_torch.parallel import build_zsharded_solver
+
+    sc, op, mg = slender
+    tol = 1e-8
+    solver = build_zsharded_solver(op, mg, ["cpu"] * 2)
+    b = op.rhs(sc.loads, torch.zeros_like(sc.loads))
+    v = op.free * torch.as_tensor(np.random.default_rng(3).standard_normal(tuple(b.shape)))
+    solver.op = ShiftedRhs(solver.op, solver.scatter(3 * tol * float(b.norm()) / float(v.norm()) * v))
+    utils = sys.modules["fea_tpu_torch.utils"]
+    utils.reset()
+    got = solver.solve(sc.loads, tol=tol)
+    counts = utils.counters()
+    assert got.stats.converged and got.stats.relative_residual <= tol
+    assert counts["certify.passes"] >= 1 and "certify.uncertified" not in counts
+    k = ftt.build_operator(sc, dtype=torch.float64)
+    true = float((op.free * (sc.loads - k.apply_raw(got.displacements))).norm()) / float(b.norm())
+    assert true <= tol and abs(true - got.stats.relative_residual) <= 1e-3 * tol
 
 
 @pytest.fixture

@@ -30,12 +30,15 @@ from fea_tpu_torch.ops.structured import build_structured_operator
 from fea_tpu_torch.solve import certify, solve_operator_fpcg_staged
 from fea_tpu_torch.solvers.cg import SolveStats
 from torch_pin import one_torch_thread  # noqa: F401
+from torch_tools import ShiftedRhs
 
 PROFILING = sys.modules["fea_tpu_torch.utils.profiling"]
 SOLVE = sys.modules["fea_tpu_torch.solve"]
 CACHE = sys.modules["fea_tpu_torch.solve.cache"]
 MAT = dict(E=1e7, nu=0.3)
 STAGES = {"fea.route", "fea.build.operator", "fea.build.hierarchy", "fea.fcg.run", "fea.certify"}
+CURV_BUILD = ("fea.build.curv.jacobians", "fea.build.curv.weights", "fea.build.curv.rap", "fea.build.curv.levels",
+              "fea.build.curv.coarse")
 READERS = ("route_ms_per_request", "operator_build_ms_per_request", "hierarchy_build_ms_per_request",
            "fcg_host_ms_per_case", "certify_ms_per_case", "certify_passes_per_case", "solve_self_ms_per_request")
 
@@ -235,7 +238,35 @@ def test_build_cache_counts_a_miss_then_hits(monkeypatch):
     assert utils.counters() == {"build_cache.miss.route": 1, "build_cache.hit.route": 2,
                                 "build_cache.miss.curvilinear": 1, "build_cache.hit.curvilinear": 2}
     builds = [s for s in utils.spans() if s.name.startswith("fea.build.")]
-    assert sorted(s.name for s in builds) == ["fea.build.hierarchy", "fea.build.operator"]  # the first call only
+    assert sorted(s.name for s in builds) == [  # the first call only; no coarser level at this size, so no RAP
+        "fea.build.curv.coarse", "fea.build.curv.jacobians", "fea.build.curv.levels", "fea.build.curv.weights",
+        "fea.build.hierarchy", "fea.build.operator"]
+
+
+def test_the_curvilinear_build_spans_its_stages_inside_its_builds(monkeypatch):
+    """At 8x8x16 (4,131 DOF) the hierarchy has one Galerkin level below
+    the fine one: each ``fea.build.curv.*`` span opens once, the check and
+    the assembly inside ``fea.build.operator``, RAP, the levels' bounds
+    and casts and the coarse level's inverse inside
+    ``fea.build.hierarchy``."""
+    monkeypatch.setattr(SOLVE, "_STRUCTURED_MIN_DOF", 0)
+    monkeypatch.setattr(CACHE, "_BUILD_CACHE", {})
+    nodes, elements, fixed, loads = _distorted(8, 8, 16)
+    scene = ftt.make_scene(nodes, elements, fixed, loads, ftt.Material(**MAT), dtype=torch.float64, device="cpu")
+    utils.reset()
+    sol = ftt.solve(scene, tol=1e-8)
+    assert sol.route == "fpcg-curvilinear-multigrid" and sol.stats.converged
+    records = utils.spans()
+    root = _tree(records)
+    by_index = {s.index: s for s in records}
+    curv = [s for s in records if s.name.startswith("fea.build.curv.")]
+    assert sorted(s.name for s in curv) == ["fea.build.curv.coarse", "fea.build.curv.jacobians",
+                                            "fea.build.curv.levels", "fea.build.curv.rap", "fea.build.curv.weights"]
+    parents = {s.name.rsplit(".", 1)[1]: by_index[s.parent] for s in curv}
+    assert {k: p.name for k, p in parents.items()} == {
+        "jacobians": "fea.build.operator", "weights": "fea.build.operator",
+        "rap": "fea.build.hierarchy", "levels": "fea.build.hierarchy", "coarse": "fea.build.hierarchy"}
+    assert all(p.parent == root.index for p in parents.values())
 
 
 def test_a_correction_pass_is_a_span_and_a_count():
@@ -257,6 +288,76 @@ def test_a_correction_pass_is_a_span_and_a_count():
     assert utils.counters() == {"certify.passes": 1}
 
 
+def test_a_correction_that_moves_nothing_counts_stalled_passes_and_an_uncertified_case():
+    """A correction handing back a zero displacement, converged (what the
+    staged loop's correction did while it read its pass's displacement
+    before running the pass): every pass counts ``certify.stalled``, the
+    passes stop at ``max_refine``, and the case, reported at its true
+    residual, counts ``certify.uncertified``."""
+    op = SimpleNamespace(free=torch.ones(4, 3, dtype=torch.float64), apply_raw=lambda u: 2.0 * u)
+    loads = torch.ones(4, 3, dtype=torch.float64)
+    stats = SolveStats(iterations=5, residual_norm=1.0, relative_residual=0.5, converged=True)
+
+    def correct(r, tol_pass):
+        return torch.zeros_like(r), SolveStats(iterations=2, residual_norm=0.0, relative_residual=0.0, converged=True)
+
+    utils.reset()
+    sol = certify.refine_true(op, loads, float(loads.norm()), loads / 4.0, stats, correct, tol=1e-10)
+    assert not sol.stats.converged and sol.stats.iterations == 5 + 3 * 2
+    assert sol.stats.relative_residual == pytest.approx(0.5, rel=1e-15)
+    assert utils.counters() == {"certify.passes": 3, "certify.stalled": 3, "certify.uncertified": 1}
+
+
+def test_an_unconverged_solve_counts_one_uncertified_case():
+    scene, _ = _box(4, 4, 32)
+    op = build_structured_operator(scene, (4, 4, 32), dtype=torch.float64)
+    mg = build_multigrid(op.astype(torch.float32), dtype=torch.float32,
+                         free_np=1.0 - scene.fixed.numpy().astype(np.float64))
+    utils.reset()
+    sol = solve_operator_fpcg_staged(op, scene.loads, None, mg, tol=1e-30, max_iters=2)
+    assert not sol.stats.converged
+    assert utils.counters() == {"certify.uncertified": 1}  # a first pass that did not converge runs no pass
+
+
+@pytest.mark.cuda
+def test_a_correction_pass_raises_no_peak_device_memory():
+    """A case certified through a correction pass peaks at the device
+    memory of one certified without: the pass adds its correction into u
+    in place, and the last residual and reactions go before the next come.
+    (A pass that kept them held four more vectors, so a window's
+    ``peak_device_gb`` hung on whether any of its cases took a pass.) At
+    16x16x64 a vector is 441 KiB; the slack is a quarter of one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the device's memory statistics")
+    from fea_tpu_torch.solve.curv import build_curvilinear
+
+    nodes, elements, fixed, loads = _distorted(16, 16, 64)
+    scene = ftt.make_scene(nodes, elements, fixed, loads, ftt.Material(**MAT), dtype=torch.float64, device="cuda")
+    op, mg = build_curvilinear(scene)
+    b = op.rhs(scene.loads, torch.zeros_like(scene.loads))
+    v = op.free * torch.as_tensor(np.random.default_rng(3).standard_normal(tuple(b.shape)), device=b.device)
+    shifted = ShiftedRhs(op, 3e-8 * float(b.norm()) / float(v.norm()) * v)
+    del b, v
+
+    def peak(o):
+        solve_operator_fpcg_staged(o, scene.loads, None, mg, tol=1e-8)  # its plan and capture
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        sol = solve_operator_fpcg_staged(o, scene.loads, None, mg, tol=1e-8)
+        torch.cuda.synchronize()
+        return sol, torch.cuda.max_memory_allocated() - base
+
+    utils.reset()
+    sol, passed = peak(shifted)
+    assert sol.stats.converged and utils.counters()["certify.passes"] >= 2  # the warm-up's and this one's
+    del sol
+    utils.reset()
+    sol, plain = peak(op)
+    assert sol.stats.converged and "certify.passes" not in utils.counters()
+    assert passed <= plain + scene.loads.numel() * 8 // 4, (passed, plain)
+
+
 def test_progress_lines_come_only_to_a_callback():
     scene, _ = _box(4, 4, 32)
     op = build_structured_operator(scene, (4, 4, 32), dtype=torch.float64)
@@ -274,11 +375,13 @@ def _span(name, request, index, parent, start, end):
     return PROFILING.SpanRecord(name, request, index, parent, start, end)
 
 
-def _request(request, first, t0, cases, route, op, mg, run, wait, certify, passes):
+def _request(request, first, t0, cases, route, op, mg, run, wait, certify, passes, curv=None):
     """The spans of one call from ``t0`` (seconds), each stage ``ms`` long
     and back to back, its index from ``first``: root, route, operator,
     hierarchy, one FCG run with one wait, and a certification a case with
-    ``passes`` correction passes in the first."""
+    ``passes`` correction passes in the first. ``curv``: the ms of the
+    five ``fea.build.curv.*`` spans, two inside the operator's span and
+    three inside the hierarchy's, or None for none."""
     out, idx, t = [], first + 1, t0 + 1e-3  # 1 ms of the root before its first stage
 
     def add(name, ms, parent=first):
@@ -290,8 +393,10 @@ def _request(request, first, t0, cases, route, op, mg, run, wait, certify, passe
         return rec
 
     add("fea.route", route)
-    add("fea.build.operator", op)
-    add("fea.build.hierarchy", mg)
+    builds = [add("fea.build.operator", op), add("fea.build.hierarchy", mg)]
+    for name, ms, parent in zip(CURV_BUILD, curv or (), builds[:1] * 2 + builds[1:] * 3):
+        out.append(_span(name, request, idx, parent.index, parent.start, parent.start + ms * 1e-3))
+        idx += 1
     fcg = add("fea.fcg.run", run)
     out.append(_span("fea.fcg.wait", request, idx, fcg.index, fcg.start, fcg.start + wait * 1e-3))
     idx += 1
@@ -304,20 +409,23 @@ def _request(request, first, t0, cases, route, op, mg, run, wait, certify, passe
     return out + [root], idx
 
 
-def _window(cases=2, drop_root_of=None):
+def _window(cases=2, drop_root_of=None, curv=False):
     """A run of three window requests (and a warm-up before them, and a
-    profiled one inside), its records and the ring they left."""
+    profiled one inside), its records and the ring they left; ``curv``:
+    request r's five curvilinear build spans last 1, 2, 3, 4 and 5 ms
+    times r."""
     ring, records, idx, t = [], [], 0, 100.0
     stages = [(2.0, 4.0, 100.0, 30.0, 10.0, 3.0, 1), (3.0, 5.0, 120.0, 40.0, 12.0, 4.0, 0),
               (4.0, 6.0, 140.0, 50.0, 20.0, 5.0, 2), (1.0, 1.0, 1.0, 1.0, 0.0, 1.0, 0)]
     for r, (route, op, mg, run, wait, certify, passes) in enumerate(stages):
-        spans_r, idx = _request(r + 1, idx, t, cases, route, op, mg, run, wait, certify, passes)
+        spans_r, idx = _request(r + 1, idx, t, cases, route, op, mg, run, wait, certify, passes,
+                                curv=tuple(k * (r + 1) for k in (1.0, 2.0, 3.0, 4.0, 5.0)) if curv else None)
         root = spans_r[-1]
         if r + 1 != drop_root_of:
             ring += spans_r
         if r > 0:  # request 1 is the warm-up
             records.append(SimpleNamespace(cases=cases, latency_s=root.end - t + 1e-3, done_at=root.end + 5e-4,
-                                           profiled=r == 3))
+                                           profiled=r == 3, iterations=[40 + r] * cases))
         t = root.end + 0.01
     return SimpleNamespace(config={}, requests=records, trace=None), ring
 
@@ -357,6 +465,40 @@ def test_reader_reads_none_without_every_root(name, readers, monkeypatch):
     assert readers[name](run) is None
     monkeypatch.delattr(utils, "spans")  # a program without spans
     assert readers[name](run) is None
+
+
+@pytest.fixture
+def curv_readers():
+    bench = spec.Bench(tiny.REPO)
+    return {m["name"]: bench.reader(m) for m in bench.data["per_layer"]
+            if m["name"] in ("fcg_iterations", "fcg_iterations.curv", "certify_passes_per_case.curv",
+                             "curv_build_ms_per_request")}
+
+
+def test_the_curvilinear_cells_read_the_voxel_cells_counts(curv_readers, monkeypatch):
+    """``fcg_iterations.curv`` and ``certify_passes_per_case.curv`` are the
+    readers of ``fcg_iterations`` and ``certify_passes_per_case``, listed
+    for other cells."""
+    run, ring = _window()
+    monkeypatch.setattr(utils, "spans", lambda: list(ring))
+    assert curv_readers["fcg_iterations.curv"](run) == curv_readers["fcg_iterations"](run) == 42.0
+    assert curv_readers["certify_passes_per_case.curv"](run) == pytest.approx(_expected()["certify_passes_per_case"])
+
+
+def test_curv_build_ms_is_its_spans_summed(curv_readers, monkeypatch):
+    """The median over requests 2 and 3 of (1 + 2 + 3 + 4 + 5) x r ms; None
+    without the spans (the parent program, or a window of cached builds),
+    and None without every root."""
+    read = curv_readers["curv_build_ms_per_request"]
+    run, ring = _window(curv=True)
+    monkeypatch.setattr(utils, "spans", lambda: list(ring))
+    assert read(run) == pytest.approx(37.5, rel=1e-9)
+    run, ring = _window()
+    monkeypatch.setattr(utils, "spans", lambda: list(ring))
+    assert read(run) is None
+    run, ring = _window(curv=True, drop_root_of=3)
+    monkeypatch.setattr(utils, "spans", lambda: list(ring))
+    assert read(run) is None
 
 
 def test_readers_in_a_traced_run_of_the_harness(tmp_path):

@@ -1,6 +1,7 @@
-"""What the port's benchmark-tool tests share: the JAX package's scripts
-run as child processes on the CPU, all at once, and the check that a
-port record came from the CPU with no kernel launched.
+"""What the port's tests share: the JAX package's scripts run as child
+processes on the CPU, all at once, the check that a port record came from
+the CPU with no kernel launched, and an operator whose right-hand side is
+moved, to force certification's correction passes.
 
 A test file builds its module fixture from :func:`run_all` over its own
 table of scripts: ``name -> (script relative to the repo root, arguments)``.
@@ -40,3 +41,20 @@ def run_all(scripts: dict) -> dict:
 def no_kernel_ran(rec: dict) -> bool:
     """A port record made on the CPU, with every launch count zero."""
     return rec["device"] == "cpu" and not any(rec["launches"].values())
+
+
+class ShiftedRhs:
+    """The operator ``op`` with its right-hand side moved by ``shift``: the
+    first FCG pass converges on a system ``shift`` away from the loads', so
+    that its true residual lands above tol by a known amount and only the
+    correction passes, which take the true residual as their rhs, can
+    certify it."""
+
+    def __init__(self, op, shift):
+        self._op, self._shift = op, shift
+
+    def __getattr__(self, name):
+        return getattr(self._op, name)
+
+    def rhs(self, loads, prescribed):
+        return self._op.rhs(loads, prescribed) + self._shift
