@@ -49,7 +49,7 @@ from ..dtypes import torch_dtype
 from ..elements.hex8 import batched_ke
 from ..materials import Material
 from ..scene import Scene
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from .cuda_varstencil import var_apply, var_apply_masked
 from .multigrid import _prolong, _restrict, chebyshev_smooth
 from .structured import _CORNERS, _expected_box_elements
@@ -494,32 +494,50 @@ def _gershgorin_dev(w: torch.Tensor, free: torch.Tensor) -> tuple[torch.Tensor, 
     return 1.0 / d_masked, lam
 
 
-def _dense_from_w_np(w: np.ndarray, free: np.ndarray) -> np.ndarray:
-    """Masked dense matrix of a (27, Z, Y, X, 3, 3) host stencil (the
-    coarsest level only)."""
+def _dense_from_w(w: torch.Tensor, free: torch.Tensor) -> torch.Tensor:
+    """Masked dense matrix ``F K F + diag(1 - F)`` of a (27, 3, 3, Z, Y, X)
+    stencil with the (Z, Y, X, 3) free grid (the coarsest level only), on
+    the field's device and in its dtype. Within one offset the (row, col)
+    pairs are distinct and two offsets give a row different columns, so
+    each entry is written once: one indexed write, no accumulation."""
     Z, Y, X = free.shape[:3]
-    N = Z * Y * X
-    n = 3 * N
-    K = np.zeros((n, n))
-    nid = np.arange(N).reshape(Z, Y, X)
-    for d, (dz, dy, dx) in enumerate(_OFFSETS):
-        sz = slice(max(0, -dz), Z - max(0, dz))
-        sy = slice(max(0, -dy), Y - max(0, dy))
-        sx = slice(max(0, -dx), X - max(0, dx))
-        rows = nid[sz, sy, sx].ravel()
-        cols = nid[
-            slice(sz.start + dz, sz.stop + dz),
-            slice(sy.start + dy, sy.stop + dy),
-            slice(sx.start + dx, sx.stop + dx),
-        ].ravel()
-        blk = w[d][sz, sy, sx].reshape(-1, 3, 3)
-        for r in range(3):
-            for c in range(3):
-                K[3 * rows + r, 3 * cols + c] += blk[:, r, c]
-    f = free.reshape(-1)
-    K = f[:, None] * K * f[None, :]
-    K[np.arange(n), np.arange(n)] += 1.0 - f
+    n = 3 * Z * Y * X
+    nid = 3 * torch.arange(Z * Y * X, device=w.device).reshape(Z, Y, X)
+    comp = torch.arange(3, device=w.device)
+    rows, cols, vals = [], [], []
+    for d, off in enumerate(_OFFSETS):
+        at, nb = zip(*(_in_grid(o, m) for o, m in zip(off, (Z, Y, X))))
+        r, c = nid[at].reshape(-1), nid[nb].reshape(-1)
+        rows.append((r[None, None, :] + comp[:, None, None]).expand(3, 3, -1).reshape(-1))
+        cols.append((c[None, None, :] + comp[None, :, None]).expand(3, 3, -1).reshape(-1))
+        vals.append(w[(d, slice(None), slice(None)) + at].reshape(-1))
+    K = torch.zeros((n, n), dtype=w.dtype, device=w.device)
+    K.index_put_((torch.cat(rows), torch.cat(cols)), torch.cat(vals))
+    f = free.reshape(-1).to(w.dtype)
+    K.mul_(f[:, None]).mul_(f[None, :])
+    K.diagonal().add_(1.0 - f)
     return K
+
+
+def _coarse_inverse(w: torch.Tensor, free: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`_dense_from_w`'s matrix on the field's device.
+
+    The masked Galerkin matrix of a supported mesh is SPD: its Cholesky
+    factor is written over the matrix and inverted in place (at most two
+    n x n buffers: the matrix and cholesky_inverse's working copy), counted
+    ``curv.coarse.cholesky``. Any other nonsingular matrix is rebuilt and
+    inverted by LU, counted ``curv.coarse.lu``. The factor's status is
+    the one host read."""
+    K = _dense_from_w(w, free)
+    L = K.mT  # K is symmetric: its column-major view holds the same values
+    info = torch.empty((), dtype=torch.int32, device=K.device)
+    torch.linalg.cholesky_ex(L, out=(L, info))
+    if int(info) == 0:
+        count("curv.coarse.cholesky")
+        return torch.cholesky_inverse(L, out=L)
+    count("curv.coarse.lu")
+    del K, L
+    return torch.linalg.inv(_dense_from_w(w, free))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -619,8 +637,8 @@ def build_curv_multigrid(
     f64 from the resident fine field. Then each level's certified
     Gershgorin bound from its f64 field, and its cast (span
     ``fea.build.curv.levels``): levels under ``f64_below_dof`` DOFs keep
-    f64; bigger ones are cast to f32. Last the dense masked inverse of the
-    coarsest level, whose weights alone go to the host (span
+    f64; bigger ones are cast to f32. Last the dense masked matrix of the
+    coarsest level and its inverse, both on the field's device (span
     ``fea.build.curv.coarse``).
     """
     _require_block_symmetric(w0, "build_curv_multigrid")
@@ -647,9 +665,9 @@ def build_curv_multigrid(
             inv_diag, lam = _gershgorin_dev(w, f_dev)
             levels.append(_CurvLevel(w=w.to(lvl_dtype), free=f_dev.to(lvl_dtype), inv_diag=inv_diag.to(lvl_dtype),
                                      lam_max=lam, dims=d))
+    del fields  # the f64 fields that no level keeps go before the dense step's two matrices
     with span("fea.build.curv.coarse"):
-        K = _dense_from_w_np(grid_view(w).cpu().numpy(), f)
-        coarse_inv = torch.as_tensor(np.linalg.inv(K), device=device).to(levels[-1].dtype)
+        coarse_inv = _coarse_inverse(w, levels[-1].free).to(levels[-1].dtype)
     return CurvMultigrid(
         levels=tuple(levels), coarse_inv=coarse_inv, coarsen_axes=tuple(coarsen_axes), degree=degree
     )

@@ -31,9 +31,11 @@ The program opens them at its layer boundaries:
 **Counters.** :func:`count` adds to a named counter, :func:`counters`
 reads them all: ``certify.passes`` (correction passes run),
 ``certify.stalled`` (converged passes that left the true residual no
-lower), ``certify.uncertified`` (cases handed back above tol) and
-``build_cache.hit.<kind>`` / ``build_cache.miss.<kind>``. :func:`reset`
-clears the ring and the counters.
+lower), ``certify.uncertified`` (cases handed back above tol),
+``build_cache.hit.<kind>`` / ``build_cache.miss.<kind>`` and
+``curv.coarse.cholesky`` / ``curv.coarse.lu`` (a curvilinear build whose
+coarsest dense matrix was inverted by Cholesky, or by LU where it was
+not positive definite). :func:`reset` clears the ring and the counters.
 """
 from __future__ import annotations
 

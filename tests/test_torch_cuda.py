@@ -618,3 +618,56 @@ def test_refined_solve_on_card_runs_k1_inside_and_k2_outside():
     assert abs(card.stats.iterations - cpu.stats.iterations) <= 0.1 * cpu.stats.iterations
     u = cpu.displacements
     assert float((card.displacements.cpu() - u).abs().max()) <= 1e-7 * float(u.abs().max())
+
+
+@pytest.mark.cuda
+def test_curvilinear_coarse_inverse_is_made_on_the_card(tmp_path):
+    """The distorted 40x40x160 hierarchy built on the card (coarsest level
+    5x5x20, 2,268 DOF): its coarsest inverse stays on the card and matches
+    NumPy's inverse of the same dense matrix, the build counts one Cholesky
+    inverse, and under ``torch.profiler`` no host-to-card copy of an n x n
+    matrix runs inside ``fea.build.curv.coarse``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import json
+
+    import fea_tpu_torch as ftt
+    from fea_tpu_torch.ops import curvilinear as cv
+    from fea_tpu_torch.utils import counters
+
+    nodes, elements = ftt.mesh.box_hex_mesh(40, 40, 160, 0.1, 0.1, 1.0)
+    interior = (nodes[:, 2] > 0) & (nodes[:, 2] < 1.0)
+    nodes = nodes + 0.25 * (0.1 / 40) * np.random.default_rng(12).uniform(-1, 1, nodes.shape) * interior[:, None]
+    fixed = ftt.fix_where(nodes, lambda p: p[:, 2] == 0.0, 3)
+    scene = ftt.make_scene(nodes, elements, fixed, np.zeros_like(nodes), ftt.Material(E=1e7, nu=0.3),
+                           dtype=torch.float64, device="cuda")
+    op = cv.build_curv_operator(scene, (40, 40, 160), dtype=torch.float64)
+    free = 1.0 - fixed.astype(np.float64)
+    cv.build_curv_multigrid(op.w, (40, 40, 160), free)  # the process's first factorization, outside the trace
+    before = counters()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        mg = cv.build_curv_multigrid(op.w, (40, 40, 160), free)
+        torch.cuda.synchronize()
+    after = counters()
+    assert {k: after.get(k, 0) - before.get(k, 0) for k in ("curv.coarse.cholesky", "curv.coarse.lu")} == {
+        "curv.coarse.cholesky": 1, "curv.coarse.lu": 0}
+    level = mg.levels[-1]
+    n = 3 * int(np.prod([s + 1 for s in level.dims]))
+    assert level.dims == (5, 5, 20) and n == 2268
+    assert mg.coarse_inv.device.type == "cuda" and mg.coarse_inv.shape == (n, n)
+    K = cv._dense_from_w(level.w, level.free).cpu().numpy()
+    want = np.linalg.inv(K)
+    assert np.abs(mg.coarse_inv.cpu().numpy() - want).max() <= 1e-10 * np.abs(want).max()
+
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    (coarse,) = [e for e in events if e.get("cat") == "user_annotation" and e["name"] == "fea.build.curv.coarse"]
+    inside = {e["args"]["correlation"] for e in events
+              if e.get("cat") == "cuda_runtime" and coarse["ts"] <= e["ts"] <= coarse["ts"] + coarse["dur"]}
+    on_card = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy")
+               and e.get("args", {}).get("correlation") in inside]
+    assert any(e["cat"] == "kernel" for e in on_card)  # the span's work was traced
+    assert not [e for e in on_card
+                if e["cat"] == "gpu_memcpy" and "HtoD" in e["name"] and e["args"].get("bytes", 0) >= n * n * 8]

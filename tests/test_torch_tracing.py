@@ -236,7 +236,8 @@ def test_build_cache_counts_a_miss_then_hits(monkeypatch):
         sol = ftt.solve(dataclasses.replace(scene, loads=scene.loads * (i + 1)), tol=1e-8)
         assert sol.route == "fpcg-curvilinear-multigrid"
     assert utils.counters() == {"build_cache.miss.route": 1, "build_cache.hit.route": 2,
-                                "build_cache.miss.curvilinear": 1, "build_cache.hit.curvilinear": 2}
+                                "build_cache.miss.curvilinear": 1, "build_cache.hit.curvilinear": 2,
+                                "curv.coarse.cholesky": 1}  # the one build's coarsest inverse
     builds = [s for s in utils.spans() if s.name.startswith("fea.build.")]
     assert sorted(s.name for s in builds) == [  # the first call only; no coarser level at this size, so no RAP
         "fea.build.curv.coarse", "fea.build.curv.jacobians", "fea.build.curv.levels", "fea.build.curv.weights",
