@@ -102,7 +102,8 @@ def measure(root: Path) -> None:
         for dims in (FLAGSHIP, CAPACITY):
             nx, ny, nz = dims
             Z = nz + 1
-            Zl, Zp = shard_geometry(Z, SHARDS, True)
+            Zl = shard_geometry(Z, SHARDS, [(0, 1, 2)] * 2)[0]
+            Zp = SHARDS * Zl
             full = torch.zeros((Zp + 2, ny + 1, nx + 1, 3), dtype=dtype, device="cuda")
             full[1 : Z + 1] = torch.as_tensor(rng.normal(size=(Z, ny + 1, nx + 1, 3)), device="cuda").to(dtype)
             ext = [full[i * Zl : i * Zl + Zl + 2].clone() for i in range(SHARDS)]
@@ -166,11 +167,11 @@ def measure_var(root: Path) -> None:
         return dict(card_ms=smoke.graph_ms(fn), host_pace_ms=smoke.event_ms(fn, runs=10))
 
     from fea_tpu_torch.ops.curvilinear import coarsen_dims_partial
-    from fea_tpu_torch.parallel.curv import _geometry
+    from fea_tpu_torch.parallel import shard_geometry
 
     grids = smoke.curv_level_grids()
     axes = [coarsen_dims_partial(grids[0])[1], coarsen_dims_partial(grids[1])[1]]
-    zl = _geometry(grids[0][2] + 1, SHARDS, axes)[0]  # the slabs [18.1] times: 44 planes
+    zl = shard_geometry(grids[0][2] + 1, SHARDS, axes)[0]  # the slabs [18.1] times: 44 planes
     for name, dtype in (("f32", torch.float32), ("f64", torch.float64)):
         for dims in grids:
             nx, ny, nz = dims

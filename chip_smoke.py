@@ -1575,7 +1575,8 @@ def check_slab_kernels(ftt, cuda_stencil) -> dict:
     for dims, n in SLAB_SMALL + [(FLAGSHIP, n) for n in SLAB_FLAGSHIP_SHARDS]:
         nx, ny, nz = dims
         Z, Y, X = nz + 1, ny + 1, nx + 1
-        Zl, Zp = shard_geometry(Z, n, dims == FLAGSHIP)
+        Zl = shard_geometry(Z, n, [(0, 1, 2)] * (2 if dims == FLAGSHIP else 1))[0]
+        Zp = n * Zl
         g64 = torch.zeros((Zp + 2, Y, X, 3), dtype=torch.float64, device=DEV)
         g64[1 : Z + 1] = torch.as_tensor(rng.normal(size=(Z, Y, X, 3)), device=DEV)
         F64 = torch.zeros_like(g64)
@@ -1633,7 +1634,8 @@ def check_slab_kernels(ftt, cuda_stencil) -> dict:
     for dims in (FLAGSHIP, CAPACITY):
         nx, ny, nz = dims
         Z, Y, X = nz + 1, ny + 1, nx + 1
-        Zl, Zp = shard_geometry(Z, SHARDS, True)
+        Zl = shard_geometry(Z, SHARDS, [(0, 1, 2)] * 2)[0]
+        Zp = SHARDS * Zl
         g64 = torch.zeros((Zp + 2, Y, X, 3), dtype=torch.float64, device=DEV)
         g64[1 : Z + 1] = torch.as_tensor(rng.normal(size=(Z, Y, X, 3)), device=DEV)
         ext64 = [g64[i * Zl : i * Zl + Zl + 2].clone() for i in range(SHARDS)]
@@ -1786,9 +1788,9 @@ def run_sharded(ftt, counters, refs: dict) -> dict:
         torch.cuda.synchronize()
         t_build = time.perf_counter() - t0
         Z = solver.grid_shape[0]
-        say(f"  {label} ({scene.n_dof} DOF): Z = {Z}, Zl = {solver.z_local}, Zp = {solver.z_pad}; sharded levels "
-            f"{'0-1' if solver.shard_l1 else '0'}, replicated "
-            + ", ".join(f"{lv.dims}:{str(lv.dtype).replace('torch.', '')}" for lv in solver.rest.levels)
+        say(f"  {label} ({scene.n_dof} DOF): Z = {Z}, Zl = {solver.z_local}, Zp = {SHARDS * solver.z_local}; "
+            f"sharded levels {'0-1' if len(solver.mg.levels) == 2 else '0'}, replicated "
+            + ", ".join(f"{lv.dims}:{str(lv.dtype).replace('torch.', '')}" for lv in solver.mg.rest.levels)
             + f"; solver build {t_build:.3f} s")
         vcycles = []
         precondition = solver.precondition
@@ -1796,8 +1798,8 @@ def run_sharded(ftt, counters, refs: dict) -> dict:
         sol, counts, wall = counted(counters, lambda: solver.solve(scene.loads, presc, tol=1e-8))
         n_vc = len(vcycles)
         # the replicated remainder's launches in one V-cycle, counted apart
-        rest0 = solver.rest.levels[0]
-        _, rest, _ = counted(counters, lambda: solver.rest._vcycle(0, torch.zeros_like(rest0.free)))
+        rest0 = solver.mg.rest.levels[0]
+        _, rest, _ = counted(counters, lambda: solver.mg.rest._vcycle(0, torch.zeros_like(rest0.free)))
         st = sol.stats
         say(f"  sharded solve: {wall:.3f} s, {st.iterations} iterations (unsharded {ref['iterations']}), reported "
             f"true residual {st.relative_residual:.3e}, converged {st.converged}; {n_vc} V-cycles")
@@ -1840,7 +1842,7 @@ def run_sharded(ftt, counters, refs: dict) -> dict:
             f"tip ratio in {TIP_BAND}": TIP_BAND[0] < tip_ratio < TIP_BAND[1],
             "K3 launched on every shard of every FCG apply": counts["slab_f64"] >= SHARDS * (st.iterations + 1),
             "K1-halo launched": counts["slab_f32"] > 0,
-            "level 1 sharded (the shard shape [10] timed)": solver.shard_l1,
+            "level 1 sharded (the shard shape [10] timed)": len(solver.mg.levels) == 2,
             "K1/K2 only on the replicated levels": counts["f32"] == n_vc * rest["f32"]
             and counts["f64"] == n_vc * rest["f64"],
         }, f"sharded {label}")
@@ -2563,7 +2565,7 @@ def check_var_slab_kernels(cuda_varstencil) -> dict:
     version, cuSPARSE CSR of the shards' rows and the 27- and 14-block
     bounds."""
     from fea_tpu_torch.ops.curvilinear import coarsen_dims_partial, curv_apply_slab_grid
-    from fea_tpu_torch.parallel.curv import _geometry
+    from fea_tpu_torch.parallel import shard_geometry
 
     rng = np.random.default_rng(20261024)
     report = {k: dict(max_abs_err=0.0, max_rel_err=0.0) for k in VAR_SLAB_KEYS}
@@ -2573,7 +2575,7 @@ def check_var_slab_kernels(cuda_varstencil) -> dict:
         nxt, ax = coarsen_dims_partial(grids[-1])
         grids.append(nxt)
         axes.append(ax)
-    zls = _geometry(CURV[2] + 1, SHARDS, axes)
+    zls = shard_geometry(CURV[2] + 1, SHARDS, axes)
     for dims, zl in zip(grids[:2], zls):
         nx, ny, nz = dims
         Z, Y, X = nz + 1, ny + 1, nx + 1

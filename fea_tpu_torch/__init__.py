@@ -36,8 +36,10 @@ version serves:
     exact f64 check in C++), ``viz`` (matplotlib, and pyvista where
     installed), ``Policy`` / ``default_policy``, and the demos,
     ``python -m fea_tpu_torch.examples.<name>``;
-  * ``bench``: the family benches that ``bench_torch.py`` (the
-    repository's benchmark) runs, ``python -m fea_tpu_torch.bench.<name>``.
+  * ``bench``: the family benches that ``bench_torch.py`` runs,
+    ``python -m fea_tpu_torch.bench.<name>``: bring-up tools, which the
+    benchmark (``benchmark/run.py``, its cells in ``BENCHMARK.json``)
+    does not run.
 
 Every entry point of the reference's ``fea_tpu`` has its counterpart
 here. Entry points run on the CUDA card unless the caller passes

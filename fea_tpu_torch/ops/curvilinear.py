@@ -31,7 +31,8 @@ product P^T A_l P of the V-cycle's own trilinear transfer operators
 (:func:`rap_dev`), again a 27-offset block stencil, so every level runs
 the same kernels. Levels under ``f64_below_dof`` DOFs run in f64, bigger
 ones in f32, with certified-Gershgorin Chebyshev smoothing and a dense
-masked coarsest inverse.
+masked coarsest inverse; the V-cycle over them is the voxel route's
+``ops/multigrid.py::MultigridPreconditioner``.
 
 Counterpart of ``fea_tpu/ops/curvilinear.py``, without its transposed
 TPU pipeline.
@@ -51,11 +52,10 @@ from ..materials import Material
 from ..scene import Scene
 from ..utils.profiling import count, span
 from .cuda_varstencil import var_apply, var_apply_masked
-from .multigrid import _prolong, _restrict, chebyshev_smooth
+from .multigrid import MultigridPreconditioner
 from .structured import _CORNERS, _expected_box_elements
 
 __all__ = [
-    "CurvMultigrid",
     "CurvilinearOperator",
     "assemble_curv_weights",
     "build_curv_multigrid",
@@ -542,13 +542,29 @@ def _coarse_inverse(w: torch.Tensor, free: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class _CurvLevel:
-    """One multigrid level over a curvilinear stencil, in its own dtype."""
+    """One level of a curvilinear :class:`MultigridPreconditioner`, in its
+    own dtype (K4 or K5). ``MultigridPreconditioner.from_numpy(...,
+    level_type=_CurvLevel)`` packs a host hierarchy of them."""
 
     w: torch.Tensor  # (27, 3, 3, Z, Y, X), kernel layout
     free: torch.Tensor  # (Z, Y, X, 3)
     inv_diag: torch.Tensor  # (Z, Y, X, 3)
     lam_max: float  # certified Gershgorin bound
     dims: tuple[int, int, int]
+
+    @classmethod
+    def from_numpy(cls, lv: dict, device) -> "_CurvLevel":
+        """Pack a host level ``{w, free, inv_diag, lam, dims, dtype}``, ``w``
+        in the (27, Z, Y, X, 3, 3) layout (for example a level of a
+        ``fea_tpu`` CurvMultigrid, pulled to the host), onto ``device``."""
+        dt = torch_dtype(lv["dtype"])
+        return cls(
+            w=_kernel_layout(lv["w"], dt, device),
+            free=torch.as_tensor(np.array(lv["free"]), device=device).to(dt),
+            inv_diag=torch.as_tensor(np.array(lv["inv_diag"]), device=device).to(dt),
+            lam_max=float(lv["lam"]),
+            dims=tuple(lv["dims"]),
+        )
 
     @property
     def dtype(self) -> torch.dtype:
@@ -562,64 +578,6 @@ class _CurvLevel:
         return var_apply_masked(w, self.free.to(g.dtype), g.contiguous())
 
 
-@dataclasses.dataclass(frozen=True)
-class CurvMultigrid:
-    """V-cycle preconditioner over :class:`_CurvLevel` levels with
-    per-level coarsening axes (semi-coarsening: odd axes pass through).
-    Same smoother and coarsest treatment as ops.multigrid's
-    MultigridPreconditioner. Callable on flat (N, 3) residuals."""
-
-    levels: tuple[_CurvLevel, ...]
-    coarse_inv: torch.Tensor  # (nc, nc) dense inverse of the coarsest masked A
-    coarsen_axes: tuple[tuple[int, ...], ...]  # axes coarsened below level i
-    degree: int = 2
-    lam_min_frac: float = 1.0 / 6.0
-
-    @classmethod
-    def from_numpy(cls, levels, coarse_inv, coarsen_axes, degree: int = 2, *, device) -> "CurvMultigrid":
-        """Pack a host hierarchy onto ``device``. Each level is a dict
-        ``{w, free, inv_diag, lam, dims, dtype}`` with ``w`` in the
-        (27, Z, Y, X, 3, 3) layout (for example the levels of a
-        ``fea_tpu`` CurvMultigrid, pulled to the host)."""
-        packed = []
-        for lv in levels:
-            dt = torch_dtype(lv["dtype"])
-            packed.append(
-                _CurvLevel(
-                    w=_kernel_layout(lv["w"], dt, device),
-                    free=torch.as_tensor(np.array(lv["free"]), device=device).to(dt),
-                    inv_diag=torch.as_tensor(np.array(lv["inv_diag"]), device=device).to(dt),
-                    lam_max=float(lv["lam"]),
-                    dims=tuple(lv["dims"]),
-                )
-            )
-        inv = torch.as_tensor(np.array(coarse_inv), device=device).to(packed[-1].dtype)
-        axes = tuple(tuple(a) for a in coarsen_axes)
-        return cls(levels=tuple(packed), coarse_inv=inv, coarsen_axes=axes, degree=degree)
-
-    def _smooth(self, level: _CurvLevel, x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-        return chebyshev_smooth(
-            level.apply, level.inv_diag.to(x.dtype), level.lam_max, self.lam_min_frac,
-            self.degree, x, r,
-        )
-
-    def _vcycle(self, idx: int, r: torch.Tensor) -> torch.Tensor:
-        level = self.levels[idx]
-        if idx == len(self.levels) - 1:
-            return (self.coarse_inv.to(r.dtype) @ r.reshape(-1)).reshape(r.shape)
-        axes = self.coarsen_axes[idx]
-        z = self._smooth(level, torch.zeros_like(r), r)
-        coarse = self.levels[idx + 1]
-        rc = coarse.free * _restrict(r - level.apply(z), axes).to(coarse.dtype)
-        zc = self._vcycle(idx + 1, rc)
-        z = z + level.free.to(r.dtype) * _prolong(coarse.free * zc, axes).to(r.dtype)
-        return self._smooth(level, z, r)
-
-    def __call__(self, r_flat: torch.Tensor) -> torch.Tensor:
-        g = r_flat.reshape(self.levels[0].free.shape)
-        return self._vcycle(0, g).reshape(r_flat.shape)
-
-
 @span("fea.build.hierarchy")
 def build_curv_multigrid(
     w0: torch.Tensor,
@@ -628,7 +586,7 @@ def build_curv_multigrid(
     *,
     degree: int = 2,
     f64_below_dof: int = 50_000,
-) -> CurvMultigrid:
+) -> MultigridPreconditioner:
     """Galerkin (RAP) multigrid over the fine weight field ``w0``
     (27, 3, 3, Z, Y, X), on its device; ``w0`` must be exactly
     block-symmetric (ValueError otherwise, as for CurvilinearOperator).
@@ -668,6 +626,6 @@ def build_curv_multigrid(
     del fields  # the f64 fields that no level keeps go before the dense step's two matrices
     with span("fea.build.curv.coarse"):
         coarse_inv = _coarse_inverse(w, levels[-1].free).to(levels[-1].dtype)
-    return CurvMultigrid(
+    return MultigridPreconditioner(
         levels=tuple(levels), coarse_inv=coarse_inv, coarsen_axes=tuple(coarsen_axes), degree=degree
     )

@@ -18,6 +18,12 @@ Counterpart of ``fea_tpu/ops/multigrid.py``, same hierarchy and V-cycle:
 The hierarchy is built on the host in NumPy; only the level tensors go
 to the device. Per-level precision follows the reference: f32 at level 0
 and at >= ``small_level_dof`` DOFs, f64 below.
+
+:class:`MultigridPreconditioner` is the one V-cycle of the geometric
+hierarchies: its levels are voxel :class:`_Level` s here or the
+curvilinear route's ``_CurvLevel`` s (``ops/curvilinear.py``, K4/K5 and
+semi-coarsening), and ``parallel/halo.py::ShardedMultigrid`` runs its
+z-sharded form.
 """
 from __future__ import annotations
 
@@ -72,6 +78,19 @@ class _Level:
     inv_diag: torch.Tensor  # (Z, Y, X, 3) 1 / diag of the MASKED operator
     lam_max: float  # certified upper bound on lambda_max of D^-1 A (masked)
     dims: tuple[int, int, int]
+
+    @classmethod
+    def from_numpy(cls, lv: dict, device) -> "_Level":
+        """Pack a host level, one of what ``_build_hierarchy_host`` returns
+        here or in ``fea_tpu.ops.multigrid``, onto ``device``."""
+        dt = torch_dtype(lv["dtype"])
+        return cls(
+            weights=stencil_weights(lv["ke"], dt, device),
+            free=check_free_mask(torch.as_tensor(np.asarray(lv["free"]), device=device).to(dt)),
+            inv_diag=torch.as_tensor(np.asarray(lv["inv_diag"]), device=device).to(dt),
+            lam_max=float(lv["lam"]),
+            dims=tuple(lv["dims"]),
+        )
 
     @property
     def dtype(self) -> torch.dtype:
@@ -129,13 +148,19 @@ def _restrict(f: torch.Tensor, axes: tuple[int, ...] = (0, 1, 2)) -> torch.Tenso
 
 @dataclasses.dataclass(frozen=True)
 class MultigridPreconditioner:
-    """V-cycle preconditioner z = M^-1 r for the masked structured operator.
+    """V-cycle preconditioner z = M^-1 r for a masked grid operator.
 
-    Callable on flat (N, 3) residuals in the dtype of level 0.
+    A level is any object with ``apply`` (the masked operator in grid
+    space), ``free``, ``inv_diag``, ``lam_max``, ``dtype`` and ``dims``:
+    :class:`_Level` (K1/K2) or ``ops.curvilinear._CurvLevel`` (K4/K5).
+    Below level i the grid axes ``coarsen_axes[i]`` are coarsened (the
+    voxel hierarchy all three; semi-coarsening leaves odd axes as they
+    are). Callable on flat (N, 3) residuals in the dtype of level 0.
     """
 
-    levels: tuple[_Level, ...]
+    levels: tuple
     coarse_inv: torch.Tensor  # (nc, nc) dense inverse of coarsest masked A
+    coarsen_axes: tuple[tuple[int, ...], ...]  # grid axes coarsened below level i
     degree: int = 4
     # lam_max is a certified upper bound, so the window top needs no
     # safety factor; 1/6 (vs the textbook 1/4) re-covers the low end the
@@ -143,38 +168,34 @@ class MultigridPreconditioner:
     lam_min_frac: float = 1.0 / 6.0
 
     @classmethod
-    def from_numpy(cls, levels, coarse_inv, degree: int = 4, *, device) -> "MultigridPreconditioner":
-        """Pack a host hierarchy, exactly what ``_build_hierarchy_host``
-        returns here or in ``fea_tpu.ops.multigrid``, onto ``device``."""
-        packed = []
-        for lv in levels:
-            dt = torch_dtype(lv["dtype"])
-            packed.append(
-                _Level(
-                    weights=stencil_weights(lv["ke"], dt, device),
-                    free=check_free_mask(torch.as_tensor(np.asarray(lv["free"]), device=device).to(dt)),
-                    inv_diag=torch.as_tensor(np.asarray(lv["inv_diag"]), device=device).to(dt),
-                    lam_max=float(lv["lam"]),
-                    dims=tuple(lv["dims"]),
-                )
-            )
-        inv = torch.as_tensor(np.asarray(coarse_inv), device=device).to(packed[-1].dtype)
-        return cls(levels=tuple(packed), coarse_inv=inv, degree=degree)
+    def from_numpy(cls, levels, coarse_inv, degree: int = 4, *, device, coarsen_axes=None,
+                   level_type=_Level) -> "MultigridPreconditioner":
+        """Pack a host hierarchy onto ``device``: each level a dict that
+        ``level_type.from_numpy`` packs, ``coarse_inv`` the dense inverse
+        of the coarsest level, ``coarsen_axes`` (default: all three below
+        every level) the axes coarsened below each level."""
+        packed = tuple(level_type.from_numpy(lv, device) for lv in levels)
+        # a read-only host array (a JAX array's) is copied: torch takes only writable ones
+        inv = torch.as_tensor(np.require(coarse_inv, requirements="W"), device=device).to(packed[-1].dtype)
+        axes = ((0, 1, 2),) * (len(packed) - 1) if coarsen_axes is None else tuple(map(tuple, coarsen_axes))
+        return cls(levels=packed, coarse_inv=inv, coarsen_axes=axes, degree=degree)
 
-    def _smooth(self, level: _Level, x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    def _smooth(self, level, x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
         return chebyshev_smooth(
-            level.apply, level.inv_diag, level.lam_max, self.lam_min_frac, self.degree, x, r
+            level.apply, level.inv_diag.to(x.dtype), level.lam_max, self.lam_min_frac, self.degree, x, r
         )
 
     def _vcycle(self, idx: int, r: torch.Tensor) -> torch.Tensor:
+        # the casts do nothing where the level's dtype is the residual's
         level = self.levels[idx]
         if idx == len(self.levels) - 1:
             return (self.coarse_inv.to(r.dtype) @ r.reshape(-1)).reshape(r.shape)
+        axes = self.coarsen_axes[idx]
         z = self._smooth(level, torch.zeros_like(r), r)
         coarse = self.levels[idx + 1]
-        rc = coarse.free * _restrict(r - level.apply(z)).to(coarse.dtype)
+        rc = coarse.free * _restrict(r - level.apply(z), axes).to(coarse.dtype)
         zc = self._vcycle(idx + 1, rc)
-        z = z + level.free * _prolong(coarse.free * zc).to(r.dtype)
+        z = z + level.free.to(r.dtype) * _prolong(coarse.free * zc, axes).to(r.dtype)
         return self._smooth(level, z, r)
 
     def __call__(self, r_flat: torch.Tensor) -> torch.Tensor:

@@ -14,18 +14,17 @@ halo-extended slab. The slabs are cut from symmetrized fields, so each
 keeps the mirror relation the kernels read by (on its first plane the
 kernel reads the slab's own lower blocks).
 
-The V-cycle follows ``ops/curvilinear.py::CurvMultigrid._vcycle`` level by
-level, with the same operations in the same order: the fine level and,
-when the hierarchy has one more smoothing level, level 1 run on the
-shards; restriction and prolongation along z go through the +-1 plane
-halo, those along y and x are local (semi-coarsening leaves z alone where
-its element count is odd, and then the shards keep their planes). Slab
-boundaries stay global-even on every level whose z is coarsened below it,
-so Zl is ceil(Z / n) rounded up to 2^c for c such levels. The defect of
-the first level past the sharded ones is gathered onto the first device,
-where the remaining levels and the dense coarse inverse run as in the
-unsharded preconditioner (the reference's replicated levels), and each
-shard takes back its planes of the correction.
+The V-cycle is :class:`~fea_tpu_torch.parallel.halo.ShardedMultigrid`, the
+voxel route's z-sharded cycle, over this module's levels: the fine level
+and, when the hierarchy has one more smoothing level, level 1 run on the
+shards, with the same operations in the same order as the unsharded
+``MultigridPreconditioner``. Slab boundaries stay global-even on every
+level whose z is coarsened below it, so Zl is ceil(Z / n) rounded up to
+2^c for c such levels (``halo.shard_geometry``). The defect of the first
+level past the sharded ones is gathered onto the first device, where the
+remaining levels and the dense coarse inverse run as in the unsharded
+preconditioner (the reference's replicated levels), and each shard takes
+back its planes of the correction.
 """
 from __future__ import annotations
 
@@ -35,12 +34,13 @@ from typing import Callable, Sequence
 import torch
 
 from ..ops.cuda_varstencil import var_apply_slab, var_apply_slab_masked
-from ..ops.curvilinear import CurvilinearOperator, CurvMultigrid
-from ..ops.multigrid import _prolong, _restrict
-from .halo import (SHARDED_LEVELS, Shards, SlabVectors, _device, _gather, _halo_exchange,
-                   _prolong_z_interleave, _restrict_z_shard, _scatter)
+from ..ops.curvilinear import CurvilinearOperator
+from ..ops.multigrid import MultigridPreconditioner
+from .halo import (SHARDED_LEVELS, ShardedMultigrid, Shards, SlabVectors, _device, _halo_exchange, _scatter,
+                   shard_geometry)
 
-__all__ = ["ShardedCurvMultigrid", "ShardedCurvilinearOperator", "shard_curvilinear"]
+__all__ = ["ShardedCurvilinearOperator", "shard_curvilinear"]
+
 
 def _weight_slabs(w: torch.Tensor, devices, zl: int) -> list[torch.Tensor]:
     """A (27, 3, 3, Z, Y, X) field cut into ``zl``-plane slabs, zero past
@@ -90,77 +90,8 @@ class _ShardLevel(ShardedCurvilinearOperator):
     lam_max: float
 
 
-@dataclasses.dataclass(frozen=True)
-class ShardedCurvMultigrid:
-    """The V-cycle of a :class:`~fea_tpu_torch.ops.curvilinear.CurvMultigrid`
-    with its first ``len(levels)`` levels on z shards and the rest
-    (``rest``, the same hierarchy from the first unsharded level down to
-    the dense coarse inverse) on the first device. Callable on residual
-    Shards of the fine level, in the fine level's dtype."""
-
-    levels: tuple[_ShardLevel, ...]
-    coarsen_axes: tuple[tuple[int, ...], ...]  # axes coarsened below each sharded level
-    rest: CurvMultigrid
-    top: ShardedCurvilinearOperator  # the fine geometry, for a hierarchy with no sharded level
-    degree: int
-    lam_min_frac: float
-
-    _smooth = CurvMultigrid._smooth
-
-    def _replicated(self, rc: Shards, z_coarsened: bool) -> Shards:
-        """The levels past the sharded ones: gather the defect onto the
-        first device, run their V-cycle, and hand each shard its planes of
-        the masked correction (and the plane above, when z was coarsened)."""
-        coarse = self.rest.levels[0]
-        zl = rc[0].shape[0]
-        full = coarse.free * _gather(rc, coarse.free.shape[0]).to(coarse.dtype)
-        zc = coarse.free * self.rest._vcycle(0, full)
-        extra = 1 if z_coarsened else 0
-        zc = torch.cat([zc, zc.new_zeros((len(rc) * zl + extra - zc.shape[0],) + tuple(zc.shape[1:]))])
-        return Shards(zc[i * zl : (i + 1) * zl + extra].to(x.device, non_blocking=True) for i, x in enumerate(rc))
-
-    def _cycle(self, idx: int, r: Shards) -> Shards:
-        """``CurvMultigrid._vcycle`` at sharded level ``idx``."""
-        level = self.levels[idx]
-        axes = self.coarsen_axes[idx]
-        yx = tuple(a for a in axes if a)
-        z = self._smooth(level, torch.zeros_like(r), r)
-        d = r - level.apply(z)
-        rc = _restrict_z_shard(d, yx) if 0 in axes else Shards(_restrict(x, yx) for x in d)
-        if idx + 1 < len(self.levels):
-            coarse = self.levels[idx + 1]
-            zc = self._cycle(idx + 1, coarse.free * rc.to(coarse.dtype))
-            zc = coarse.free * zc
-            # each shard's planes and the plane above them, from the next shard
-            zc = Shards(e[1:] for e in _halo_exchange(zc)) if 0 in axes else zc
-        else:
-            zc = self._replicated(rc, 0 in axes)
-        corr = Shards(_prolong(_prolong_z_interleave(c) if 0 in axes else c, yx).to(r.dtype) for c in zc)
-        z = z + level.free.to(r.dtype) * corr
-        return self._smooth(level, z, r)
-
-    def __call__(self, r: Shards) -> Shards:
-        if self.levels:
-            return self._cycle(0, r)
-        # one level: the dense coarse inverse of the whole grid
-        return self.top.scatter(self.rest(self.top.gather(r)))
-
-
-def _geometry(Z: int, n: int, axes: Sequence[tuple[int, ...]]) -> list[int]:
-    """Planes a shard at each sharded level (and the first level below
-    them): ceil(Z / n) rounded up so that each z coarsening below a sharded
-    level halves an even count."""
-    c = sum(1 for a in axes if 0 in a)
-    zl = -(-Z // n)
-    zl += (-zl) % (1 << c)
-    out = [zl]
-    for a in axes:
-        out.append(out[-1] // 2 if 0 in a else out[-1])
-    return out
-
-
-def shard_curvilinear(op: CurvilinearOperator, mg: CurvMultigrid, devices: Sequence,
-                      ) -> tuple[ShardedCurvilinearOperator, ShardedCurvMultigrid, Callable]:
+def shard_curvilinear(op: CurvilinearOperator, mg: MultigridPreconditioner, devices: Sequence,
+                      ) -> tuple[ShardedCurvilinearOperator, ShardedMultigrid, Callable]:
     """Z-slab decomposition of the curvilinear pipeline over ``devices``
     (torch devices or their names; entries may repeat): ``(op_sharded,
     mg_sharded, constrain)``.
@@ -180,8 +111,7 @@ def shard_curvilinear(op: CurvilinearOperator, mg: CurvMultigrid, devices: Seque
     n = len(devices)
     Z, Y, X = op.grid_shape
     n_sh = min(SHARDED_LEVELS, len(mg.levels) - 1)
-    axes = tuple(mg.coarsen_axes[:n_sh])
-    zls = _geometry(Z, n, axes)
+    zls = shard_geometry(Z, n, mg.coarsen_axes[:n_sh])
 
     free = _scatter(op.free.reshape(Z, Y, X, 3), devices, zls[0])
     op_s = ShardedCurvilinearOperator(
@@ -194,13 +124,4 @@ def shard_curvilinear(op: CurvilinearOperator, mg: CurvMultigrid, devices: Seque
             w=_weight_slabs(lv.w, devices, zl), free=free, free_ext=_halo_exchange(free), z_real=lv.free.shape[0],
             z_local=zl, inv_diag=_scatter(lv.inv_diag, devices, zl, pad=1.0), lam_max=lv.lam_max,
         ))
-    dev0 = devices[0]
-    rest = CurvMultigrid(
-        levels=tuple(dataclasses.replace(lv, w=lv.w.to(dev0), free=lv.free.to(dev0), inv_diag=lv.inv_diag.to(dev0))
-                     for lv in mg.levels[n_sh:]),
-        coarse_inv=mg.coarse_inv.to(dev0), coarsen_axes=tuple(mg.coarsen_axes[n_sh:]),
-        degree=mg.degree, lam_min_frac=mg.lam_min_frac,
-    )
-    mg_s = ShardedCurvMultigrid(levels=tuple(levels), coarsen_axes=axes, rest=rest, top=op_s,
-                                degree=mg.degree, lam_min_frac=mg.lam_min_frac)
-    return op_s, mg_s, op_s.scatter
+    return op_s, ShardedMultigrid.build(mg, op_s, levels), op_s.scatter

@@ -39,7 +39,7 @@ import torch
 from ..ops.extruded import ExtrudedOperator
 from ..ops.extruded_mg import ComposedExtrudedPrecond, ExtrudedMultigrid, SectionCoarse, _ELevel
 from .halo import (SHARDED_LEVELS, Shards, SlabVectors, _device, _gather, _halo_exchange,
-                   _prolong_z_interleave, _restrict_z_shard, _scatter, to_device)
+                   _prolong_z_interleave, _restrict_z_shard, _scatter, shard_geometry, to_device)
 
 __all__ = ["ShardedComposedPrecond", "ShardedExtrudedMultigrid", "ShardedExtrudedOperator", "shard_extruded"]
 
@@ -223,8 +223,8 @@ def shard_extruded(op: ExtrudedOperator, mg, devices: Sequence) -> tuple[Sharded
     devices = [_device(d) for d in devices]
     inner = mg.mg if isinstance(mg, ComposedExtrudedPrecond) else mg
     n_sh = min(SHARDED_LEVELS, len(inner.levels))
-    ll = -(-op.n_layers // len(devices))
-    ll += (-ll) % (1 << n_sh)
+    lls = shard_geometry(op.n_layers, len(devices), [(0,)] * n_sh)  # every level halves the layers
+    ll = lls[0]
     op_s = _shard_operator(op, devices, ll)
     dev0 = devices[0]
     rest = dataclasses.replace(
@@ -232,7 +232,7 @@ def shard_extruded(op: ExtrudedOperator, mg, devices: Sequence) -> tuple[Sharded
         thomas_g=inner.thomas_g.to(dev0), coarse_free=inner.coarse_free.to(dev0),
     )
     mg_s = ShardedExtrudedMultigrid(
-        levels=tuple(_shard_level(lv, devices, ll >> l) for l, lv in enumerate(inner.levels[:n_sh])),
+        levels=tuple(_shard_level(lv, devices, zl) for lv, zl in zip(inner.levels[:n_sh], lls)),
         rest=rest, top=op_s, free=op_s.scatter(inner.free.reshape(-1, 3)), degree=inner.degree,
         lam_min_frac=inner.lam_min_frac,
     )

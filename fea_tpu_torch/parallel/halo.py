@@ -28,14 +28,16 @@ each card of a host, with peer copies for the halos.
     time, and the kernel masks inside its one launch. The slab kernel
     knows the global z boundary, so the reference's table-row gating, thin-slab z-max
     correction and phantom subtraction have no counterpart here.
-  * The V-cycle runs its fine level, and level 1 when the hierarchy has
-    three levels or more, on the shards. The defect of the first
-    replicated level is gathered onto the first shard's device, where the
-    remaining levels and the coarse inverse run as in the unsharded
-    preconditioner, and each shard takes back its planes of the
-    correction. Transfer operators, smoother, level dtypes and the order
-    of every operation are those of ``ops/multigrid.py``, so a shard's
-    planes hold what the unsharded V-cycle computes there.
+  * The V-cycle (:class:`ShardedMultigrid`, which the curvilinear
+    decomposition of :mod:`.curv` runs too) runs its fine level, and
+    level 1 when the hierarchy has three levels or more, on the shards.
+    The defect of the first replicated level is gathered onto the first
+    shard's device, where the remaining levels and the coarse inverse run
+    as in the unsharded preconditioner, and each shard takes back its
+    planes of the correction. Transfer operators, smoother, level dtypes
+    and the order of every operation are those of
+    ``ops/multigrid.py::MultigridPreconditioner``, so a shard's planes
+    hold what the unsharded V-cycle computes there.
   * Dots are per-shard f64 partials summed in shard order (the
     reference's ``psum``); each FCG iteration synchronises the host once,
     as ``fpcg`` does.
@@ -51,20 +53,21 @@ The pieces every z-slab decomposition of :mod:`fea_tpu_torch.parallel`
 shares live here: :class:`Shards`, :class:`SlabVectors` (the scatter and
 gather of a slab-sharded operator's vectors), the halo exchange, the z
 restriction (over any in-plane axes) and prolongation, :func:`to_device`,
-and :class:`ShardedStructuredOperator`, the voxel operator on z slabs that
+:func:`shard_geometry`, the sharded V-cycle :class:`ShardedMultigrid`, and
+:class:`ShardedStructuredOperator`, the voxel operator on z slabs that
 ``sharding.shard_structured_operator`` builds and this solver runs.
 """
 from __future__ import annotations
 
 import dataclasses
 import operator
-from typing import Callable, Optional, Sequence
+from typing import Optional, Sequence
 
 import torch
 
 from ..dtypes import precise_dot
 from ..ops.cuda_stencil import StencilWeights, check_free_mask, stencil_apply_slab
-from ..ops.multigrid import MultigridPreconditioner, _Level, _prolong, _restrict, chebyshev_smooth
+from ..ops.multigrid import MultigridPreconditioner, _Level, _prolong, _restrict
 from ..ops.structured import StructuredOperator, stencil_diag_np
 from ..solve._types import Solution
 from ..solve.fpcg import solve_operator_fpcg
@@ -73,8 +76,8 @@ from ..solve.fpcg import solve_operator_fpcg
 # level 1; the levels below are small enough to run on the first device
 SHARDED_LEVELS = 2
 
-__all__ = ["ShardedStructuredOperator", "Shards", "SlabVectors", "ZShardedSolver", "build_zsharded_solver",
-           "shard_geometry", "to_device"]
+__all__ = ["ShardedMultigrid", "ShardedStructuredOperator", "Shards", "SlabVectors", "ZShardedSolver",
+           "build_zsharded_solver", "shard_geometry", "to_device"]
 
 
 class Shards(list):
@@ -152,13 +155,20 @@ class Shards(list):
         return total
 
 
-def shard_geometry(Z: int, n: int, shard_l1: bool) -> tuple[int, int]:
-    """(planes a shard Zl, padded planes Zp = n Zl) for Z node planes over
-    n shards: ceil(Z / n) rounded up to even, or to a multiple of 4 when
-    level 1 is sharded too (its local planes must stay even)."""
-    Zl = -(-Z // n)
-    Zl += (-Zl) % 4 if shard_l1 else Zl % 2
-    return Zl, n * Zl
+def shard_geometry(Z: int, n: int, axes: Sequence[tuple[int, ...]]) -> list[int]:
+    """Planes a shard at each sharded level and at the first level below
+    them, for Z node planes (an extruded mesh's node layers) over n shards,
+    ``axes`` the grid axes coarsened below each sharded level, z being 0:
+    ceil(Z / n) rounded up so that each z coarsening below a sharded level
+    halves an even count (to even for a voxel fine level alone, to a
+    multiple of 4 with its level 1). The grid is padded to n times the
+    first entry."""
+    zl = -(-Z // n)
+    zl += (-zl) % (1 << sum(1 for a in axes if 0 in a))
+    out = [zl]
+    for a in axes:
+        out.append(out[-1] // 2 if 0 in a else out[-1])
+    return out
 
 
 def _halo_exchange(xs: Shards) -> Shards:
@@ -223,22 +233,17 @@ def _device(d) -> torch.device:
 def to_device(obj, device):
     """A frozen dataclass (an operator, a level, a coarse space) with
     every tensor in it, in nested dataclasses too, on ``device``: a copy
-    for each device of what a decomposition replicates."""
+    for each device of what a decomposition replicates. A nested
+    dataclass with a ``to`` of its own moves by it (``StencilWeights``
+    keeps its host table on the host)."""
     changes = {}
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)
         if isinstance(v, torch.Tensor):
             changes[f.name] = v.to(device)
         elif dataclasses.is_dataclass(v):
-            changes[f.name] = to_device(v, device)
+            changes[f.name] = v.to(device) if hasattr(v, "to") else to_device(v, device)
     return dataclasses.replace(obj, **changes)
-
-
-def _level_on(lv: _Level, dev: torch.device) -> _Level:
-    return dataclasses.replace(
-        lv, weights=lv.weights.to(dev),
-        free=lv.free.to(dev), inv_diag=lv.inv_diag.to(dev),
-    )
 
 
 class SlabVectors:
@@ -320,6 +325,72 @@ class _ShardLevel(ShardedStructuredOperator):
     lam_max: float
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardedMultigrid:
+    """The V-cycle of a :class:`~fea_tpu_torch.ops.multigrid.MultigridPreconditioner`
+    with its first ``len(levels)`` levels on z shards and the rest
+    (``rest``, the same hierarchy from the first unsharded level down to
+    the dense coarse inverse) on the first device. A sharded level is a
+    slab operator with ``inv_diag`` and ``lam_max`` (the voxel
+    :class:`_ShardLevel` or ``curv._ShardLevel``). Restriction and
+    prolongation along z go through the +-1 plane halo, those along y and
+    x are local (semi-coarsening leaves z alone where its element count is
+    odd, and then the shards keep their planes). Callable on residual
+    Shards of the fine level, in the fine level's dtype."""
+
+    levels: tuple
+    coarsen_axes: tuple[tuple[int, ...], ...]  # axes coarsened below each sharded level
+    rest: MultigridPreconditioner
+    top: SlabVectors  # the fine geometry, for a hierarchy with no sharded level
+
+    @classmethod
+    def build(cls, mg: MultigridPreconditioner, top: SlabVectors, levels) -> "ShardedMultigrid":
+        """``mg``'s V-cycle with its first levels replaced by ``levels``,
+        their shards, and the rest of it moved to the first shard's device."""
+        n_sh, dev0 = len(levels), top.devices[0]
+        rest = dataclasses.replace(mg, levels=tuple(to_device(lv, dev0) for lv in mg.levels[n_sh:]),
+                                   coarse_inv=mg.coarse_inv.to(dev0), coarsen_axes=mg.coarsen_axes[n_sh:])
+        return cls(levels=tuple(levels), coarsen_axes=mg.coarsen_axes[:n_sh], rest=rest, top=top)
+
+    def _replicated(self, rc: Shards, z_coarsened: bool) -> Shards:
+        """The levels past the sharded ones: gather the defect onto the
+        first device, run their V-cycle, and hand each shard its planes of
+        the masked correction (and the plane above, when z was coarsened)."""
+        coarse = self.rest.levels[0]
+        zl = rc[0].shape[0]
+        full = coarse.free * _gather(rc, coarse.free.shape[0]).to(coarse.dtype)
+        zc = coarse.free * self.rest._vcycle(0, full)
+        extra = 1 if z_coarsened else 0
+        zc = torch.cat([zc, zc.new_zeros((len(rc) * zl + extra - zc.shape[0],) + tuple(zc.shape[1:]))])
+        return Shards(zc[i * zl : (i + 1) * zl + extra].to(x.device, non_blocking=True) for i, x in enumerate(rc))
+
+    def _cycle(self, idx: int, r: Shards) -> Shards:
+        """``MultigridPreconditioner._vcycle`` at sharded level ``idx``."""
+        level = self.levels[idx]
+        axes = self.coarsen_axes[idx]
+        yx = tuple(a for a in axes if a)
+        z = self.rest._smooth(level, torch.zeros_like(r), r)
+        d = r - level.apply(z)
+        rc = _restrict_z_shard(d, yx) if 0 in axes else Shards(_restrict(x, yx) for x in d)
+        if idx + 1 < len(self.levels):
+            coarse = self.levels[idx + 1]
+            zc = self._cycle(idx + 1, coarse.free * rc.to(coarse.dtype))
+            zc = coarse.free * zc
+            # each shard's planes and the plane above them, from the next shard
+            zc = Shards(e[1:] for e in _halo_exchange(zc)) if 0 in axes else zc
+        else:
+            zc = self._replicated(rc, 0 in axes)
+        corr = Shards(_prolong(_prolong_z_interleave(c) if 0 in axes else c, yx).to(r.dtype) for c in zc)
+        z = z + level.free.to(r.dtype) * corr
+        return self.rest._smooth(level, z, r)
+
+    def __call__(self, r: Shards) -> Shards:
+        if self.levels:
+            return self._cycle(0, r)
+        # one level: the dense coarse inverse of the whole grid
+        return self.top.scatter(self.rest(self.top.gather(r)))
+
+
 class ZShardedSolver:
     """f64 flexible PCG with the multigrid V-cycle, z-sharded over
     ``devices``. Built by :func:`build_zsharded_solver`; :meth:`solve`
@@ -338,22 +409,15 @@ class ZShardedSolver:
         self.devices = [_device(d) for d in devices]
         Z, Y, X = op_hi.grid_shape
         self.grid_shape = (Z, Y, X)
-        self.shard_l1 = shard_levels >= 2 and len(mg.levels) >= 3
-        self.z_local, self.z_pad = shard_geometry(Z, len(self.devices), self.shard_l1)
-        self.degree, self.lam_min_frac = mg.degree, mg.lam_min_frac
+        n_sh = min(max(shard_levels, 1), SHARDED_LEVELS, len(mg.levels) - 1)
+        zls = shard_geometry(Z, len(self.devices), mg.coarsen_axes[:n_sh])
+        self.z_local = zls[0]
         free = _scatter(check_free_mask(op_hi.free).reshape(Z, Y, X, 3), self.devices, self.z_local)
         self.op = ShardedStructuredOperator(
             weights=self._on_devices(op_hi.weights), free=free, free_ext=_halo_exchange(free),
             z_real=Z, z_local=self.z_local,
         )
-        self.fine = self._shard(mg.levels[0], self.z_local)
-        self.l1 = self._shard(mg.levels[1], self.z_local // 2) if self.shard_l1 else None
-        dev0 = self.devices[0]
-        rest = mg.levels[2 if self.shard_l1 else 1:]
-        self.rest = MultigridPreconditioner(
-            levels=tuple(_level_on(lv, dev0) for lv in rest), coarse_inv=mg.coarse_inv.to(dev0),
-            degree=mg.degree, lam_min_frac=mg.lam_min_frac,
-        )
+        self.mg = ShardedMultigrid.build(mg, self.op, [self._shard(lv, zl) for lv, zl in zip(mg.levels[:n_sh], zls)])
 
     def _on_devices(self, w: StencilWeights) -> list[StencilWeights]:
         per = {d: w.to(d) for d in set(self.devices)}
@@ -367,41 +431,10 @@ class ZShardedSolver:
             lam_max=lv.lam_max, z_real=lv.free.shape[0], z_local=zl,
         )
 
-    # -- the V-cycle ------------------------------------------------------------
-
-    def _cycle(self, lv: _ShardLevel, r: Shards, coarse: Callable[[Shards], Shards]) -> Shards:
-        """``MultigridPreconditioner._vcycle`` at a sharded level:
-        ``coarse`` maps the shards' restricted defects to their planes of
-        the masked coarse correction plus the plane above."""
-        def smooth(x: Shards) -> Shards:
-            return chebyshev_smooth(lv.apply, lv.inv_diag, lv.lam_max, self.lam_min_frac, self.degree, x, r)
-
-        z = smooth(torch.zeros_like(r))
-        zc = coarse(_restrict_z_shard(r - lv.apply(z)))
-        return smooth(z + lv.free * Shards(_prolong(_prolong_z_interleave(c), axes=(1, 2)).to(r.dtype) for c in zc))
-
-    def _level1(self, rc: Shards) -> Shards:
-        """Level 1 on the shards; each shard takes the plane above its own
-        from the next shard."""
-        l1 = self.l1
-        z1 = self._cycle(l1, l1.free * rc.to(l1.free.dtype), self._replicated)
-        return Shards(e[1:] for e in _halo_exchange(l1.free * z1))
-
-    def _replicated(self, rc: Shards) -> Shards:
-        """The levels past the sharded ones, on the first shard's device:
-        gather the defect of the first replicated level, run its V-cycle,
-        and hand each shard its planes of the correction and the one above."""
-        coarse = self.rest.levels[0]
-        zl = rc[0].shape[0]
-        full = coarse.free * _gather(rc, coarse.free.shape[0]).to(coarse.dtype)
-        zc = coarse.free * self.rest._vcycle(0, full)
-        zc = torch.cat([zc, zc.new_zeros((len(rc) * zl + 1 - zc.shape[0],) + tuple(zc.shape[1:]))])
-        return Shards(zc[i * zl : (i + 1) * zl + 1].to(dev, non_blocking=True) for i, dev in enumerate(self.devices))
-
     def precondition(self, r: Shards) -> Shards:
-        """z = M^-1 r: the V-cycle of residual shards in the fine level's
-        dtype, as ``MultigridPreconditioner`` takes them."""
-        return self._cycle(self.fine, r, self._level1 if self.shard_l1 else self._replicated)
+        """z = M^-1 r: the sharded V-cycle of residual shards in the fine
+        level's dtype, as ``MultigridPreconditioner`` takes them."""
+        return self.mg(r)
 
     # -- the solve --------------------------------------------------------------
 

@@ -277,7 +277,8 @@ def test_slab_kernels_match_plain_version_on_card(dims, n):
     nx, ny, nz = dims
     Z, Y, X = nz + 1, ny + 1, nx + 1
     ke = _flagship_like_ke()
-    Zl, Zp = shard_geometry(Z, n, False)
+    Zl = shard_geometry(Z, n, [(0, 1, 2)])[0]
+    Zp = n * Zl
     g = torch.zeros((Zp + 2, Y, X, 3), dtype=torch.float64, device="cuda")
     g[1 : Z + 1] = torch.as_tensor(np.random.default_rng(14).normal(size=(Z, Y, X, 3)), device="cuda")
     ke64 = torch.as_tensor(ke, device="cuda")

@@ -21,6 +21,7 @@ from fea_tpu.ops import curvilinear as jcv
 import fea_tpu_torch as ftt
 from fea_tpu_torch.ops import curvilinear as cv
 from fea_tpu_torch.ops.cuda_varstencil import var_apply
+from fea_tpu_torch.ops.multigrid import MultigridPreconditioner
 from torch_pin import one_torch_thread  # noqa: F401
 
 MAT = dict(E=1e7, nu=0.3)
@@ -182,8 +183,9 @@ def test_vcycle_matches_jax():
     mg_j = jcv.build_curv_multigrid(nodes, dims, free_np, jsc.material, w0=jop.w, **kw)
     top = cv.build_curv_operator(tsc, dims)
     mg_own = cv.build_curv_multigrid(top.w, dims, free_np, **kw)
-    mg_from = cv.CurvMultigrid.from_numpy(_jax_levels(mg_j), np.asarray(mg_j.coarse_inv),
-                                          mg_j.coarsen_axes, degree=2, device="cpu")
+    mg_from = MultigridPreconditioner.from_numpy(_jax_levels(mg_j), np.asarray(mg_j.coarse_inv), degree=2,
+                                                 device="cpu", coarsen_axes=mg_j.coarsen_axes,
+                                                 level_type=cv._CurvLevel)
     assert [lv.dims for lv in mg_own.levels] == [lv.dims for lv in mg_j.levels] == [(8, 8, 32), (4, 4, 16)]
     assert [lv.dtype for lv in mg_own.levels] == [torch.float32, torch.float32]
     assert mg_own.coarsen_axes == tuple(mg_j.coarsen_axes)
@@ -230,8 +232,8 @@ def test_curvilinear_solve_matches_jax(prescribed, large_routes_for_small_scenes
 
     jop, jmg = ft.build_curvilinear(jsc)
     op = cv.CurvilinearOperator.from_numpy(np.asarray(jop.w), np.asarray(jop.free), device="cpu")
-    mg = cv.CurvMultigrid.from_numpy(_jax_levels(jmg), np.asarray(jmg.coarse_inv), jmg.coarsen_axes,
-                                     degree=jmg.degree, device="cpu")
+    mg = MultigridPreconditioner.from_numpy(_jax_levels(jmg), np.asarray(jmg.coarse_inv), degree=jmg.degree,
+                                            device="cpu", coarsen_axes=jmg.coarsen_axes, level_type=cv._CurvLevel)
     carried = ftt.solve_curvilinear(tsc, dims, tol=TOL, prebuilt=(op, mg))
     assert carried.stats.converged and carried.stats.iterations <= int(ref.stats.iterations)
     assert true_rel_residual(nodes, dims, fixed, loads, presc, carried.displacements.numpy()) <= TOL

@@ -61,7 +61,8 @@ def test_slab_apply_matches_numpy_oracle(dims, n, dtype):
     Z, Y, X = nz + 1, ny + 1, nx + 1
     ke = _ke(dims)
     g = np.random.default_rng(11).normal(size=(Z, Y, X, 3))
-    Zl, Zp = shard_geometry(Z, n, False)
+    Zl = shard_geometry(Z, n, [(0, 1, 2)])[0]
+    Zp = n * Zl
     g_pad = np.zeros((Zp + 2, Y, X, 3))  # a zero plane below, padding above
     g_pad[1 : Z + 1] = g
     w = cuda_stencil.stencil_weights(ke, dtype, "cpu")
@@ -97,9 +98,9 @@ def test_dd_z_chunks_are_the_reference_counts():
     assert [cuda_stencil.dd_z_chunks(65, 65, Z) for Z in (641, 1281)] == [3, 6]
 
 
-@pytest.mark.parametrize("shard_l1", [False, True], ids=["fine", "level1"])
+@pytest.mark.parametrize("sharded_levels", [1, 2], ids=["fine", "level1"])
 @pytest.mark.parametrize("n", [2, 4, 8])
-def test_halo_restrict_prolong_match_unsharded(n, shard_l1):
+def test_halo_restrict_prolong_match_unsharded(n, sharded_levels):
     """Exact agreement of the per-shard transfer pieces with the unsharded
     ones on the 2x2x12 grid: each halo-extended slab is the zero-padded
     grid's planes; the restricted shards, gathered, are ``_restrict`` of
@@ -107,8 +108,9 @@ def test_halo_restrict_prolong_match_unsharded(n, shard_l1):
     coarse grid (z first, then y and x, as ``_prolong`` orders them)."""
     rng = np.random.default_rng(13)
     Z, Y, X = 13, 3, 3
-    Zl, Zp = shard_geometry(Z, n, shard_l1)
-    assert Zl % (4 if shard_l1 else 2) == 0
+    Zl = shard_geometry(Z, n, [(0, 1, 2)] * sharded_levels)[0]
+    Zp = n * Zl
+    assert Zl % (4 if sharded_levels == 2 else 2) == 0
     devices = ["cpu"] * n
     d = torch.as_tensor(rng.normal(size=(Z, Y, X, 3)))
     shards = halo._scatter(d, devices, Zl)
@@ -192,7 +194,7 @@ def test_zsharded_solve_matches_jax(name, n, shard_levels, jax_reference):
     replicated on the three-level hierarchy."""
     iters_ref, u_ref, r_ref = jax_reference[name]
     solver, sc, dims = _port_solver(name, n, shard_levels)
-    assert solver.shard_l1 == (name == "4x4x32" and shard_levels == 2)
+    assert (len(solver.mg.levels) == 2) == (name == "4x4x32" and shard_levels == 2)
     sol = solver.solve(sc.loads)
     assert sol.stats.converged
     assert abs(sol.stats.iterations - iters_ref) <= 1
@@ -212,8 +214,9 @@ def test_no_shard_tensor_exceeds_its_slab(monkeypatch):
     solver, sc, _ = _port_solver("4x4x32", n)
     Zl, Z = solver.z_local, solver.grid_shape[0]
     assert Zl + 2 < Z
-    for shards, planes in [(solver.op.free, Zl), (solver.fine.free, Zl), (solver.fine.inv_diag, Zl),
-                           (solver.l1.free, Zl // 2), (solver.l1.inv_diag, Zl // 2)]:
+    fine, l1 = solver.mg.levels
+    for shards, planes in [(solver.op.free, Zl), (fine.free, Zl), (fine.inv_diag, Zl),
+                           (l1.free, Zl // 2), (l1.inv_diag, Zl // 2)]:
         assert len(shards) == n and all(s.shape[0] == planes for s in shards)
     seen = []
 
@@ -293,7 +296,8 @@ def test_masked_slab_apply_is_the_masked_whole_grid_apply(n, dtype):
     nx, ny, nz = dims
     Z, Y, X = nz + 1, ny + 1, nx + 1
     rng = np.random.default_rng(21)
-    Zl, Zp = shard_geometry(Z, n, False)
+    Zl = shard_geometry(Z, n, [(0, 1, 2)])[0]
+    Zp = n * Zl
     g = torch.zeros((Zp + 2, Y, X, 3), dtype=dtype)
     g[1:] = torch.as_tensor(rng.normal(size=(Zp + 1, Y, X, 3))).to(dtype)  # the padding holds values too
     F = torch.zeros_like(g)

@@ -374,7 +374,7 @@ def test_curv_apply_matches_jax_and_unsharded(curv, jax_curv, n):
 @pytest.mark.parametrize("name", list(CURV))
 def test_curv_vcycle_matches_unsharded(curv, name, n):
     """One sharded V-cycle of a random f32 residual against the unsharded
-    ``CurvMultigrid``: the same operations level by level, within f32
+    ``MultigridPreconditioner``: the same operations level by level, within f32
     rounding (1e-5 of max|z|) on every path of the hierarchy."""
     sc, op, mg = curv[name]
     op_s, mg_s, constrain = shard_curvilinear(op, mg, _cpu(n))

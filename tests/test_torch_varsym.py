@@ -24,6 +24,7 @@ from fea_tpu.ops import curvilinear as jcv
 import fea_tpu_torch as ftt
 from fea_tpu_torch.ops import cuda_varstencil as vs
 from fea_tpu_torch.ops import curvilinear as cv
+from fea_tpu_torch.ops.multigrid import MultigridPreconditioner
 from fea_tpu_torch.parallel import curv as pcurv
 from fea_tpu_torch.solve import embed
 
@@ -150,7 +151,8 @@ def _producer_fields(name: str) -> list[torch.Tensor]:
                                         degree=2, f64_below_dof=1000)
         levels = [dict(w=np.asarray(lv.w), free=np.asarray(lv.free), inv_diag=np.asarray(lv.inv_diag),
                        lam=float(lv.lam_max), dims=lv.dims, dtype=np.asarray(lv.w).dtype) for lv in mg_j.levels]
-        mg = cv.CurvMultigrid.from_numpy(levels, np.asarray(mg_j.coarse_inv), mg_j.coarsen_axes, device="cpu")
+        mg = MultigridPreconditioner.from_numpy(levels, np.asarray(mg_j.coarse_inv), degree=2, device="cpu",
+                                                coarsen_axes=mg_j.coarsen_axes, level_type=cv._CurvLevel)
         op = cv.CurvilinearOperator.from_numpy(np.asarray(jop.w), np.asarray(jop.free), device="cpu")
         return [op.w] + [lv.w for lv in mg.levels]
     assert name == "weight-slabs"
