@@ -8,10 +8,11 @@ Phases, in order:
      and nvcc versions; raises without a card;
   2. build: compiles K1/K2 with their slab forms K1-halo/K3
      (fea_tpu_torch/csrc/stencil.cu), K4/K5
-     (fea_tpu_torch/csrc/varstencil.cu) and K6/K7
-     (fea_tpu_torch/csrc/element_apply.cu) for sm_90a, one nvcc each, in
-     parallel; what ptxas says of the registers and spills of each kernel of
-     stencil.cu, element_apply.cu and varstencil.cu;
+     (fea_tpu_torch/csrc/varstencil.cu), K6/K7
+     (fea_tpu_torch/csrc/element_apply.cu) and the curvilinear weights'
+     assembly (fea_tpu_torch/csrc/curv_weights.cu) for sm_90a, one nvcc
+     each, in parallel; what ptxas says of the registers and spills of each
+     kernel of those sources;
   3. K1/K2 against their plain version on the card, at small shapes, at
      shapes that straddle the kernel's band, warp and chunk edges, at rows
      wider than a block (cut into segments), at every
@@ -49,11 +50,21 @@ Phases, in order:
      for value that expression around the raw kernel); at the fine grid the
      card's time (graph replays) and the host's pace, raw and masked, the
      plain version, a CSR SpMV, and the 27- and 14-block bounds;
+     5.1: W, the weights' assembly (fea_tpu_torch/csrc/curv_weights.cu), on
+     [6]'s distorted 40x40x160 nodes in f64 and f32 against its plain
+     version (the chunked batched Ke and slice-adds) run on the card in the
+     same dtype, both symmetrized: within 1e-12 (f64) and 1e-5 (f32) of
+     the plain f64 field's largest entry, exactly its own mirror, the least
+     detJ within the same share, two calls bit for bit, 8 launches a call;
+     the CUDA-event times of its 8 colour launches and of its wrapper
+     beside its bound (the 14 upper planes and the nodes at 3.35 TB/s, or
+     its operations, the larger), and the plain version's wall;
   6. curvilinear slice: the distorted 40x40x160 cantilever of
      tools/curv_bench.py (811,923 DOF) through ``fea_tpu_torch.solve``,
      checked on the host by an element-by-element K u in NumPy f64 that
      shares no code with the package, the tip deflection, and the launch
-     counters (K4/K5 launched, K1/K2 not), the iterations within 1 of 48,
+     counters (K4/K5 launched, K1/K2 not, W f64 8 times: one assembly),
+     the iterations within 1 of 48,
      every weight field the solve handed to K4/K5 its own mirror exactly
      (``FieldSpy``; so in [7], [14] and [18.5]); before it, the routing
      detectors and the first torch.linalg call timed apart; after it, the
@@ -61,7 +72,9 @@ Phases, in order:
      in [4], the device memory the build cache keeps for the mesh once the
      solve has returned, and a second ``solve()`` of the mesh with new
      loads, which must take its build from the cache and pass the host
-     check;
+     check; then three warm solves, each of a new distortion of the grid
+     (curv_812k.fresh's requests), each converged with 8 W launches: their
+     walls and their route, build, capture and FCG spans;
   7. canonicalized slice: the 24x24x96 distorted scene of
      tools/canon_bench.py (181,875 DOF) with its nodes renumbered by a
      seeded permutation, through ``fea_tpu_torch.solve``; its solution,
@@ -126,8 +139,8 @@ Phases, in order:
      nodes moved by 0.2 h U(-1, 1), seed 7) through ``fea_tpu_torch.solve``:
      K4/K5 against their plain version on the void-masked fine field (void
      rows exactly zero), timed beside their bound, the plain version and a
-     CSR SpMV; the solve (K4/K5 launched, K1/K2 not, the AMG route never
-     called), host-checked by ``host_ku`` on the real mesh, its iterations
+     CSR SpMV; the solve (K4/K5 launched, K1/K2 not, W f64 8 times, the
+     AMG route never called), host-checked by ``host_ku`` on the real mesh, its iterations
      beside the reference's, the set-up stages, the FCG stage, the peak
      memory, a second ``solve()`` from the cache, ``loop_vs_staged``, and
      ``solve_many`` of 8 tip loads, each host-checked;
@@ -212,7 +225,8 @@ Phases, in order:
      built, the flagship converged); the kernels each child launched go
      into the kernels line as ``tools_launches``;
  22. one JSON line of the kernels (K1, K2, K6, K7 with their launches in
-     [19]'s refined solves as ``refined_launches``), one of the compute with
+     [19]'s refined solves as ``refined_launches``; W with [5.1]'s numbers
+     and its launches in [6]'s solve), one of the compute with
      no TPU kernel, the card's line, then the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -261,8 +275,10 @@ TIP_BAND = (0.70, 1.30)  # bench.py's band for the FEM / beam-theory tip ratio
 MAX_ITERS = 16
 CURV_MAX_ITERS = 80
 # the port's iteration counts on [6], [7] and [14]'s scenes (PERF.md section 5); the symmetric
-# K4/K5 leave them as they were
-CURV_ITERS, CANON_ITERS, EMBED_ITERS = 48, 48, 59
+# K4/K5 leave them as they were. [14]'s count moves with the last bits of the weights: the
+# assembly kernel's summation order (within 6e-16 of the chunked loop's field) took it from
+# 59 to 55
+CURV_ITERS, CANON_ITERS, EMBED_ITERS = 48, 48, 55
 CANON_TOL = 2e-8
 # tests/test_pallas.py's E, and E around K7's tile of 128 elements at every kind of k
 APPLY_SMALL = ([(E, k) for E in (1, 700, 1030) for k in (4, 6, 24)]
@@ -335,11 +351,20 @@ KERNELS = {
                          replaces="fea_tpu/ops/pallas_varstencil.py:183", dtype=torch.float32, tol=2e-5),
     "var_slab_f64": dict(name="K5-slab var_apply_slab_f64", source="fea_tpu_torch/csrc/varstencil.cu",
                          replaces="fea_tpu/ops/pallas_varstencil.py:277", dtype=torch.float64, tol=1e-12),
+    # the curvilinear weights' assembly, which no TPU kernel does (the JAX
+    # package assembles with jnp ops)
+    "weights_f32": dict(name="W curv_weights_f32", source="fea_tpu_torch/csrc/curv_weights.cu",
+                        replaces="none: jnp ops, fea_tpu/ops/curvilinear.py assemble_curv_weights",
+                        dtype=torch.float32, tol=1e-5),
+    "weights_f64": dict(name="W curv_weights_f64", source="fea_tpu_torch/csrc/curv_weights.cu",
+                        replaces="none: jnp ops, fea_tpu/ops/curvilinear.py assemble_curv_weights",
+                        dtype=torch.float64, tol=1e-12),
 }
 STENCIL_KEYS = ("f32", "f64")
 VAR_KEYS = ("var_f32", "var_f64")
 APPLY_KEYS = ("stored_f32", "stored_f64", "uniform_f32", "uniform_f64")
 SLAB_KEYS = ("slab_f32", "slab_f64")
+WEIGHTS_KEYS = ("weights_f32", "weights_f64")
 
 
 T_START = time.perf_counter()
@@ -372,7 +397,7 @@ def event_ms(fn, runs: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-PTXAS_SOURCES = ("stencil.cu", "element_apply.cu", "varstencil.cu")  # the redesigned sources
+PTXAS_SOURCES = ("stencil.cu", "element_apply.cu", "varstencil.cu", "curv_weights.cu")
 
 
 def ptxas_log(nvcc, name: str) -> str:
@@ -394,7 +419,7 @@ def ptxas_report(logs: dict) -> None:
         for i, line in enumerate(lines):
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
-                parts = re.search(r"\d+((?:stencil27|uniform_tile|uniform|stored|var27_sym)_kernel)I([df])"
+                parts = re.search(r"\d+((?:stencil27|uniform_tile|uniform|stored|var27_sym|curv_weights)_kernel)I([df])"
                                   r"(?:Li(\d+)E)?(?:Lb([01])E)?(?:Lb([01])E)?", m.group(1))
                 var = parts is not None and parts.group(1) == "var27_sym_kernel"
                 kernel = m.group(1)[-40:] if not parts else (
@@ -770,6 +795,106 @@ def var_summary(report: dict, launches: dict) -> None:
             f"{r['bound_14_ms'] / r['device_ms'] * 100:.0f}% of the 14-block bound, {launches[key]} launches a solve")
 
 
+def weights_flops(nx: int, ny: int, nz: int) -> int:
+    """Operations of one W assembly of nx x ny x nz live elements as
+    csrc/curv_weights.cu writes them, a fused multiply-add two: at each of
+    an element's 8 quadrature points J = D X (144), its determinant and
+    the adjugate over it (41) and the 8 global gradients (120); for each of
+    its 36 upper corner pairs the 3x3 block's update at each point (65)
+    and the nine += into the field."""
+    return nx * ny * nz * (8 * (144 + 41 + 120) + 36 * (8 * 65 + 9))
+
+
+def check_weights_kernel(cuda_curv_weights) -> dict:
+    """Phase [5.1]: W, the curvilinear weights' assembly kernel, on the
+    distorted 40x40x160 nodes of [6] (811,923 DOF), against its plain
+    version (the chunked batched Ke and 64 slice-adds) run on the card in
+    the same dtype, both symmetrized: f64 within 1e-12 and f32 within 1e-5
+    of the plain f64 field's largest entry, the field exactly its own
+    mirror, the least detJ within the same share of the plain one's, two
+    calls bit for bit, 8 launches a call. Then the CUDA-event time of the 8
+    colour launches alone (``device_ms``) and of the wrapper with its zero
+    fill and detJ minimum (``ms``) beside the bound (the 14 upper planes
+    written once and the nodes read once, or the operations), and the wall
+    of the plain version with ``symmetrize_field`` (``plain_ms``)."""
+    from fea_tpu_torch.materials import lame_parameters
+    from fea_tpu_torch.ops.curvilinear import assemble_curv_weights_plain, mirror_defect, symmetrize_field
+    from fea_tpu_torch.ops.nvcc import launch_on
+
+    nx, ny, nz = CURV
+    N, E = (nx + 1) * (ny + 1) * (nz + 1), nx * ny * nz
+    nodes = torch.as_tensor(scenes.distorted_arrays(CURV)[0], device=DEV)
+    mat = scenes.MATERIAL
+    lam, mu = lame_parameters(mat)
+
+    def plain(dtype):
+        w, mdj = assemble_curv_weights_plain(nodes, CURV, mat, dtype=dtype)
+        return symmetrize_field(w), mdj
+
+    want64, _ = plain(torch.float64)
+    scale = float(want64.abs().max())
+    report = {}
+    for key in WEIGHTS_KEYS:
+        spec = KERNELS[key]
+        dtype = spec["dtype"]
+        want, want_mdj = plain(dtype)
+        n0 = cuda_curv_weights.LAUNCHES[key]
+        w, mdj = cuda_curv_weights.curv_weights(nodes, CURV, mat, dtype=dtype)
+        again, mdj2 = cuda_curv_weights.curv_weights(nodes, CURV, mat, dtype=dtype)
+        torch.cuda.synchronize()
+        launched = cuda_curv_weights.LAUNCHES[key] - n0
+        same = bool(torch.equal(w, again) and torch.equal(mdj, mdj2))
+        del again
+        w = symmetrize_field(w)
+        err = float((w - want).abs().max())
+        err64 = float((w.double() - want64).abs().max())
+        rel, rel_detj = err / scale, abs(float(mdj) - float(want_mdj)) / abs(float(want_mdj))
+        mirror = mirror_defect(w)
+        say(f"  {spec['name']} {CURV}: max abs err {err:.3e} against the plain version in {dtype}, rel {rel:.3e} "
+            f"(tol {spec['tol']:g}; against the plain f64 field {err64 / scale:.3e}); mirror defect {mirror}; "
+            f"least detJ {float(mdj):.6e} (plain {float(want_mdj):.6e}, rel {rel_detj:.3e}); two calls bit for bit: "
+            f"{same}; launches {launched} for 2 calls")
+        require({f"{spec['name']} within {spec['tol']:g}": rel <= spec["tol"],
+                 f"{spec['name']} its own mirror": mirror == 0.0,
+                 f"{spec['name']} least detJ within {spec['tol']:g}": rel_detj <= spec["tol"],
+                 f"{spec['name']} two calls bit for bit": same,
+                 f"{spec['name']} 8 launches a call": launched == 16}, "[5.1]")
+        del w, want
+
+        entry = getattr(cuda_curv_weights.build(), cuda_curv_weights._ENTRY[dtype][1])
+        xyz = nodes.to(dtype).contiguous()
+        field = torch.zeros((27, 3, 3, nz + 1, ny + 1, nx + 1), dtype=dtype, device=DEV)
+        detj = torch.empty(E, dtype=dtype, device=DEV)
+        colours = lambda: launch_on(field.device, entry, xyz.data_ptr(), None, field.data_ptr(),  # noqa: E731
+                                    detj.data_ptr(), lam, mu, nx, ny, nz)
+        dev_ms = event_ms(colours)
+        ms = event_ms(lambda: cuda_curv_weights.curv_weights(nodes, CURV, mat, dtype=dtype))
+        del field, detj
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain(dtype)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        esize = xyz.element_size()
+        nbytes, flops = (14 * 9 * N + 3 * N + E) * esize, weights_flops(nx, ny, nz)
+        bound_ms, bound_by = bound(dtype, nbytes, flops)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        say(f"  {spec['name']} {CURV}: the 8 colour launches {dev_ms:.4f} ms on the card (CUDA events), the "
+            f"wrapper (zero fill, 8 launches, detJ minimum) {ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
+            f"{flops / 1e9:.2f} GFLOP; the bytes {bytes_ms:.4f} ms), {bound_ms / dev_ms * 100:.1f}% of it; the "
+            f"plain version with symmetrize_field on the card {statistics.median(walls):.1f} ms wall "
+            f"({', '.join(f'{t:.1f}' for t in walls)})")
+        report[key] = dict(max_abs_err=err, max_rel_err=rel, detj_rel_err=rel_detj, ms=ms, device_ms=dev_ms,
+                           bound_ms=bound_ms, bound_by=bound_by, bytes_bound_ms=bytes_ms,
+                           plain_ms=statistics.median(walls))
+        del xyz
+    del want64, nodes
+    torch.cuda.empty_cache()
+    return report
+
+
 def flagship_scene(dims=None):
     """bench.py's cantilever at ``dims`` voxels (the flagship when None) on
     the card (``scenes.cantilever``): the scene and (nodes, elements,
@@ -1003,7 +1128,7 @@ def time_detectors(scene, renumbered: bool = False) -> list[str]:
     return parts
 
 
-def run_curvilinear(ftt, cuda_stencil, cuda_varstencil) -> dict:
+def run_curvilinear(ftt, cuda_stencil, cuda_varstencil, cuda_curv_weights) -> dict:
     from fea_tpu_torch.ops.curvilinear import infer_topo_dims
 
     scene, h = scenes.distorted(CURV, device=DEV)
@@ -1025,13 +1150,13 @@ def run_curvilinear(ftt, cuda_stencil, cuda_varstencil) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
-    zero_counts(cuda_stencil.LAUNCHES, cuda_varstencil.LAUNCHES)
+    zero_counts(cuda_stencil.LAUNCHES, cuda_varstencil.LAUNCHES, cuda_curv_weights.LAUNCHES)
     with FieldSpy(cuda_varstencil) as fields:
         t0 = time.perf_counter()
         sol = ftt.solve(scene, tol=1e-8)
         torch.cuda.synchronize()
         whole_s = time.perf_counter() - t0
-    launches = {**cuda_stencil.LAUNCHES, **cuda_varstencil.LAUNCHES}
+    launches = {**cuda_stencil.LAUNCHES, **cuda_varstencil.LAUNCHES, **cuda_curv_weights.LAUNCHES}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     st = sol.stats
     say(f"  whole solve (fea_tpu_torch.solve): {whole_s:.3f} s, peak device memory {peak_gb:.3f} GB; "
@@ -1040,7 +1165,8 @@ def run_curvilinear(ftt, cuda_stencil, cuda_varstencil) -> dict:
     say(f"  iterations {st.iterations}, reported true relative residual "
         f"{st.relative_residual:.3e}, converged {st.converged}")
     say(f"  launches in that solve: K1 {launches['f32']}, K2 {launches['f64']}, "
-        f"K4 {launches['var_f32']}, K5 {launches['var_f64']}")
+        f"K4 {launches['var_f32']}, K5 {launches['var_f64']}, W f64 {launches['weights_f64']}, "
+        f"W f32 {launches['weights_f32']}")
 
     # stage breakdown: a second solve, stage by stage
     t0 = time.perf_counter()
@@ -1087,6 +1213,7 @@ def run_curvilinear(ftt, cuda_stencil, cuda_varstencil) -> dict:
         "K4 launched": launches["var_f32"] > 0,
         "K5 launched": launches["var_f64"] > 0,
         "K1/K2 not launched": launches["f32"] == 0 and launches["f64"] == 0,
+        "W f64 launched 8 (one assembly), W f32 not": launches["weights_f64"] == 8 and launches["weights_f32"] == 0,
     }
     require(checks, "curvilinear")
     fields.check("[6] the curvilinear solve")
@@ -1095,8 +1222,43 @@ def run_curvilinear(ftt, cuda_stencil, cuda_varstencil) -> dict:
     new_loads[tip, 2] = 0.5 / tip.sum()
     cached_second_solve(ftt, scene, new_loads, whole_s,
                         lambda v: host_check(nodes, elements, mat, fixed, new_loads, v)[1])
+    fresh_requests(ftt, cuda_curv_weights)
     return launches, dict(scene=scene, nodes=nodes, elements=elements, fixed=fixed, loads=loads, mat=mat, u=u,
                           iterations=st.iterations)
+
+
+FRESH_SPANS = ("fea.route", "fea.build.curv.jacobians", "fea.build.curv.weights", "fea.build.curv.rap",
+               "fea.build.curv.levels", "fea.build.curv.coarse", "fea.fcg.capture", "fea.fcg.run")
+
+
+def fresh_requests(ftt, cuda_curv_weights, n: int = 3) -> None:
+    """[6]'s end: ``n`` warm ``solve()`` calls, each on a new distortion of
+    the CURV grid (the requests of curv_812k.fresh: route, build, capture
+    and FCG every call), each converged, with 8 W f64 launches; their
+    walls and ``FRESH_SPANS`` in ms."""
+    from fea_tpu_torch.utils import spans
+
+    nx, ny, nz = CURV
+    base, elements = ftt.mesh.box_hex_mesh(nx, ny, nz, 0.1, 0.1, 1.0)
+    interior = (base[:, 2] > 0) & (base[:, 2] < 1.0)
+    rng = np.random.default_rng(20261018)
+    for i in range(n):
+        nodes = base + 0.25 * (0.1 / nx) * rng.uniform(-1, 1, base.shape) * interior[:, None]
+        fixed, loads, _ = scenes.cantilever_bcs(nodes)
+        scene = ftt.make_scene(nodes, elements, fixed, loads, scenes.MATERIAL, dtype=torch.float64, device=DEV)
+        torch.cuda.synchronize()
+        n0, w0 = len(spans()), cuda_curv_weights.LAUNCHES["weights_f64"]
+        t0 = time.perf_counter()
+        sol = ftt.solve(scene, tol=1e-8)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        got = spans()[n0:]
+        ms = {name: sum(s.seconds for s in got if s.name == name) * 1e3 for name in FRESH_SPANS}
+        launched = cuda_curv_weights.LAUNCHES["weights_f64"] - w0
+        say(f"  fresh request {i + 1}: {wall:.1f} ms, {sol.stats.iterations} iterations, W f64 launches "
+            f"{launched}; " + ", ".join(f"{name.removeprefix('fea.')} {v:.2f}" for name, v in ms.items()))
+        require({"converged": sol.stats.converged, "W f64 launched 8": launched == 8}, f"fresh request {i + 1}")
+        del scene, sol
 
 
 def cached_second_solve(ftt, scene, new_loads, first_wall: float, host_rel, check_tol: float = 1e-8) -> None:
@@ -2021,7 +2183,7 @@ def run_embedded(ftt, counters) -> dict:
         f"{peak_gb:.3f} GB; {st.iterations} iterations (the reference on its TPU: {EMBED_REF_ITERS}), reported "
         f"{st.relative_residual:.3e}, converged {st.converged}; replays {staged.COUNTS['steps']}")
     say(f"  launches in that solve: K1 {launches['f32']}, K2 {launches['f64']}, K4 {launches['var_f32']}, "
-        f"K5 {launches['var_f64']}")
+        f"K5 {launches['var_f64']}, W f64 {launches['weights_f64']}")
     u = sol.displacements.cpu().numpy()
     (Ku, rel_host), host_s = timed(lambda: host_check(nodes, elements, mat, fixed, a["loads"], u))
     reac_err = float(np.abs(sol.reactions.cpu().numpy() - Ku).max() / np.abs(Ku).max())
@@ -2035,6 +2197,7 @@ def run_embedded(ftt, counters) -> dict:
         "K4 launched": launches["var_f32"] > 0,
         "K5 launched": launches["var_f64"] > 0,
         "K1/K2 not launched": launches["f32"] == 0 and launches["f64"] == 0,
+        "W f64 launched 8 (one assembly)": launches["weights_f64"] == 8,
     }, "embedded")
     fields.check("[14] the embedded solve")
 
@@ -3378,7 +3541,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
     import fea_tpu_torch as ftt
-    from fea_tpu_torch.ops import cuda_apply, cuda_stencil, cuda_varstencil, nvcc
+    from fea_tpu_torch.ops import cuda_apply, cuda_curv_weights, cuda_stencil, cuda_varstencil, nvcc
 
     phase("[1] device")
     smi = subprocess.run(
@@ -3393,12 +3556,12 @@ def main() -> None:
 
     phase("[2] build")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3 + len(PTXAS_SOURCES)) as pool:  # one nvcc each, all at once
-        builds = [pool.submit(m.build) for m in (cuda_stencil, cuda_varstencil, cuda_apply)]
+    with ThreadPoolExecutor(max_workers=4 + len(PTXAS_SOURCES)) as pool:  # one nvcc each, all at once
+        builds = [pool.submit(m.build) for m in (cuda_stencil, cuda_varstencil, cuda_apply, cuda_curv_weights)]
         logs = {name: pool.submit(ptxas_log, nvcc, name) for name in PTXAS_SOURCES}
         for fut in builds:
             fut.result()
-        say(f"  K1/K2 with K1-halo/K3, K4/K5 and K6/K7 built in {time.perf_counter() - t0:.2f} s")
+        say(f"  K1/K2 with K1-halo/K3, K4/K5, K6/K7 and the assembly built in {time.perf_counter() - t0:.2f} s")
         ptxas_report({name: fut.result() for name, fut in logs.items()})
 
     phase("[3] K1/K2 vs plain version (f64) on the card")
@@ -3409,10 +3572,12 @@ def main() -> None:
 
     phase("[5] K4/K5 vs plain version (f64) on the card")
     report.update(check_var_kernels(ftt, cuda_varstencil))
+    say("  [5.1] W, the curvilinear weights' assembly, vs its plain version on the card")
+    report.update(check_weights_kernel(cuda_curv_weights))
 
     phase("[6] curvilinear slice: the 811,923-DOF distorted cantilever through fea_tpu_torch.solve")
-    launches_curv, curv_ref = run_curvilinear(ftt, cuda_stencil, cuda_varstencil)
-    launches.update({k: launches_curv[k] for k in VAR_KEYS})
+    launches_curv, curv_ref = run_curvilinear(ftt, cuda_stencil, cuda_varstencil, cuda_curv_weights)
+    launches.update({k: launches_curv[k] for k in VAR_KEYS + WEIGHTS_KEYS})
 
     phase("[7] canonicalized slice: the renumbered 181,875-DOF scene through fea_tpu_torch.solve")
     run_canonical(ftt, cuda_stencil, cuda_varstencil)
@@ -3421,7 +3586,7 @@ def main() -> None:
     report.update(check_apply_kernels(cuda_apply))
 
     phase("[9] element-by-element slice through fea_tpu_torch.solve")
-    counters = (cuda_stencil.LAUNCHES, cuda_varstencil.LAUNCHES, cuda_apply.LAUNCHES)
+    counters = (cuda_stencil.LAUNCHES, cuda_varstencil.LAUNCHES, cuda_apply.LAUNCHES, cuda_curv_weights.LAUNCHES)
     launches.update(run_ebe(ftt, counters))
 
     phase("[10] K1-halo/K3 vs plain version (f64) on the card")

@@ -4,7 +4,8 @@
 in Voigt order (xx, yy, zz, xy, yz, zx), node order bottom face CCW then
 top face CCW. The voxel route needs exactly one reference Ke
 (:func:`stiffness_matrix_np`); the curvilinear route integrates every
-element, in chunks on the device (:func:`batched_ke`); the
+element, on the CPU in chunks (:func:`batched_ke`) and on the card in its
+assembly kernel (``csrc/curv_weights.cu``, at this module's Gauss points); the
 element-by-element operator precomputes the quadrature geometry of every
 element (:func:`precompute_geometry`) and applies, diagonalizes or
 integrates Ke from it. Counterpart of ``fea_tpu/elements/hex8.py``.

@@ -22,9 +22,11 @@ is stored once, in the kernels' plane-major layout (27, 3, 3, Z, Y, X);
 as a view of the same storage; host fields in that layout come in through
 the ``from_numpy`` constructors.
 
-The weights are assembled once per operator on the device, in z-slab
-chunks: element e at grid position p contributes its (a, b) corner block
-``Ke[3a:3a+3, 3b:3b+3]`` to ``W_{cb - ca}`` at node ``p + ca``.
+The weights are assembled once per operator on the device: element e at
+grid position p contributes its (a, b) corner block ``Ke[3a:3a+3, 3b:3b+3]``
+to ``W_{cb - ca}`` at node ``p + ca``. On the card one kernel does it
+(``ops/cuda_curv_weights.py``: the 14 upper blocks, 8 launches); on the CPU
+the plain version, in z-slab chunks (:func:`assemble_curv_weights_plain`).
 
 Multigrid coarsens by Galerkin RAP: level l+1's stencil is the triple
 product P^T A_l P of the V-cycle's own trilinear transfer operators
@@ -51,6 +53,7 @@ from ..elements.hex8 import batched_ke
 from ..materials import Material
 from ..scene import Scene
 from ..utils.profiling import count, span
+from .cuda_curv_weights import curv_weights
 from .cuda_varstencil import var_apply, var_apply_masked
 from .multigrid import MultigridPreconditioner
 from .structured import _CORNERS, _expected_box_elements
@@ -58,6 +61,7 @@ from .structured import _CORNERS, _expected_box_elements
 __all__ = [
     "CurvilinearOperator",
     "assemble_curv_weights",
+    "assemble_curv_weights_plain",
     "build_curv_multigrid",
     "build_curv_operator",
     "coarsen_dims_partial",
@@ -227,8 +231,7 @@ def _scatter_blocks(wg, keg, z0: int, dims) -> None:
             wg[d, z0 + az : z0 + az + cz, ay : ay + ny, ax : ax + nx] += keg[:, :, :, a, :, b, :]
 
 
-@span("fea.build.curv.weights")
-def assemble_curv_weights(
+def assemble_curv_weights_plain(
     nodes: torch.Tensor,
     dims: tuple[int, int, int],
     material: Material,
@@ -237,8 +240,11 @@ def assemble_curv_weights(
     chunk_elems: int = 8192,
     valid=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Weight field (27, 3, 3, Zn, Yn, Xn) in ``dtype`` on the nodes'
-    device, symmetrized, and the minimum detJ as a 0-d tensor.
+    """The plain version of the assembly kernel
+    (:func:`fea_tpu_torch.ops.cuda_curv_weights.curv_weights`), which
+    ``assemble_curv_weights`` runs on the CPU: the weight field (27, 3, 3,
+    Zn, Yn, Xn) in ``dtype`` on the nodes' device, all 27 blocks, not
+    symmetrized, and the minimum detJ as a 0-d tensor.
 
     ``nodes`` (N, 3) in box grid order. Whole z element layers of about
     ``chunk_elems`` elements at a time: corner coordinates by slicing the
@@ -273,6 +279,41 @@ def assemble_curv_weights(
         _scatter_blocks(wg, ke.reshape(czi, ny, nx, 8, 3, 8, 3), z0, dims)
         mdj = detj.min()
         min_detj = mdj if min_detj is None else torch.minimum(min_detj, mdj)
+    return w, min_detj
+
+
+@span("fea.build.curv.weights")
+def assemble_curv_weights(
+    nodes: torch.Tensor,
+    dims: tuple[int, int, int],
+    material: Material,
+    *,
+    dtype: torch.dtype = torch.float64,
+    chunk_elems: int = 8192,
+    valid=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Weight field (27, 3, 3, Zn, Yn, Xn) in ``dtype`` (float32 or
+    float64) on the nodes' device, symmetrized, and the minimum detJ as a
+    0-d tensor.
+
+    ``nodes`` (N, 3) in box grid order. On the card one kernel assembles
+    it (:func:`fea_tpu_torch.ops.cuda_curv_weights.curv_weights`, 8
+    launches); on the CPU the plain version, in z-slab chunks of about
+    ``chunk_elems`` elements (:func:`assemble_curv_weights_plain`), the
+    only reader of ``chunk_elems``. Another dtype raises TypeError, another
+    device ValueError.
+    ``valid``: an optional (nz, ny, nx) 0/1 host mask of the cells that
+    exist (the embedded route, ``solve/embed.py``): a void cell adds
+    exactly zero weights, even where its geometry is degenerate, and its
+    detJ is left out of the minimum.
+    """
+    if nodes.device.type == "cpu":
+        if dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"assemble_curv_weights: dtype {dtype} is neither float32 nor float64")
+        w, min_detj = assemble_curv_weights_plain(nodes, dims, material, dtype=dtype, chunk_elems=chunk_elems,
+                                                  valid=valid)
+    else:
+        w, min_detj = curv_weights(nodes, dims, material, dtype=dtype, valid=valid)
     return symmetrize_field(w), min_detj
 
 

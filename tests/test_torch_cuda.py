@@ -14,6 +14,7 @@ import torch
 
 from fea_tpu_torch.elements.hex8 import stiffness_matrix_np
 from fea_tpu_torch.materials import Material
+from fea_tpu_torch.mesh import box_hex_mesh
 from fea_tpu_torch.ops import cuda_stencil
 from fea_tpu_torch.ops.cuda_stencil import stencil_apply, stencil_weights
 from fea_tpu_torch.ops.structured import stencil_apply_grid
@@ -672,3 +673,121 @@ def test_curvilinear_coarse_inverse_is_made_on_the_card(tmp_path):
     assert any(e["cat"] == "kernel" for e in on_card)  # the span's work was traced
     assert not [e for e in on_card
                 if e["cat"] == "gpu_memcpy" and "HtoD" in e["name"] and e["args"].get("bytes", 0) >= n * n * 8]
+
+
+def _distorted_box(nx, ny, nz, seed):
+    """Host nodes of a box grid of cubes of side 0.1 / nx, every node off
+    the z faces moved by a quarter cell on each axis (tools/curv_bench.py's
+    distortion)."""
+    h = 0.1 / nx
+    nodes, _ = box_hex_mesh(nx, ny, nz, 0.1, h * ny, h * nz)
+    interior = (nodes[:, 2] > 0) & (nodes[:, 2] < h * nz - h / 2)
+    return nodes + 0.25 * h * np.random.default_rng(seed).uniform(-1, 1, nodes.shape) * interior[:, None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(5, 4, 1), (3, 5, 7), (1, 6, 4), (7, 1, 2), (40, 40, 16), (6, 5, 7)],
+                         ids=["one-layer", "odd", "x-of-1", "y-of-1", "quarter-cell", "embedded"])
+def test_curvilinear_weights_kernel_matches_plain_version_on_card(dims, monkeypatch):
+    """The assembly kernel (8 parity-coloured launches) against the plain
+    chunked assembly run on the card, each symmetrized: f64 within 1e-12
+    of the plain field's largest entry (another summation order), f32
+    within 1e-5 of it (f32 rounding in another order); the field exactly block-symmetric; two calls bitwise
+    equal; the least detJ within 1e-12; 8 launches an assembly, and no
+    batched Ke on the card. The embedded case takes a void mask whose void
+    cells hold a degenerate one (void-only nodes moved onto one point):
+    their weights are exactly zero and the field is bitwise the one with
+    those nodes on the lattice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the assembly kernel has no CPU mode")
+    from fea_tpu_torch.ops import cuda_curv_weights
+    from fea_tpu_torch.ops import curvilinear as cv
+
+    nx, ny, nz = dims
+    mat = Material(E=1e7, nu=0.3)
+    host = _distorted_box(nx, ny, nz, 14)
+    valid = None
+    if dims == (6, 5, 7):
+        valid = (np.random.default_rng(15).random((nz, ny, nx)) < 0.7).astype(np.uint8)
+        valid[:, :, :2] = 0  # cells with x < 2: their nodes x <= 1 touch no live cell
+    nodes = torch.as_tensor(host, device="cuda")
+    plain = {dt: cv.assemble_curv_weights_plain(nodes, dims, mat, dtype=dt, valid=valid)
+             for dt in (torch.float64, torch.float32)}
+
+    def no_batched_ke(*_):
+        raise AssertionError("batched_ke ran on the card")
+
+    monkeypatch.setattr(cv, "batched_ke", no_batched_ke)
+    want = cv.symmetrize_field(plain[torch.float64][0])
+    scale = float(want.abs().max())
+    n0 = dict(cuda_curv_weights.LAUNCHES)
+    w, mdj = cv.assemble_curv_weights(nodes, dims, mat, valid=valid)
+    again, mdj2 = cv.assemble_curv_weights(nodes, dims, mat, valid=valid)
+    torch.cuda.synchronize()
+    assert cuda_curv_weights.LAUNCHES["weights_f64"] == n0["weights_f64"] + 16
+    assert w.dtype == torch.float64 and w.shape == want.shape
+    assert float((w - want).abs().max()) <= 1e-12 * scale, dims
+    assert cv.mirror_defect(w) == 0.0
+    assert torch.equal(w, again) and torch.equal(mdj, mdj2)
+    assert mdj.ndim == 0 and mdj.device.type == "cuda"
+    assert abs(float(mdj) - float(plain[torch.float64][1])) <= 1e-12 * abs(float(plain[torch.float64][1]))
+    w32, mdj32 = cv.assemble_curv_weights(nodes, dims, mat, dtype=torch.float32, valid=valid)
+    torch.cuda.synchronize()
+    assert cuda_curv_weights.LAUNCHES["weights_f32"] == n0["weights_f32"] + 8
+    want32, want_mdj32 = cv.symmetrize_field(plain[torch.float32][0]), float(plain[torch.float32][1])
+    assert w32.dtype == torch.float32 and cv.mirror_defect(w32) == 0.0
+    assert float((w32 - want32).abs().max()) <= 1e-5 * scale, dims
+    assert abs(float(mdj32) - want_mdj32) <= 1e-5 * abs(want_mdj32)
+    if valid is not None:
+        Z, Y, X = nz + 1, ny + 1, nx + 1
+        touched = np.zeros((Z, Y, X), bool)
+        for az in (0, 1):
+            for ay in (0, 1):
+                for ax in (0, 1):
+                    touched[az : az + nz, ay : ay + ny, ax : ax + nx] |= valid.astype(bool)
+        assert (~touched).any() and not w[..., torch.as_tensor(~touched, device="cuda")].any()
+        degenerate = host.copy()
+        degenerate[(~touched).reshape(-1)] = host[(~touched).reshape(-1)][0]
+        w_deg, mdj_deg = cv.assemble_curv_weights(torch.as_tensor(degenerate, device="cuda"), dims, mat, valid=valid)
+        assert torch.equal(w_deg, w) and torch.equal(mdj_deg, mdj)
+
+
+@pytest.mark.cuda
+def test_fresh_curvilinear_solves_assemble_by_the_kernel(monkeypatch):
+    """Two ``solve()`` calls on two fresh distorted meshes (the curvilinear
+    route, 56,355 DOF) each run the assembly kernel's 8 launches and no
+    batched Ke on the card; an inverted element makes
+    ``build_curv_operator`` raise ValueError on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import fea_tpu_torch as ftt
+    from fea_tpu_torch.ops import cuda_curv_weights
+    from fea_tpu_torch.ops import curvilinear as cv
+
+    def no_batched_ke(*_):
+        raise AssertionError("batched_ke ran on the card")
+
+    monkeypatch.setattr(cv, "batched_ke", no_batched_ke)
+    dims = (16, 16, 64)
+    for seed in (16, 17):
+        nodes = _distorted_box(*dims, seed)
+        _, elements = box_hex_mesh(*dims, 0.1, 0.1, 0.4)
+        fixed = ftt.fix_where(nodes, lambda p: p[:, 2] == 0.0, 3)
+        loads = np.zeros_like(nodes)
+        loads[np.isclose(nodes[:, 2], 0.4), 1] = 1.0
+        scene = ftt.make_scene(nodes, elements, fixed, loads, ftt.Material(E=1e7, nu=0.3), dtype=torch.float64,
+                               device="cuda")
+        n0 = cuda_curv_weights.LAUNCHES["weights_f64"]
+        sol = ftt.solve(scene, tol=1e-8)
+        torch.cuda.synchronize()
+        assert sol.stats.converged and sol.route == "fpcg-curvilinear-multigrid"
+        assert cuda_curv_weights.LAUNCHES["weights_f64"] == n0 + 8
+
+    nodes = _distorted_box(3, 3, 3, 18)
+    _, elements = box_hex_mesh(3, 3, 3, 0.1, 0.1, 0.1)
+    inner = int(np.argmin(np.abs(nodes - 0.05).sum(axis=1)))  # an interior node
+    nodes[inner, 0] += 0.1  # past its neighbours: the elements around it invert
+    scene = ftt.make_scene(nodes, elements, np.zeros(nodes.shape, bool), np.zeros_like(nodes),
+                           ftt.Material(E=1e7, nu=0.3), dtype=torch.float64, device="cuda")
+    with pytest.raises(ValueError, match="Jacobian"):
+        cv.build_curv_operator(scene, (3, 3, 3))

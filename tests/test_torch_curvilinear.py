@@ -101,6 +101,32 @@ def test_weight_assembly_matches_jax(chunk_elems):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_assembly_on_a_cpu_tensor_is_the_plain_version(dtype):
+    """On a CPU tensor ``assemble_curv_weights`` is the plain chunked
+    assembly symmetrized, bit for bit, with and without a void mask, and
+    launches no kernel; the kernel's wrapper refuses a CPU tensor; a dtype
+    the kernel lacks raises TypeError on either."""
+    from fea_tpu_torch.ops import cuda_curv_weights
+
+    dims = (3, 4, 6)
+    nodes = torch.as_tensor(distorted(*dims)[0])
+    mat = ftt.Material(**MAT)
+    valid = (np.random.default_rng(5).random((6, 4, 3)) < 0.7).astype(np.uint8)
+    n0 = dict(cuda_curv_weights.LAUNCHES)
+    for v in (None, valid):
+        got, mdj = cv.assemble_curv_weights(nodes, dims, mat, dtype=dtype, chunk_elems=24, valid=v)
+        want, want_mdj = cv.assemble_curv_weights_plain(nodes, dims, mat, dtype=dtype, chunk_elems=24, valid=v)
+        assert got.dtype == dtype and torch.equal(got, cv.symmetrize_field(want)) and torch.equal(mdj, want_mdj)
+    assert cuda_curv_weights.LAUNCHES == n0
+    with pytest.raises(ValueError, match="no kernel"):
+        cuda_curv_weights.curv_weights(nodes, dims, mat, dtype=dtype)
+    with pytest.raises(TypeError):
+        cv.assemble_curv_weights(nodes, dims, mat, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        cuda_curv_weights.curv_weights(nodes, dims, mat, dtype=torch.float16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_var_apply_plain_matches_jax(dtype, rng):
     """The plain version that K4 (f32) and K5 (f64) are held against, on
     the CPU, against the host oracle and JAX's Pallas kernels (interpret
