@@ -2509,6 +2509,7 @@ def run_extruded(ftt, counters) -> dict:
     """Phase [17]: the 591,360-DOF tube of tools/tube_bench.py through the
     extruded route. Returns the times of its compute, which has no TPU kernel."""
     from fea_tpu_torch.assembly import assemble_bcoo
+    from fea_tpu_torch.ops import extruded_mg
     from fea_tpu_torch.ops.extruded import build_extruded_operator, infer_extruded
     from fea_tpu_torch.ops.extruded_mg import (ComposedExtrudedPrecond, build_extruded_multigrid,
                                                build_section_coarse)
@@ -2535,9 +2536,10 @@ def run_extruded(ftt, counters) -> dict:
 
     with patched({(solve_mod, "_solve_large_hex8"): record,
                   (solve_mod, "solve_curvilinear"): must_not_run("curvilinear")}):
-        zero_counts(staged.COUNTS)
+        zero_counts(staged.COUNTS, extruded_mg.LAUNCHES)
         sol, launches, whole_s = counted(counters, lambda: ftt.solve(scene, tol=1e-8))
         steps = staged.COUNTS["steps"]
+        thomas_first = extruded_mg.LAUNCHES["thomas"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     st = sol.stats
     say(f"  whole solve (fea_tpu_torch.solve, detection and build included): {whole_s:.3f} s, peak device memory "
@@ -2572,7 +2574,19 @@ def run_extruded(ftt, counters) -> dict:
     sc, t_sc = timed(lambda: build_section_coarse(scene, det, target_section_aggregates=64))
     pc = ComposedExtrudedPrecond(mg=mgz, sc=sc, op=op)
     _, t_first = timed(lambda: ftt.solve_extruded(scene, det, tol=1e-8, prebuilt=(op, pc)))
+    zero_counts(staged.COUNTS, extruded_mg.LAUNCHES)
     _, t_fcg = timed(lambda: ftt.solve_extruded(scene, det, tol=1e-8, prebuilt=(op, pc)))
+    replays, thomas = staged.COUNTS["steps"], extruded_mg.LAUNCHES["thomas"]
+    # the block-Thomas sweeps a step from the shapes: the section coarse solve over
+    # every node layer, the V-cycle's z-coarsest solve, 2 (L - 1) addmv_ each
+    per_step = 2 * (sc.n_layers - 1) + 2 * (mgz.thomas_uinv.shape[0] - 1)
+    say(f"  block-Thomas addmv_ launches (extruded_mg.LAUNCHES): a warm solve {thomas} in {replays} replays, "
+        f"{thomas / max(replays, 1):g} a replay; the shapes 2 ({sc.n_layers} - 1) + 2 "
+        f"({mgz.thomas_uinv.shape[0]} - 1) = {per_step}; the first solve {thomas_first} in {steps} replays and its "
+        f"capture's eager warm-up step")
+    require({"a replay credits the shapes' sweeps": replays > 0 and thomas == per_step * replays,
+             "the first solve: its replays and one eager warm-up step": thomas_first == per_step * (steps + 1)},
+            "extruded Thomas counter")
     # the reference's composition: r - A z with the V-cycle's f32 level-0 operator
     pc_ref = ComposedExtrudedPrecond(mg=mgz, sc=sc, op=mgz.levels[0].op)
     ftt.solve_extruded(scene, det, tol=1e-8, prebuilt=(op, pc_ref))
@@ -2597,8 +2611,12 @@ def run_extruded(ftt, counters) -> dict:
                         lambda v: host_check(nodes, elements, mat, fixed, new_loads, v)[1])
 
     say("  FCG stage with certification, the Python loop beside the staged loop (one operator and hierarchy):")
-    loop_vs_staged(op, pc, scene.loads, scene.prescribed_or_zero(torch.float64),
-                   lambda v: host_check(nodes, elements, mat, fixed, loads, v)[1])
+    runs = loop_vs_staged(op, pc, scene.loads, scene.prescribed_or_zero(torch.float64),
+                          lambda v: host_check(nodes, elements, mat, fixed, loads, v)[1])
+    st_run = runs["staged"]
+    say(f"    a staged iteration: {st_run['prof']['n_device'] / max(st_run['sol'].stats.iterations, 1):.1f} device "
+        f"activities, of them {per_step} block-Thomas addmv_ launches (counted a replay above)")
+    del runs, st_run
 
     rng = np.random.default_rng(17)
     batch = np.zeros((TUBE_CASES,) + nodes.shape)

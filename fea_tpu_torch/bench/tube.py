@@ -8,6 +8,10 @@ Prints one JSON line, the tool's keys: ``value`` is the best solve wall
 (s) of ``--repeats`` solves after a warm-up, ``relative_residual`` the
 true residual of the reported solution recomputed on the host in NumPy
 f64 (``host_ku``), ``tip_uy_m`` the mean tip-face y displacement.
+
+The same tube, with its loads spread evenly over the tip face, is the
+benchmark's ``tube_591k`` configuration: its cell ``tube_591k.loadcases``
+(``BENCHMARK.json``) runs this route through ``fea_tpu_torch.solve()``.
 """
 from __future__ import annotations
 

@@ -34,7 +34,10 @@ Applies: the block-Jacobi is one GEMM of the (L, 3 n2) residual by the
 interior inverse, the few special layers (first, last, constrained)
 overwritten from their own inverses by an index made once at build time;
 a Thomas solve is 2 (L - 1) dependent matrix-vector products
-(``addmv_`` in place, one launch each) around one batched product. No kernel: the reference
+(``addmv_`` in place, one launch each) around one batched product, each
+counted in ``LAUNCHES["thomas"]`` (zeroed and read like the kernels'
+``LAUNCHES``; ``solve/staged.py`` credits a captured step's count to each
+of its replays). No kernel: the reference
 has no Pallas kernel on this route. Counterpart of
 ``fea_tpu/ops/extruded_mg.py`` without its TPU-only parts: the
 choice between a host and a device build, and the Newton-refined f32
@@ -54,6 +57,7 @@ from .multigrid import _prolong, _restrict
 from .twolevel import _rbm_blocks, rigid_body_geometry
 
 __all__ = [
+    "LAUNCHES",
     "ComposedExtrudedPrecond",
     "ExtrudedMultigrid",
     "SectionCoarse",
@@ -64,6 +68,9 @@ __all__ = [
 _F64 = torch.float64
 _F32 = torch.float32  # what the V-cycle stores and applies
 _MARGIN = 1.001  # the reference's inflation of every row sum of the bound
+
+# the Thomas sweeps' matrix-vector launches, one an ``addmv_``
+LAUNCHES = {"thomas": 0}
 
 
 def _thomas_solve(uinv: torch.Tensor, G: torch.Tensor, rf: torch.Tensor) -> torch.Tensor:
@@ -76,9 +83,11 @@ def _thomas_solve(uinv: torch.Tensor, G: torch.Tensor, rf: torch.Tensor) -> torc
     y = rf.clone()
     for l in range(1, L):  # in place: one matrix-vector launch a layer, no copy
         y[l].addmv_(G[l - 1].T, y[l - 1], alpha=-1.0)
+        LAUNCHES["thomas"] += 1
     x = torch.bmm(uinv, y.unsqueeze(-1)).squeeze(-1)
     for l in range(L - 2, -1, -1):
         x[l].addmv_(G[l], x[l + 1], alpha=-1.0)
+        LAUNCHES["thomas"] += 1
     return x
 
 
