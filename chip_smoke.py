@@ -9,8 +9,9 @@ Phases, in order:
   2. build: compiles K1/K2 with their slab forms K1-halo/K3
      (fea_tpu_torch/csrc/stencil.cu), K4/K5
      (fea_tpu_torch/csrc/varstencil.cu), K6/K7
-     (fea_tpu_torch/csrc/element_apply.cu) and the curvilinear weights'
-     assembly (fea_tpu_torch/csrc/curv_weights.cu) for sm_90a, one nvcc
+     (fea_tpu_torch/csrc/element_apply.cu), the curvilinear weights'
+     assembly (fea_tpu_torch/csrc/curv_weights.cu) and the block-Thomas
+     solve (fea_tpu_torch/csrc/thomas.cu) for sm_90a, one nvcc
      each, in parallel; what ptxas says of the registers and spills of each
      kernel of those sources;
   3. K1/K2 against their plain version on the card, at small shapes, at
@@ -161,14 +162,18 @@ Phases, in order:
      route ``fpcg-extruded-multigrid`` (the curvilinear one never called),
      converged, the host f64 true residual by ``host_ku`` <= 1e-8, the y-sum
      of the reactions over the fixed ring balancing the load within 1e-6,
-     no kernel launched, iterations beside the reference's 26; the set-up by
-     stage (detector, operator, hierarchy, section coarse, FCG), peak
-     memory, a second ``solve()`` from the cache, ``loop_vs_staged``,
-     ``solve_many`` of 4 loads from ``default_rng(17)`` each host-checked;
-     the card times of the f64 and f32 applies (beside cuSPARSE CSR of the
-     assembled matrix), the level-0 block-Jacobi, the z-coarse Thomas solve,
-     the section coarse solve, the whole preconditioner and one FCG step,
-     each beside its bound;
+     none of K1-K7 or W launched, iterations beside the reference's 26; the
+     block-Thomas launches a replay (the section coarse solve one launch of
+     the kernel of fea_tpu_torch/csrc/thomas.cu, the z-coarse solve its
+     addmv_ chain); the set-up by stage (detector, operator, hierarchy,
+     section coarse, FCG), peak memory, a second ``solve()`` from the cache,
+     ``loop_vs_staged``, ``solve_many`` of 4 loads from ``default_rng(17)``
+     each host-checked; the card times of the f64 and f32 applies (beside
+     cuSPARSE CSR of the assembled matrix), the level-0 block-Jacobi, the
+     z-coarse Thomas solve, the section coarse solve with the kernel and with
+     the addmv_ chain, its Thomas solve alone both ways (the kernel beside
+     its byte bound and its latency floor, the exchange steps timed alone),
+     the whole preconditioner and one FCG step, each beside its bound;
  18. sharded modes: every decomposition of ``fea_tpu_torch.parallel`` over
      four shards of the one card (``make_device_mesh(4)`` repeats it):
      K4-slab and K5-slab on the four slabs of the 811,923-DOF field and of
@@ -397,7 +402,7 @@ def event_ms(fn, runs: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-PTXAS_SOURCES = ("stencil.cu", "element_apply.cu", "varstencil.cu", "curv_weights.cu")
+PTXAS_SOURCES = ("stencil.cu", "element_apply.cu", "varstencil.cu", "curv_weights.cu", "thomas.cu")
 
 
 def ptxas_log(nvcc, name: str) -> str:
@@ -2509,7 +2514,7 @@ def run_extruded(ftt, counters) -> dict:
     """Phase [17]: the 591,360-DOF tube of tools/tube_bench.py through the
     extruded route. Returns the times of its compute, which has no TPU kernel."""
     from fea_tpu_torch.assembly import assemble_bcoo
-    from fea_tpu_torch.ops import extruded_mg
+    from fea_tpu_torch.ops import cuda_thomas, extruded_mg
     from fea_tpu_torch.ops.extruded import build_extruded_operator, infer_extruded
     from fea_tpu_torch.ops.extruded_mg import (ComposedExtrudedPrecond, build_extruded_multigrid,
                                                build_section_coarse)
@@ -2539,7 +2544,7 @@ def run_extruded(ftt, counters) -> dict:
         zero_counts(staged.COUNTS, extruded_mg.LAUNCHES)
         sol, launches, whole_s = counted(counters, lambda: ftt.solve(scene, tol=1e-8))
         steps = staged.COUNTS["steps"]
-        thomas_first = extruded_mg.LAUNCHES["thomas"]
+        thomas_first, kernel_first = extruded_mg.LAUNCHES["thomas"], extruded_mg.LAUNCHES["thomas_kernel"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     st = sol.stats
     say(f"  whole solve (fea_tpu_torch.solve, detection and build included): {whole_s:.3f} s, peak device memory "
@@ -2564,7 +2569,7 @@ def run_extruded(ftt, counters) -> dict:
         "reactions = K u (1e-10)": reac_err <= 1e-10,
         "reactions balance the load (1e-6)": balance <= 1e-6,
         "fixed ring exactly 0": not u[fixed].any(),
-        "no kernel launched": not any(launches.values()),
+        "none of K1-K7 or W launched": not any(launches.values()),
     }, "extruded")
 
     # the set-up by stage, on the same scene afresh
@@ -2577,15 +2582,27 @@ def run_extruded(ftt, counters) -> dict:
     zero_counts(staged.COUNTS, extruded_mg.LAUNCHES)
     _, t_fcg = timed(lambda: ftt.solve_extruded(scene, det, tol=1e-8, prebuilt=(op, pc)))
     replays, thomas = staged.COUNTS["steps"], extruded_mg.LAUNCHES["thomas"]
-    # the block-Thomas sweeps a step from the shapes: the section coarse solve over
-    # every node layer, the V-cycle's z-coarsest solve, 2 (L - 1) addmv_ each
-    per_step = 2 * (sc.n_layers - 1) + 2 * (mgz.thomas_uinv.shape[0] - 1)
-    say(f"  block-Thomas addmv_ launches (extruded_mg.LAUNCHES): a warm solve {thomas} in {replays} replays, "
-        f"{thomas / max(replays, 1):g} a replay; the shapes 2 ({sc.n_layers} - 1) + 2 "
-        f"({mgz.thomas_uinv.shape[0]} - 1) = {per_step}; the first solve {thomas_first} in {steps} replays and its "
-        f"capture's eager warm-up step")
-    require({"a replay credits the shapes' sweeps": replays > 0 and thomas == per_step * replays,
-             "the first solve: its replays and one eager warm-up step": thomas_first == per_step * (steps + 1)},
+    kernel = extruded_mg.LAUNCHES["thomas_kernel"]
+    # the block-Thomas launches a step from the shapes, for the section coarse solve
+    # over every node layer and the V-cycle's z-coarsest solve: the kernel's one
+    # where it takes the factors (f32, a block of at most 256), else 2 (L - 1) addmv_
+    solves = ((sc.thomas_uinv, sc.thomas_g), (mgz.thomas_uinv, mgz.thomas_g))
+    takes = [cuda_thomas.takes(u, g, u[:, 0]) for u, g in solves]
+    per_step = sum(1 if k else 2 * (u.shape[0] - 1) for k, (u, _) in zip(takes, solves))
+    kernel_step = sum(takes)
+    say(f"  block-Thomas launches (extruded_mg.LAUNCHES): a warm solve {thomas} in {replays} replays, "
+        f"{thomas / max(replays, 1):g} a replay, of them the kernel's {kernel / max(replays, 1):g}; the shapes: "
+        f"section coarse {sc.n_layers} layers of {sc.thomas_uinv.shape[1]} "
+        f"({'the kernel, 1' if takes[0] else f'2 ({sc.n_layers} - 1) addmv_'}), z-coarse "
+        f"{mgz.thomas_uinv.shape[0]} layers of {mgz.thomas_uinv.shape[1]} "
+        f"({'the kernel, 1' if takes[1] else f'2 ({mgz.thomas_uinv.shape[0]} - 1) addmv_'}), {per_step} a step; "
+        f"the first solve {thomas_first} ({kernel_first} the kernel's) in {steps} replays and its capture's eager "
+        f"warm-up step")
+    require({"the section coarse solve takes the kernel, the z-coarse chain addmv_": takes == [True, False],
+             "a replay credits the shapes' sweeps": replays > 0 and thomas == per_step * replays,
+             "a replay credits one kernel launch": kernel == kernel_step * replays,
+             "the first solve: its replays and one eager warm-up step": thomas_first == per_step * (steps + 1)
+             and kernel_first == kernel_step * (steps + 1)},
             "extruded Thomas counter")
     # the reference's composition: r - A z with the V-cycle's f32 level-0 operator
     pc_ref = ComposedExtrudedPrecond(mg=mgz, sc=sc, op=mgz.levels[0].op)
@@ -2615,7 +2632,7 @@ def run_extruded(ftt, counters) -> dict:
                           lambda v: host_check(nodes, elements, mat, fixed, loads, v)[1])
     st_run = runs["staged"]
     say(f"    a staged iteration: {st_run['prof']['n_device'] / max(st_run['sol'].stats.iterations, 1):.1f} device "
-        f"activities, of them {per_step} block-Thomas addmv_ launches (counted a replay above)")
+        f"activities, of them {per_step} block-Thomas launches (counted a replay above)")
     del runs, st_run
 
     rng = np.random.default_rng(17)
@@ -2670,6 +2687,18 @@ def run_extruded(ftt, counters) -> dict:
         return z.reshape(r.shape)
 
     r3 = r32.reshape(L, n2, 3)
+    Ls, bs = sc.thomas_uinv.shape[:2]
+    rs = torch.as_tensor(np.random.default_rng(20261025).standard_normal((Ls, bs)), device=DEV).to(torch.float32)
+    # G read by both sweeps, Uinv by the diagonal product, r in and x out: ~130 MB on the tube
+    thomas_bytes = 2 * tensor_bytes(sc.thomas_g) + tensor_bytes(sc.thomas_uinv) + 2 * rs.numel() * 4
+
+    def thomas64(r):
+        return extruded_mg._thomas_addmv(sc.thomas_uinv.double(), sc.thomas_g.double(), r.double())
+
+    def section_addmv(r):
+        with patched({(extruded_mg, "_thomas_solve"): extruded_mg._thomas_addmv}):
+            return sc(r)
+
     # (name, function, its f64 twin on the same stored factors or None, tolerance, bytes, f32 flops, f64 flops, count)
     pieces = [
         ("extruded_block_jacobi_f32", "level-0 block-Jacobi", lambda: lv0.block_jacobi(r3), lambda: jacobi64(r3), 2e-5,
@@ -2682,6 +2711,15 @@ def run_extruded(ftt, counters) -> dict:
         ("extruded_section_coarse_f32", f"section coarse solve ({sc.n_layers} layers of {sc.thomas_uinv.shape[1]})",
          lambda: sc(r32), lambda: sc64(r32.double()), 1e-3,
          tensor_bytes(sc) + 2 * r32.numel() * 4, flops["section"], 0, f"{steps} replays x 1"),
+        ("extruded_section_coarse_addmv_f32", "the same through the addmv_ chain (the parent's execution)",
+         lambda: section_addmv(r32), lambda: sc64(r32.double()), 1e-3,
+         tensor_bytes(sc) + 2 * r32.numel() * 4, flops["section"], 0, f"{steps} replays x 1 before the kernel"),
+        ("extruded_thomas_kernel", f"its block-Thomas solve alone, the kernel ({Ls} layers of {bs})",
+         lambda: cuda_thomas.thomas_solve(sc.thomas_uinv, sc.thomas_g, rs), lambda: thomas64(rs), 1e-3,
+         thomas_bytes, flops["section"], 0, f"{steps} replays x 1"),
+        ("extruded_thomas_addmv", "its block-Thomas solve alone, the addmv_ chain",
+         lambda: extruded_mg._thomas_addmv(sc.thomas_uinv, sc.thomas_g, rs), lambda: thomas64(rs), 1e-3,
+         thomas_bytes, flops["section"], 0, f"{steps} replays x 1 before the kernel"),
         ("extruded_precond_f32", "whole preconditioner (section coarse, then the V-cycle)", lambda: pc(r32), None, None,
          tensor_bytes(pc) + 2 * r32.numel() * 4, flops["precond_f32"], flops["compose_f64"], f"{steps} replays x 1"),
     ]
@@ -2709,6 +2747,17 @@ def run_extruded(ftt, counters) -> dict:
         require({f"{label} finite": finite, f"{label} within {tol}": err is None or err <= tol}, label)
         out[key] = dict(ms=ms, host_ms=host_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                         max_rel_err=err, applies=count)
+    # the kernel's floor: its 2 L - 1 dependent layer steps, each one exchange
+    # between the cluster's blocks, timed alone (cuda_thomas.exchange_probe_ms)
+    floor_ms = cuda_thomas.exchange_probe_ms(2 * Ls - 1, DEV)
+    kern = out["extruded_thomas_kernel"]
+    kern.update(floor_ms=floor_ms, launches_a_solve=1)
+    out["extruded_thomas_addmv"]["launches_a_solve"] = 2 * (Ls - 1)
+    say(f"  the kernel {kern['ms']:.4f} ms a solve ({kern['ms'] / (2 * Ls - 1) * 1e3:.3f} us a layer step), against "
+        f"its byte bound {kern['bound_ms']:.4f} ms ({kern['ms'] and kern['bound_ms'] / kern['ms']:.1%}) and its "
+        f"latency floor {floor_ms:.4f} ms ({2 * Ls - 1} exchange steps alone, {floor_ms / (2 * Ls - 1) * 1e3:.3f} us "
+        f"each; {floor_ms / kern['ms']:.1%}); the addmv_ chain {out['extruded_thomas_addmv']['ms']:.4f} ms in "
+        f"{2 * (Ls - 1)} launches")
     del case, op, mgz, sc, pc, sol, many
     ftt.clear_build_cache()
     return out
@@ -3559,7 +3608,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
     import fea_tpu_torch as ftt
-    from fea_tpu_torch.ops import cuda_apply, cuda_curv_weights, cuda_stencil, cuda_varstencil, nvcc
+    from fea_tpu_torch.ops import cuda_apply, cuda_curv_weights, cuda_stencil, cuda_thomas, cuda_varstencil, nvcc
 
     phase("[1] device")
     smi = subprocess.run(
@@ -3574,12 +3623,14 @@ def main() -> None:
 
     phase("[2] build")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4 + len(PTXAS_SOURCES)) as pool:  # one nvcc each, all at once
-        builds = [pool.submit(m.build) for m in (cuda_stencil, cuda_varstencil, cuda_apply, cuda_curv_weights)]
+    with ThreadPoolExecutor(max_workers=5 + len(PTXAS_SOURCES)) as pool:  # one nvcc each, all at once
+        builds = [pool.submit(m.build) for m in (cuda_stencil, cuda_varstencil, cuda_apply, cuda_curv_weights,
+                                                 cuda_thomas)]
         logs = {name: pool.submit(ptxas_log, nvcc, name) for name in PTXAS_SOURCES}
         for fut in builds:
             fut.result()
-        say(f"  K1/K2 with K1-halo/K3, K4/K5, K6/K7 and the assembly built in {time.perf_counter() - t0:.2f} s")
+        say(f"  K1/K2 with K1-halo/K3, K4/K5, K6/K7, the assembly and the block-Thomas solve built in "
+            f"{time.perf_counter() - t0:.2f} s")
         ptxas_report({name: fut.result() for name, fut in logs.items()})
 
     phase("[3] K1/K2 vs plain version (f64) on the card")

@@ -32,13 +32,20 @@ in f32:
 
 Applies: the block-Jacobi is one GEMM of the (L, 3 n2) residual by the
 interior inverse, the few special layers (first, last, constrained)
-overwritten from their own inverses by an index made once at build time;
-a Thomas solve is 2 (L - 1) dependent matrix-vector products
-(``addmv_`` in place, one launch each) around one batched product, each
-counted in ``LAUNCHES["thomas"]`` (zeroed and read like the kernels'
+overwritten from their own inverses by an index made once at build time.
+A Thomas solve takes one of two executions of the same sweeps, by what it
+can observe (:func:`_thomas_solve`): on the card, f32 factors of an even
+block width of at most 256 (the section coarse space's 6 x aggregates) go
+to one hand-written kernel (``ops/cuda_thomas.py``, ``csrc/thomas.cu``: a
+cluster of 8 thread blocks walks the layers); everything else (the CPU,
+the z-coarsest level's wide blocks) takes the plain version,
+:func:`_thomas_addmv`, 2 (L - 1) dependent matrix-vector products
+(``addmv_`` in place, one launch each) around one batched product.
+``LAUNCHES["thomas"]`` counts every launch of either, ``LAUNCHES
+["thomas_kernel"]`` the kernel's alone (zeroed and read like the kernels'
 ``LAUNCHES``; ``solve/staged.py`` credits a captured step's count to each
-of its replays). No kernel: the reference
-has no Pallas kernel on this route. Counterpart of
+of its replays). The reference has no Pallas kernel on this route.
+Counterpart of
 ``fea_tpu/ops/extruded_mg.py`` without its TPU-only parts: the
 choice between a host and a device build, and the Newton-refined f32
 inverse standing in for the f64 factorization a TPU lacks.
@@ -52,6 +59,7 @@ import numpy as np
 import torch
 
 from ..utils.profiling import span
+from . import cuda_thomas
 from .extruded import ExtrudedOperator, _make, integrate_section_kes
 from .multigrid import _prolong, _restrict
 from .twolevel import _rbm_blocks, rigid_body_geometry
@@ -69,8 +77,10 @@ _F64 = torch.float64
 _F32 = torch.float32  # what the V-cycle stores and applies
 _MARGIN = 1.001  # the reference's inflation of every row sum of the bound
 
-# the Thomas sweeps' matrix-vector launches, one an ``addmv_``
-LAUNCHES = {"thomas": 0}
+# the Thomas sweeps' launches: "thomas" each ``addmv_`` and each kernel
+# launch, "thomas_kernel" the kernel's alone (both keys exist before any
+# capture, which credits only the keys it finds)
+LAUNCHES = {"thomas": 0, "thomas_kernel": 0}
 
 
 def _thomas_solve(uinv: torch.Tensor, G: torch.Tensor, rf: torch.Tensor) -> torch.Tensor:
@@ -78,7 +88,19 @@ def _thomas_solve(uinv: torch.Tensor, G: torch.Tensor, rf: torch.Tensor) -> torc
     factors' dtype: forward y_l = r_l - G_{l-1}^T y_{l-1}, diagonal
     u = Uinv y, back x_l = u_l - G_l x_{l+1} (U symmetric, so
     O^T Uinv = G^T). Shared by the z-coarsest exact solve and the
-    section-RBM coarse correction."""
+    section-RBM coarse correction: one kernel launch where
+    ``cuda_thomas.takes`` the factors, the ``addmv_`` chain elsewhere."""
+    if cuda_thomas.takes(uinv, G, rf):
+        x = cuda_thomas.thomas_solve(uinv, G, rf.contiguous())
+        LAUNCHES["thomas"] += 1
+        LAUNCHES["thomas_kernel"] += 1
+        return x
+    return _thomas_addmv(uinv, G, rf)
+
+
+def _thomas_addmv(uinv: torch.Tensor, G: torch.Tensor, rf: torch.Tensor) -> torch.Tensor:
+    """The plain version of :func:`_thomas_solve`: 2 (L - 1) dependent
+    ``addmv_`` launches around one batched product."""
     L = rf.shape[0]
     y = rf.clone()
     for l in range(1, L):  # in place: one matrix-vector launch a layer, no copy

@@ -41,9 +41,11 @@ Beside them, outside this module's counters and kept as process totals
 (zero them before a solve, read them after): the kernels' launch counts
 (``ops.cuda_stencil.LAUNCHES``, ``ops.cuda_varstencil.LAUNCHES``,
 ``ops.cuda_apply.LAUNCHES``, ``ops.cuda_curv_weights.LAUNCHES``), the
-extruded route's block-Thomas sweeps (``ops.extruded_mg.LAUNCHES["thomas"]``,
-one an ``addmv_``: 2 (L - 1) a solve of L layers, two solves an extruded
-preconditioner's apply) and the staged FCG's ``solve.staged.COUNTS``
+extruded route's block-Thomas solves (``ops.extruded_mg.LAUNCHES["thomas"]``:
+one a launch of the block-Thomas kernel on the card, where it takes the
+factors, else one an ``addmv_``, 2 (L - 1) a solve of L layers; two solves
+an extruded preconditioner's apply; ``LAUNCHES["thomas_kernel"]`` the
+kernel's alone) and the staged FCG's ``solve.staged.COUNTS``
 (``steps``: replays or eager steps). The V-cycle runs inside the captured
 FCG step, where no span sees it: its launch counts, credited to every
 replay, are its record there.

@@ -1,5 +1,6 @@
-"""K1, K2, K3 (and K1's halo form), K4, K5 (and their slab forms), K6 and
-K7 on the card against their plain version (f64) on the card, the
+"""K1, K2, K3 (and K1's halo form), K4, K5 (and their slab forms), K6,
+K7 and the block-Thomas kernel on the card against their plain version
+(f64) on the card, the
 z-sharded and the sharded curvilinear solve on one card,
 and the staged loop of the grid, embedded and extruded routes on the card.
 
@@ -791,3 +792,137 @@ def test_fresh_curvilinear_solves_assemble_by_the_kernel(monkeypatch):
                            ftt.Material(E=1e7, nu=0.3), dtype=torch.float64, device="cuda")
     with pytest.raises(ValueError, match="Jacobian"):
         cv.build_curv_operator(scene, (3, 3, 3))
+
+
+def _thomas_factors(L, b, seed, device):
+    """Random f32 Thomas factors (Uinv symmetric positive definite, ||G_l||
+    about 0.5, so that neither sweep amplifies rounding) and a right-hand
+    side, on ``device``."""
+    rng = np.random.default_rng(seed)
+    M = rng.normal(size=(L, b, b))
+    uinv = (M + M.transpose(0, 2, 1)) / (2.0 * np.sqrt(b)) + 2.0 * np.eye(b)  # symmetric, as built
+    G = rng.normal(size=(L - 1, b, b)) * (0.25 / np.sqrt(b))
+    rf = rng.normal(size=(L, b))
+    return tuple(torch.as_tensor(a, dtype=torch.float32, device=device) for a in (uinv, G, rf))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,b", [(385, 168), (1, 6), (2, 6), (2, 2), (3, 174), (17, 96), (40, 34), (9, 256),
+                                 (64, 250)])
+def test_thomas_kernel_matches_the_addmv_chain_on_card(L, b):
+    """The block-Thomas kernel (one launch) against the plain version's
+    ``addmv_`` chain on the same f32 factors, both within f32 rounding of
+    the chain run in f64: the tube's own shape (385 layers of 168), one and
+    two layers, blocks of 2 and 6 (most of the cluster's blocks own no
+    rows), and widths that are no multiple of 32 or whose row slices need
+    the rows rounded up (174, 250: b = 2 mod 4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Thomas kernel has no CPU mode")
+    from fea_tpu_torch.ops import cuda_thomas, extruded_mg
+
+    uinv, G, rf = _thomas_factors(L, b, 25 + L + b, "cuda")
+    assert cuda_thomas.takes(uinv, G, rf)
+    n0 = dict(extruded_mg.LAUNCHES)
+    got = extruded_mg._thomas_solve(uinv, G, rf)
+    torch.cuda.synchronize()
+    assert extruded_mg.LAUNCHES["thomas_kernel"] == n0["thomas_kernel"] + 1
+    assert extruded_mg.LAUNCHES["thomas"] == n0["thomas"] + 1
+    chain = extruded_mg._thomas_addmv(uinv, G, rf)
+    want = extruded_mg._thomas_addmv(uinv.double(), G.double(), rf.double())
+    scale = float(want.abs().max())
+    err = float((got.double() - want).abs().max()) / scale
+    err_chain = float((chain.double() - want).abs().max()) / scale
+    assert err <= 1e-5 and err_chain <= 1e-5, (L, b, err, err_chain)
+
+
+@pytest.mark.cuda
+def test_thomas_kernel_gives_the_same_bits_twice_and_in_a_graph():
+    """Two calls, and two replays of one captured graph, give the kernel's
+    answer bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Thomas kernel has no CPU mode")
+    from fea_tpu_torch.ops import extruded_mg
+
+    uinv, G, rf = _thomas_factors(385, 168, 2025, "cuda")
+    first = extruded_mg._thomas_solve(uinv, G, rf)
+    second = extruded_mg._thomas_solve(uinv, G, rf)
+    assert torch.equal(first, second)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        extruded_mg._thomas_solve(uinv, G, rf)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = extruded_mg._thomas_solve(uinv, G, rf)
+    graph.replay()
+    a = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(a, out) and torch.equal(a, first)
+
+
+@pytest.mark.cuda
+def test_wide_z_coarse_blocks_keep_the_addmv_chain_on_card():
+    """Blocks of 1536 (the tube's z-coarsest level) are past the kernel's
+    width: the solve is the ``addmv_`` chain, 2 (L - 1) launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from fea_tpu_torch.ops import cuda_thomas, extruded_mg
+
+    uinv, G, rf = _thomas_factors(3, 1536, 26, "cuda")
+    assert not cuda_thomas.takes(uinv, G, rf)
+    n0 = dict(extruded_mg.LAUNCHES)
+    got = extruded_mg._thomas_solve(uinv, G, rf)
+    assert extruded_mg.LAUNCHES["thomas"] == n0["thomas"] + 4
+    assert extruded_mg.LAUNCHES["thomas_kernel"] == n0["thomas_kernel"]
+    assert torch.equal(got, extruded_mg._thomas_addmv(uinv, G, rf))
+
+
+@pytest.mark.cuda
+def test_extruded_solve_takes_the_thomas_kernel_on_card(monkeypatch):
+    """A 48-segment tube (17,280 DOF) through ``solve()`` on the card: the
+    extruded route, the CPU's answer (the existing extruded test's
+    tolerance), and a replay's Thomas launches: the section coarse solve
+    (blocks of 6 x aggregates) one kernel launch, the z-coarsest level
+    (blocks of 288, past the kernel's width) 2 (Lc - 1) ``addmv_``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the staged loop captures on the card")
+    import sys
+
+    import fea_tpu_torch as ftt
+    from fea_tpu_torch.mesh import annulus_section, extrude_quads
+    from fea_tpu_torch.ops import extruded_mg
+    from fea_tpu_torch.scene import fix_where, make_scene
+    from fea_tpu_torch.solve import staged
+
+    monkeypatch.setattr(sys.modules["fea_tpu_torch.solve"], "_STRUCTURED_MIN_DOF", 0)
+    monkeypatch.setattr(sys.modules["fea_tpu_torch.solve.cache"], "_BUILD_CACHE", {})
+    nodes2d, quads = annulus_section(48, 0.08, 0.1)
+    nodes, elements = extrude_quads(nodes2d, quads, np.linspace(0.0, 0.6, 61))
+    fixed = fix_where(nodes, lambda p: p[:, 2] == 0.0, 3)
+    loads = np.zeros_like(nodes)
+    loads[nodes[:, 2] == nodes[:, 2].max(), 1] = 1.0
+    sols = {}
+    for dev in ("cpu", "cuda"):
+        sc = make_scene(nodes, elements, fixed, loads, Material(E=2e6, nu=0.3), dtype=torch.float64, device=dev)
+        sols[dev] = ftt.solve(sc, tol=1e-10)
+        torch.cuda.synchronize()
+    assert sols["cuda"].route == "fpcg-extruded-multigrid"
+    _, pc = sys.modules["fea_tpu_torch.solve.cache"]._BUILD_CACHE[("extruded", 3)][-1][2]  # the card's build
+    Lc, b_z = pc.mg.thomas_uinv.shape[:2]
+    assert pc.sc.thomas_uinv.shape[1] <= 256 < b_z
+    for c in (staged.COUNTS, extruded_mg.LAUNCHES):
+        for key in c:
+            c[key] = 0
+    again = ftt.solve(sc, tol=1e-10)
+    torch.cuda.synchronize()
+    steps = staged.COUNTS["steps"]
+    assert staged.COUNTS["captures"] == 0 and steps > 0
+    assert extruded_mg.LAUNCHES["thomas_kernel"] == steps
+    assert extruded_mg.LAUNCHES["thomas"] == steps * (1 + 2 * (Lc - 1))
+    assert torch.equal(again.displacements, sols["cuda"].displacements)
+    cpu, card = sols["cpu"], sols["cuda"]
+    assert card.stats.converged and abs(card.stats.iterations - cpu.stats.iterations) <= 1
+    u = cpu.displacements
+    assert float((card.displacements.cpu() - u).abs().max()) <= 1e-7 * float(u.abs().max())
