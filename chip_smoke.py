@@ -162,14 +162,19 @@ Phases, in order:
      route ``fpcg-extruded-multigrid`` (the curvilinear one never called),
      converged, the host f64 true residual by ``host_ku`` <= 1e-8, the y-sum
      of the reactions over the fixed ring balancing the load within 1e-6,
-     none of K1-K7 or W launched, iterations beside the reference's 26; the
-     block-Thomas launches a replay (the section coarse solve one launch of
-     the kernel of fea_tpu_torch/csrc/thomas.cu, the z-coarse solve its
+     none of K1-K7 or W launched, E (fea_tpu_torch/csrc/extruded.cu)
+     launched in f32 and f64, iterations no more than the reference's 26;
+     the block-Thomas launches a replay (the section coarse solve one launch
+     of the kernel of fea_tpu_torch/csrc/thomas.cu, the z-coarse solve its
      addmv_ chain); the set-up by stage (detector, operator, hierarchy,
      section coarse, FCG), peak memory, a second ``solve()`` from the cache,
-     ``loop_vs_staged``, ``solve_many`` of 4 loads from ``default_rng(17)``
-     each host-checked; the card times of the f64 and f32 applies (beside
-     cuSPARSE CSR of the assembled matrix), the level-0 block-Jacobi, the
+     ``loop_vs_staged`` (device activities an iteration), ``solve_many`` of
+     4 loads from ``default_rng(17)`` each host-checked; the card times of
+     E raw in f64 and f32 at the finest shape (beside cuSPARSE CSR of the
+     assembled matrix, its byte bound and its plain version), of E masked at
+     the f64 operator's and every level's shape (against its plain version
+     in f64, beside its bound and the plain version's time, and summed over a
+     step's 37 applies), the level-0 block-Jacobi, the
      z-coarse Thomas solve, the section coarse solve with the kernel and with
      the addmv_ chain, its Thomas solve alone both ways (the kernel beside
      its byte bound and its latency floor, the exchange steps timed alone),
@@ -241,6 +246,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -402,7 +408,7 @@ def event_ms(fn, runs: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-PTXAS_SOURCES = ("stencil.cu", "element_apply.cu", "varstencil.cu", "curv_weights.cu", "thomas.cu")
+PTXAS_SOURCES = ("stencil.cu", "element_apply.cu", "varstencil.cu", "curv_weights.cu", "thomas.cu", "extruded.cu")
 
 
 def ptxas_log(nvcc, name: str) -> str:
@@ -424,8 +430,8 @@ def ptxas_report(logs: dict) -> None:
         for i, line in enumerate(lines):
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
-                parts = re.search(r"\d+((?:stencil27|uniform_tile|uniform|stored|var27_sym|curv_weights)_kernel)I([df])"
-                                  r"(?:Li(\d+)E)?(?:Lb([01])E)?(?:Lb([01])E)?", m.group(1))
+                parts = re.search(r"\d+((?:stencil27|uniform_tile|uniform|stored|var27_sym|curv_weights|extruded_apply)"
+                                  r"_kernel)I([df])(?:Li(\d+)E)?(?:Lb([01])E)?(?:Lb([01])E)?", m.group(1))
                 var = parts is not None and parts.group(1) == "var27_sym_kernel"
                 kernel = m.group(1)[-40:] if not parts else (
                     f"{parts.group(1)}<{'double' if parts.group(2) == 'd' else 'float'}"
@@ -2514,7 +2520,7 @@ def run_extruded(ftt, counters) -> dict:
     """Phase [17]: the 591,360-DOF tube of tools/tube_bench.py through the
     extruded route. Returns the times of its compute, which has no TPU kernel."""
     from fea_tpu_torch.assembly import assemble_bcoo
-    from fea_tpu_torch.ops import cuda_thomas, extruded_mg
+    from fea_tpu_torch.ops import cuda_extruded, cuda_thomas, extruded_mg
     from fea_tpu_torch.ops.extruded import build_extruded_operator, infer_extruded
     from fea_tpu_torch.ops.extruded_mg import (ComposedExtrudedPrecond, build_extruded_multigrid,
                                                build_section_coarse)
@@ -2541,15 +2547,17 @@ def run_extruded(ftt, counters) -> dict:
 
     with patched({(solve_mod, "_solve_large_hex8"): record,
                   (solve_mod, "solve_curvilinear"): must_not_run("curvilinear")}):
-        zero_counts(staged.COUNTS, extruded_mg.LAUNCHES)
+        zero_counts(staged.COUNTS, extruded_mg.LAUNCHES, cuda_extruded.LAUNCHES)
         sol, launches, whole_s = counted(counters, lambda: ftt.solve(scene, tol=1e-8))
         steps = staged.COUNTS["steps"]
         thomas_first, kernel_first = extruded_mg.LAUNCHES["thomas"], extruded_mg.LAUNCHES["thomas_kernel"]
+        e_first = dict(cuda_extruded.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     st = sol.stats
     say(f"  whole solve (fea_tpu_torch.solve, detection and build included): {whole_s:.3f} s, peak device memory "
         f"{peak_gb:.3f} GB; route {routes}; {st.iterations} iterations (the reference on its TPU: {TUBE_REF_ITERS}), "
-        f"reported {st.relative_residual:.3e}, converged {st.converged}; replays {steps}")
+        f"reported {st.relative_residual:.3e}, converged {st.converged}; replays {steps}; E launched "
+        f"{e_first['apply_f32']} f32, {e_first['apply_f64']} f64 (cuda_extruded.LAUNCHES)")
     u = sol.displacements.cpu().numpy()
     (Ku, rel_host), host_s = timed(lambda: host_check(nodes, elements, mat, fixed, loads, u))
     reac = sol.reactions.cpu().numpy()
@@ -2570,6 +2578,8 @@ def run_extruded(ftt, counters) -> dict:
         "reactions balance the load (1e-6)": balance <= 1e-6,
         "fixed ring exactly 0": not u[fixed].any(),
         "none of K1-K7 or W launched": not any(launches.values()),
+        "E launched in f32 and f64": e_first["apply_f32"] > 0 and e_first["apply_f64"] > 0,
+        f"iterations no more than the reference's {TUBE_REF_ITERS}": st.iterations <= TUBE_REF_ITERS,
     }, "extruded")
 
     # the set-up by stage, on the same scene afresh
@@ -2660,17 +2670,62 @@ def run_extruded(ftt, counters) -> dict:
     del ke_all
     flops = extruded_flops(pc)
     lv0 = mgz.levels[0]
+    degree = mgz.degree
+
+    def plain_apply(o, masked: bool):  # the plain version of E: ~17 launches, on the card
+        def fn(u):
+            F = o.free
+            k = o._accumulate(o._element_forces((F * u if masked else u).reshape(o.n_layers, o.n2, 3)))
+            return F * k.reshape(-1, 3) + (1.0 - F) * u if masked else k.reshape(-1, 3)
+        return fn
+
+    def e_bytes(o, masked: bool) -> int:  # x and y (and F) once, Ke once
+        esize = o.kes.element_size()
+        return (3 if masked else 2) * o.n_nodes * 3 * esize + o.kes.numel() * esize
+
+    def e_flops(o) -> int:  # the element products alone
+        return 2 * 576 * (o.n_layers - 1) * o.kes.shape[0]
+
+    # E raw at the finest shape, against host_ku's K u and CSR
     out = {}
     for key, o in (("extruded_apply_f64", op), ("extruded_apply_f32", lv0.op)):
         uu = u64.to(o.dtype)
-        nbytes = tensor_bytes(o.kes, o.quads, o.inc_q, o.inc_c, o.inc_m) + 2 * uu.numel() * uu.element_size()
-        out[key] = no_kernel_timing(f"extruded apply {str(o.dtype).replace('torch.', '')} ({scene.n_elements} "
-                                    f"elements, {Q2} section Ke)", o.apply_raw, uu, want,
-                                    nbytes, flops["apply_f32"], csr if o is op else csr.to(o.dtype))
-    degree = mgz.degree
-    out["extruded_apply_f64"]["applies"] = f"{steps} replays x 2 (FCG and the composition) + certification"
-    out["extruded_apply_f32"]["applies"] = f"{steps} replays x {2 * degree + 1} (level 0)"
+        out[key] = no_kernel_timing(f"E raw {str(o.dtype).replace('torch.', '')} ({scene.n_elements} elements, "
+                                    f"{Q2} section Ke)", o.apply_raw, uu, want, e_bytes(o, False), e_flops(o),
+                                    csr if o is op else csr.to(o.dtype))
+        out[key]["plain_ms"] = graph_ms(functools.partial(plain_apply(o, False), uu))
+        say(f"    its plain version {out[key]['plain_ms']:.4f} ms (card); E at "
+            f"{out[key]['bound_ms'] / out[key]['ms']:.1%} of its bound")
+    out["extruded_apply_f64"]["applies"] = "the right-hand side, certification and the reactions"
+    out["extruded_apply_f32"]["applies"] = "none on the route (the levels apply the masked form)"
     del csr
+    # E masked at every shape a step applies it: the f64 operator (FCG and the
+    # composition, 2 a step) and each level's f32 one (2 x degree + 1 a step)
+    rng_e = np.random.default_rng(20261027)
+    shapes = [("f64", op, 2)] + [(f"f32 level {i}", lv.op, 2 * degree + 1) for i, lv in enumerate(mgz.levels)]
+    step_e = step_plain = 0.0
+    for tag, o, per in shapes:
+        uu = torch.as_tensor(rng_e.standard_normal((o.n_nodes, 3)), device=DEV).to(o.dtype)
+        o64 = o.astype(torch.float64)
+        got = o.apply(uu)
+        torch.cuda.synchronize()
+        ref = plain_apply(o64, True)(uu.double())
+        err = float((got.double() - ref).abs().max() / ref.abs().max())
+        tol = 1e-12 if o.dtype == torch.float64 else 2e-5
+        ms = graph_ms(functools.partial(o.apply, uu))
+        plain_ms = graph_ms(functools.partial(plain_apply(o, True), uu))
+        bound_ms, bound_by = bound(o.dtype, e_bytes(o, True), e_flops(o))
+        step_e += per * ms
+        step_plain += per * plain_ms
+        say(f"  E masked {tag} ({o.n_layers} node layers of {o.n2}): card {ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}, {e_bytes(o, True) / 1e6:.2f} MB; {bound_ms / ms:.1%}), plain version {plain_ms:.4f} ms "
+            f"({plain_ms / ms:.1f}x); against the plain version in f64 {err:.2e} (tol {tol:g}); {per} a step")
+        require({f"E masked {tag} within {tol:g}": err <= tol}, f"E masked {tag}")
+        out[f"extruded_apply_masked_{tag.replace(' ', '_')}"] = dict(
+            ms=ms, bound_ms=bound_ms, bound_by=bound_by, plain_ms=plain_ms, library_ms=None, max_rel_err=err,
+            layers=o.n_layers, applies=f"{per} a step")
+    say(f"  E's applies of a step: {step_e:.4f} ms in {2 + (2 * degree + 1) * len(mgz.levels)} launches, the plain "
+        f"version's {step_plain:.4f} ms")
 
     r32 = (torch.as_tensor(np.random.default_rng(20261022).standard_normal(nodes.shape), device=DEV)
            * op.free).to(torch.float32)
@@ -3608,7 +3663,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
     import fea_tpu_torch as ftt
-    from fea_tpu_torch.ops import cuda_apply, cuda_curv_weights, cuda_stencil, cuda_thomas, cuda_varstencil, nvcc
+    from fea_tpu_torch.ops import (cuda_apply, cuda_curv_weights, cuda_extruded, cuda_stencil, cuda_thomas,
+                                   cuda_varstencil, nvcc)
 
     phase("[1] device")
     smi = subprocess.run(
@@ -3623,13 +3679,13 @@ def main() -> None:
 
     phase("[2] build")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=5 + len(PTXAS_SOURCES)) as pool:  # one nvcc each, all at once
+    with ThreadPoolExecutor(max_workers=6 + len(PTXAS_SOURCES)) as pool:  # one nvcc each, all at once
         builds = [pool.submit(m.build) for m in (cuda_stencil, cuda_varstencil, cuda_apply, cuda_curv_weights,
-                                                 cuda_thomas)]
+                                                 cuda_thomas, cuda_extruded)]
         logs = {name: pool.submit(ptxas_log, nvcc, name) for name in PTXAS_SOURCES}
         for fut in builds:
             fut.result()
-        say(f"  K1/K2 with K1-halo/K3, K4/K5, K6/K7, the assembly and the block-Thomas solve built in "
+        say(f"  K1/K2 with K1-halo/K3, K4/K5, K6/K7, the assembly, the block-Thomas solve and E built in "
             f"{time.perf_counter() - t0:.2f} s")
         ptxas_report({name: fut.result() for name, fut in logs.items()})
 

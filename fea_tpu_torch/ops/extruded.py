@@ -13,8 +13,13 @@ adjacent layers. All layers are congruent, so the operator keeps one
     gather-sum in a fixed order (no ``index_add_``, whose atomics sum in
     no fixed order, so a CUDA-graph replay is bit for bit the last).
 
-The field is the (L, n2, 3) view of the layer-major (N, 3) vector. No
-kernel: the reference has no Pallas kernel on this route. Counterpart of
+The field is the (L, n2, 3) view of the layer-major (N, 3) vector. That
+is the plain version, the CPU path; on the card ``apply`` and ``apply_raw``
+launch the hand-written kernel E (``ops/cuda_extruded.py``,
+``csrc/extruded.cu``: the whole masked apply in one launch) or raise, and
+the layer-slab path of ``parallel/extruded.py`` keeps the plain pieces
+``_element_forces`` / ``_accumulate``. The reference has no Pallas kernel
+on this route. Counterpart of
 ``fea_tpu/ops/extruded.py``, with the detectors ``infer_extruded`` and
 ``extruded_mg_coarsenable``; its interface is StiffnessOperator's
 (apply / apply_raw / rhs / diag_masked / free / n_dof), so
@@ -24,6 +29,7 @@ z-semicoarsened preconditioner is ``ops/extruded_mg.py``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -33,6 +39,7 @@ from ..dtypes import torch_dtype
 from ..elements import hex8 as hex8_el
 from ..scene import Scene
 from ..utils.profiling import span
+from . import cuda_extruded
 
 __all__ = [
     "ExtrudedOperator",
@@ -130,12 +137,25 @@ class ExtrudedOperator:
         out[1:] += acc(fe[:, :, 4:])  # top-face contributions -> layer l + 1
         return out
 
+    @functools.cached_property
+    def _tile_plans(self) -> dict:
+        """Kernel E's plans and laid-out Ke (``cuda_extruded._tables``),
+        made at the first apply on the card and kept with the operator."""
+        return {}
+
     def apply_raw(self, u: torch.Tensor) -> torch.Tensor:
-        """K @ u over all DOFs. u (N, 3) flat -> (N, 3) flat."""
+        """K @ u over all DOFs. u (N, 3) flat -> (N, 3) flat: kernel E for a
+        CUDA tensor, the plain version for a CPU one."""
+        if u.is_cuda:
+            return cuda_extruded.extruded_apply(self, u, masked=False)
         g = u.reshape(self.n_layers, self.n2, 3)
         return self._accumulate(self._element_forces(g)).reshape(-1, 3)
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
+        """F * K (F * x) + (1 - F) * x: kernel E for a CUDA tensor, the plain
+        version for a CPU one."""
+        if x.is_cuda:
+            return cuda_extruded.extruded_apply(self, x, masked=True)
         F = self.free.to(x.dtype)
         return F * self.apply_raw(F * x) + (1.0 - F) * x
 

@@ -44,8 +44,9 @@ with it, so that a later solve or correction pass on the same
 ``(op, mg)`` captures nothing.
 
 A failed capture or replay raises; nothing falls back to the eager loop on
-the card. The kernels' wrappers bump their launch counters, and the
-extruded route's Thomas sweeps theirs (``extruded_mg.LAUNCHES``), so a
+the card. The kernels' wrappers bump their launch counters (the extruded
+apply's ``cuda_extruded.LAUNCHES`` among them), and the extruded route's
+Thomas sweeps theirs (``extruded_mg.LAUNCHES``), so a
 capture counts what one replay launches: the capture's counts are taken
 back and credited again on every replay. The eager warm-up step before a
 capture counts once, as any eager step does.
@@ -63,7 +64,7 @@ import torch
 
 from .. import sanitize
 from ..dtypes import precise_dot
-from ..ops import cuda_apply, cuda_stencil, cuda_varstencil, extruded_mg
+from ..ops import cuda_apply, cuda_extruded, cuda_stencil, cuda_varstencil, extruded_mg
 from ..solvers.cg import SolveStats
 from ..utils.profiling import span
 from ._types import Solution
@@ -78,7 +79,8 @@ __all__ = ["COUNTS", "solve_operator_fpcg_staged"]
 # ms of warm-up and capture (the ``fea.fcg.capture`` spans' time).
 COUNTS = {"steps": 0, "live": 0, "past": 0, "readbacks": 0, "captures": 0, "capture_ms": 0.0}
 
-_COUNTERS = (cuda_stencil.LAUNCHES, cuda_varstencil.LAUNCHES, cuda_apply.LAUNCHES, extruded_mg.LAUNCHES)
+_COUNTERS = (cuda_stencil.LAUNCHES, cuda_varstencil.LAUNCHES, cuda_apply.LAUNCHES, extruded_mg.LAUNCHES,
+             cuda_extruded.LAUNCHES)
 _STATUS = 5  # a case's status row: rr, iterations, done, blown, ||b||^2
 _PLANS: dict = {}  # id(hierarchy) -> its _Plan, dropped with the hierarchy
 _STREAMS: dict = {}  # device -> the stream every capture on it runs on

@@ -40,7 +40,8 @@ not positive definite). :func:`reset` clears the ring and the counters.
 Beside them, outside this module's counters and kept as process totals
 (zero them before a solve, read them after): the kernels' launch counts
 (``ops.cuda_stencil.LAUNCHES``, ``ops.cuda_varstencil.LAUNCHES``,
-``ops.cuda_apply.LAUNCHES``, ``ops.cuda_curv_weights.LAUNCHES``), the
+``ops.cuda_apply.LAUNCHES``, ``ops.cuda_curv_weights.LAUNCHES``, the
+extruded apply's ``ops.cuda_extruded.LAUNCHES``), the
 extruded route's block-Thomas solves (``ops.extruded_mg.LAUNCHES["thomas"]``:
 one a launch of the block-Thomas kernel on the card, where it takes the
 factors, else one an ``addmv_``, 2 (L - 1) a solve of L layers; two solves

@@ -1,5 +1,6 @@
 """K1, K2, K3 (and K1's halo form), K4, K5 (and their slab forms), K6,
-K7 and the block-Thomas kernel on the card against their plain version
+K7, the block-Thomas kernel and the extruded apply E on the card against
+their plain version
 (f64) on the card, the
 z-sharded and the sharded curvilinear solve on one card,
 and the staged loop of the grid, embedded and extruded routes on the card.
@@ -15,7 +16,7 @@ import torch
 
 from fea_tpu_torch.elements.hex8 import stiffness_matrix_np
 from fea_tpu_torch.materials import Material
-from fea_tpu_torch.mesh import box_hex_mesh
+from fea_tpu_torch.mesh import annulus_section, box_hex_mesh, generate_quad_grid
 from fea_tpu_torch.ops import cuda_stencil
 from fea_tpu_torch.ops.cuda_stencil import stencil_apply, stencil_weights
 from fea_tpu_torch.ops.structured import stencil_apply_grid
@@ -924,5 +925,134 @@ def test_extruded_solve_takes_the_thomas_kernel_on_card(monkeypatch):
     assert torch.equal(again.displacements, sols["cuda"].displacements)
     cpu, card = sols["cpu"], sols["cuda"]
     assert card.stats.converged and abs(card.stats.iterations - cpu.stats.iterations) <= 1
+    u = cpu.displacements
+    assert float((card.displacements.cpu() - u).abs().max()) <= 1e-7 * float(u.abs().max())
+
+
+# E on the card: the tube's five level shapes (385 to 25 node layers of a
+# 256-segment annulus, valence 2), a rectangular section of valence 4 at a
+# width of one and of two layers a lane, and operators of two layers
+EXTRUDED_SECTIONS = {"tube": lambda: annulus_section(256, 0.09906, 0.1016),
+                     "grid": lambda: generate_quad_grid(16, 12, 0.1, 0.08)}
+EXTRUDED_CASES = [("tube", 385), ("tube", 193), ("tube", 97), ("tube", 49), ("tube", 25), ("tube", 2),
+                  ("grid", 70), ("grid", 130), ("grid", 2)]
+# f32: rounding of the inputs, Ke and sums of 2 x valence x 24 products, as
+# K1's bound; f64: another summation order than the plain version's cuBLAS
+EXTRUDED_BOUNDS = {torch.float32: 2e-5, torch.float64: 1e-12}
+
+
+def _extruded_op(section: str, L: int, dtype, seed: int):
+    """An extruded operator on the card: random symmetric Ke a section quad
+    and a random 0/1 free mask (the apply's arithmetic needs no geometry)."""
+    from fea_tpu_torch.ops.extruded import _make
+
+    nodes2d, quads = EXTRUDED_SECTIONS[section]()
+    rng = np.random.default_rng(seed)
+    M = rng.normal(size=(quads.shape[0], 24, 24))
+    n2 = nodes2d.shape[0]
+    free = (rng.random((n2 * L, 3)) > 0.1).astype(np.float64)
+    op = _make(M + M.transpose(0, 2, 1), np.asarray(quads, np.int64), free, n2, L, dtype, torch.device("cuda"))
+    x = torch.as_tensor(rng.normal(size=(n2 * L, 3)), dtype=dtype, device="cuda")
+    return op, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("section,L", EXTRUDED_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_extruded_apply_kernel_matches_the_plain_version_on_card(section, L, dtype):
+    """E, masked and raw, against the plain version run in f64 on the card
+    on the same (rounded) Ke and input; one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: kernel E has no CPU mode")
+    from fea_tpu_torch.ops import cuda_extruded
+
+    op, x = _extruded_op(section, L, dtype, 27 + L)
+    op64, x64 = op.astype(torch.float64), x.double()
+    F = op64.free
+
+    def plain(u):
+        return op64._accumulate(op64._element_forces(u.reshape(L, op.n2, 3))).reshape(-1, 3)
+
+    key = "apply_f32" if dtype == torch.float32 else "apply_f64"
+    n0 = cuda_extruded.LAUNCHES[key]
+    for masked in (True, False):
+        got = op.apply(x) if masked else op.apply_raw(x)
+        torch.cuda.synchronize()
+        want = F * plain(F * x64) + (1.0 - F) * x64 if masked else plain(x64)
+        err = float((got.double() - want).abs().max()) / float(want.abs().max())
+        assert got.dtype == dtype and got.shape == x.shape
+        assert err <= EXTRUDED_BOUNDS[dtype], (section, L, dtype, masked, err)
+    assert cuda_extruded.LAUNCHES[key] == n0 + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_extruded_apply_kernel_gives_the_same_bits_twice_and_in_a_graph(dtype):
+    """Two calls, and two replays of one captured launch, give E's answer
+    bit for bit at the tube's finest shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: kernel E has no CPU mode")
+    op, x = _extruded_op("tube", 385, dtype, 2027)
+    first = op.apply(x)
+    assert torch.equal(first, op.apply(x))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        op.apply(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = op.apply(x)
+    graph.replay()
+    a = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(a, out) and torch.equal(a, first)
+
+
+@pytest.mark.cuda
+def test_extruded_solve_takes_the_apply_kernel_on_card(monkeypatch):
+    """A 48-segment tube (17,280 DOF) through ``solve()`` on the card: every
+    apply of a replay is E (2 x degree + 1 f32 launches a smoothed level, and
+    the FCG's and the composition's f64 ones), the answer the CPU's (the
+    extruded tests' tolerance) in no more iterations than the CPU's plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the staged loop captures on the card")
+    import sys
+
+    import fea_tpu_torch as ftt
+    from fea_tpu_torch.mesh import extrude_quads
+    from fea_tpu_torch.ops import cuda_extruded
+    from fea_tpu_torch.scene import fix_where, make_scene
+    from fea_tpu_torch.solve import staged
+
+    monkeypatch.setattr(sys.modules["fea_tpu_torch.solve"], "_STRUCTURED_MIN_DOF", 0)
+    monkeypatch.setattr(sys.modules["fea_tpu_torch.solve.cache"], "_BUILD_CACHE", {})
+    nodes2d, quads = annulus_section(48, 0.08, 0.1)
+    nodes, elements = extrude_quads(nodes2d, quads, np.linspace(0.0, 0.6, 61))
+    fixed = fix_where(nodes, lambda p: p[:, 2] == 0.0, 3)
+    loads = np.zeros_like(nodes)
+    loads[nodes[:, 2] == nodes[:, 2].max(), 1] = 1.0
+    sols = {}
+    for dev in ("cpu", "cuda"):
+        sc = make_scene(nodes, elements, fixed, loads, Material(E=2e6, nu=0.3), dtype=torch.float64, device=dev)
+        sols[dev] = ftt.solve(sc, tol=1e-10)
+        torch.cuda.synchronize()
+    assert sols["cuda"].route == "fpcg-extruded-multigrid"
+    _, pc = sys.modules["fea_tpu_torch.solve.cache"]._BUILD_CACHE[("extruded", 3)][-1][2]  # the card's build
+    for c in (staged.COUNTS, cuda_extruded.LAUNCHES):
+        for key in c:
+            c[key] = 0
+    again = ftt.solve(sc, tol=1e-10)
+    torch.cuda.synchronize()
+    steps = staged.COUNTS["steps"]
+    assert staged.COUNTS["captures"] == 0 and steps > 0
+    assert cuda_extruded.LAUNCHES["apply_f32"] == steps * (2 * pc.mg.degree + 1) * len(pc.mg.levels)
+    # a replay's two; outside the steps the right-hand side, the reactions and certification's residuals
+    assert 2 * steps + 2 <= cuda_extruded.LAUNCHES["apply_f64"] <= 2 * steps + 8
+    assert torch.equal(again.displacements, sols["cuda"].displacements)
+    cpu, card = sols["cpu"], sols["cuda"]
+    assert card.stats.converged and card.stats.iterations <= cpu.stats.iterations
     u = cpu.displacements
     assert float((card.displacements.cpu() - u).abs().max()) <= 1e-7 * float(u.abs().max())

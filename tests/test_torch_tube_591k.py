@@ -28,7 +28,7 @@ from benchmark.meshes import tube
 from benchmark.reference import check, hex8
 from benchmark.tests import tiny
 from fea_tpu_torch import utils
-from fea_tpu_torch.ops import extruded_mg
+from fea_tpu_torch.ops import cuda_extruded, extruded_mg
 from fea_tpu_torch.solve import staged
 from torch_pin import one_torch_thread  # noqa: F401
 
@@ -37,7 +37,7 @@ CACHE = sys.modules["fea_tpu_torch.solve.cache"]
 SEEDS = (2**31 + 11, 3_900_020_001, 7)
 TUBE32 = {"segments": 8, "layers": 32}
 ROUTE = "fpcg-extruded-multigrid"
-READERS = ("thomas_launches_per_iteration", "fcg_device_ms_per_iteration")
+READERS = ("thomas_launches_per_iteration", "fcg_device_ms_per_iteration", "extruded_apply_launches_per_iteration")
 
 
 @pytest.fixture
@@ -229,6 +229,22 @@ def test_the_launch_reader_reads_the_programs_counters(readers, monkeypatch):
     assert read(_run()) is None
 
 
+def test_the_apply_launch_reader_reads_the_kernels_counter(readers, monkeypatch):
+    read = readers["extruded_apply_launches_per_iteration"]
+    monkeypatch.setitem(cuda_extruded.LAUNCHES, "apply_f32", 35 * 40 + 35)
+    monkeypatch.setitem(cuda_extruded.LAUNCHES, "apply_f64", 2 * 40 + 5)
+    monkeypatch.setitem(staged.COUNTS, "steps", 40)
+    assert read(_run()) == pytest.approx(37 + 40 / 40)
+    monkeypatch.setitem(staged.COUNTS, "steps", 0)
+    assert read(_run()) is None
+    # a program without the kernel, such as one before it
+    monkeypatch.setitem(staged.COUNTS, "steps", 40)
+    monkeypatch.setitem(sys.modules, "fea_tpu_torch.ops.cuda_extruded", SimpleNamespace())
+    assert read(_run()) is None
+    monkeypatch.delitem(sys.modules, "fea_tpu_torch.ops.cuda_extruded")
+    assert read(_run()) is None
+
+
 def test_the_device_reader_reads_busy_time_over_the_slices_iterations(readers):
     read = readers["fcg_device_ms_per_iteration"]
     # two profiled requests of 27 and 26 iterations; one outside the slice counts nothing
@@ -275,3 +291,5 @@ def test_a_traced_run_of_a_tiny_tube_cell(tmp_path):
     assert steps > 0 and launches == per_step * steps
     assert res["metrics"]["thomas_launches_per_iteration"] == {"value": per_step, "unit": "launches"}
     assert "fcg_device_ms_per_iteration" not in res["metrics"]
+    # the CPU applies the plain version: no launch of the kernel
+    assert res["metrics"]["extruded_apply_launches_per_iteration"] == {"value": 0.0, "unit": "launches"}
